@@ -1,0 +1,40 @@
+"""H.264 Baseline all-Intra16x16 encoder in PyTorch and CUDA.
+
+A port of the h264_fer_tpu JAX package (the frozen reference) to PyTorch
+on an NVIDIA H100. It imports neither JAX nor anything of h264_fer_tpu.
+Its entry points run on the card (device "cuda") unless the caller asks
+for the CPU, where the plain PyTorch version of each kernel runs.
+
+Main path: parallel.gop_device.GopIntraEncoder → codec.iframe.device_i16_frame
+→ mode decision, the CUDA wavefront kernel (kernels/csrc/wavefront_i16.cu),
+levels, whole-slice CAVLC on the device → host slice header, payload, EPB.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def entry(device="cuda"):
+    """(fn, example_args): one all-I16 frame encode at QCIF, QP 28, on
+    `device` (raises when CUDA is asked for and absent). fn(y, cb, cr)
+    returns (payload words, nbits, recon_y)."""
+    import torch
+
+    from .codec.iframe import device_i16_frame
+    from .ops.device import resolve_device
+    from .ops.transform import chroma_qp
+
+    dev = resolve_device(device)
+    W, H, QP = 176, 144, 28
+
+    def fn(y, cb, cr):
+        out = device_i16_frame(y, cb, cr, QP, chroma_qp(QP, 0))
+        return out["words"], out["nbits"], out["recon_y"]
+
+    rng = np.random.default_rng(0)
+    planes = (rng.integers(0, 256, (H, W)),
+              rng.integers(0, 256, (H // 2, W // 2)),
+              rng.integers(0, 256, (H // 2, W // 2)))
+    args = tuple(torch.from_numpy(p.astype(np.uint8)).to(dev) for p in planes)
+    return fn, args

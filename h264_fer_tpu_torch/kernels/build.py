@@ -1,0 +1,74 @@
+"""Build the package's CUDA kernels from the sources in kernels/csrc.
+
+`csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` for
+sm_90a into `h264_fer_tpu_torch/_build/lib<name>-<hash>.so`, then loaded
+with ctypes. The file name carries a hash of the source and the flags, so a
+changed source is rebuilt and a stale library is never loaded. No PyTorch
+header is compiled, so a build takes seconds (PERF.md compares it with
+torch.utils.cpp_extension.load, timed by kernels/time_build.py).
+
+Nothing here runs at import: the first launch of a kernel builds it. A
+missing nvcc or a failed compile raises; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import threading
+
+CSRC = pathlib.Path(__file__).parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).parent.parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """Path of nvcc: $CUDA_HOME/bin, /usr/local/cuda/bin, then PATH."""
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and (pathlib.Path(home) / "bin" / "nvcc").exists():
+            return str(pathlib.Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def compile_source(name: str) -> tuple[pathlib.Path, str]:
+    """Compile csrc/<name>.cu unless its library is up to date. Returns
+    (library path, nvcc/ptxas output; empty when nothing was compiled)."""
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"kernel build failed: {name}: nvcc exit "
+                           f"{proc.returncode}\n{proc.stdout}")
+    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    return out, proc.stdout
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, building it on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(compile_source(name)[0]))
+            _libs[name] = lib
+        return lib

@@ -1,0 +1,43 @@
+"""Device selection and device-resident spec tables.
+
+The entry points run on the card unless the caller asks for the CPU. A
+request for CUDA on a machine without it raises: nothing falls back to the
+CPU silently.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+DEFAULT_DEVICE = torch.device("cuda")
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for `device` (a device, or a string such as "cpu");
+    raises RuntimeError for CUDA when no card is visible."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA device requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run the plain PyTorch path")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+@functools.lru_cache(maxsize=256)
+def _const(data: bytes, dtype: str, shape: tuple, device: torch.device):
+    arr = np.frombuffer(data, dtype=np.dtype(dtype)).reshape(shape)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def const(array, device) -> torch.Tensor:
+    """A small constant numpy table as a tensor on `device`, uploaded once
+    per (table, device): a pageable host-to-device copy synchronises the
+    stream, so the frame path never uploads a table twice. Callers must
+    not write to the returned tensor."""
+    a = np.ascontiguousarray(array)
+    return _const(a.tobytes(), a.dtype.str, a.shape, torch.device(device))

@@ -1,0 +1,112 @@
+"""Constant spec tables for the H.264 Baseline transform/quant path.
+
+A numpy copy of the tables of h264_fer_tpu/ops/tables.py that the
+all-Intra16x16 path needs (norm tables as the reference implements them:
+quantizationTransform.cpp:12-32, scaleTransform.cpp:32-52,
+inttransform.cpp:8-14, h264_globals.cpp:200-214). Kept as numpy int32 so
+that importing the package touches no device; code moves them to its device
+with ops.device.const. tests/test_torch_tables.py holds each array equal to
+the JAX package's.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+# ---------------------------------------------------------------------------
+# Zig-zag scan (norm 8.5.6; reference scaleTransform.cpp:43-47).
+# ZIGZAG_FLAT[i] = raster index (4*row+col) of the i-th coefficient in
+# zig-zag order.
+ZIGZAG_YX = np.array(
+    [
+        [0, 0], [0, 1], [1, 0], [2, 0], [1, 1], [0, 2], [0, 3], [1, 2],
+        [2, 1], [3, 0], [3, 1], [2, 2], [1, 3], [2, 3], [3, 2], [3, 3],
+    ],
+    dtype=np.int32,
+)
+ZIGZAG_FLAT = (ZIGZAG_YX[:, 0] * 4 + ZIGZAG_YX[:, 1]).astype(np.int32)
+# Inverse: INV_ZIGZAG_FLAT[raster] = zig-zag position of that raster coeff.
+INV_ZIGZAG_FLAT = np.argsort(ZIGZAG_FLAT).astype(np.int32)
+
+# ---------------------------------------------------------------------------
+# Dequant scale table LevelScale[qP%6][i][j] = 16 * normAdjust(m, i, j)
+# (norm 8.5.12.1 with weightScale==16; reference scaleTransform.cpp:32-40).
+_V = np.array(
+    [[10, 16, 13], [11, 18, 14], [13, 20, 16],
+     [14, 23, 18], [16, 25, 20], [18, 29, 23]],
+    dtype=np.int32,
+)
+
+
+def _norm_adjust_table() -> np.ndarray:
+    t = np.zeros((6, 4, 4), dtype=np.int32)
+    for m in range(6):
+        for i in range(4):
+            for j in range(4):
+                if i % 2 == 0 and j % 2 == 0:
+                    t[m, i, j] = _V[m, 0]
+                elif i % 2 == 1 and j % 2 == 1:
+                    t[m, i, j] = _V[m, 1]
+                else:
+                    t[m, i, j] = _V[m, 2]
+    return t
+
+
+LEVEL_SCALE = 16 * _norm_adjust_table()  # (6, 4, 4) int32
+
+# ---------------------------------------------------------------------------
+# Encoder-side quantization multiplier table (reference
+# quantizationTransform.cpp:24-32).
+LEVEL_QUANTIZE = np.array(
+    [
+        [[205, 158, 205, 158], [158, 128, 158, 128],
+         [205, 158, 205, 158], [158, 128, 158, 128]],
+        [[186, 146, 186, 146], [146, 114, 146, 114],
+         [186, 146, 186, 146], [146, 114, 146, 114]],
+        [[158, 128, 158, 128], [128, 102, 128, 102],
+         [158, 128, 158, 128], [128, 102, 128, 102]],
+        [[146, 114, 146, 114], [114, 89, 114, 89],
+         [146, 114, 146, 114], [114, 89, 114, 89]],
+        [[128, 102, 128, 102], [102, 82, 102, 82],
+         [128, 102, 128, 102], [102, 82, 102, 82]],
+        [[114, 89, 114, 89], [89, 71, 89, 71],
+         [114, 89, 114, 89], [89, 71, 89, 71]],
+    ],
+    dtype=np.int32,
+)
+
+# ---------------------------------------------------------------------------
+# Chroma QP mapping (norm Table 8-15; reference inttransform.cpp:8-14).
+QPI_TO_QPC = np.array(
+    [0, 1, 2, 3, 4, 5, 6, 7,
+     8, 9, 10, 11, 12, 13, 14, 15,
+     16, 17, 18, 19, 20, 21, 22, 23,
+     24, 25, 26, 27, 28, 29, 29, 30,
+     31, 32, 32, 33, 34, 34, 35, 35,
+     36, 36, 37, 37, 37, 38, 38, 38,
+     39, 39, 39, 39],
+    dtype=np.int32,
+)
+
+# ---------------------------------------------------------------------------
+# Intra 4x4 block scan order: Intra4x4ScanOrder[blkIdx] = (x, y) pixel offset
+# of the 4x4 block inside the macroblock (reference h264_globals.cpp:209-214).
+# Ordering: Z-order over the four 8x8 quadrants, Z-order inside each.
+INTRA4X4_SCAN_ORDER_XY = np.array(
+    [
+        [0, 0], [4, 0], [0, 4], [4, 4],
+        [8, 0], [12, 0], [8, 4], [12, 4],
+        [0, 8], [4, 8], [0, 12], [4, 12],
+        [8, 8], [12, 8], [8, 12], [12, 12],
+    ],
+    dtype=np.int32,
+)
+# raster(row-major in 4x4-block units) -> zig/Z-scan block index
+# (reference h264_globals.cpp:200-206 `to_4x4_luma_block`).
+RASTER_TO_LUMA_BLOCK = np.array(
+    [0, 1, 4, 5,
+     2, 3, 6, 7,
+     8, 9, 12, 13,
+     10, 11, 14, 15],
+    dtype=np.int32,
+)
