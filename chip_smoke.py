@@ -4,21 +4,36 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
-  1. print the card's name and power limit; build the CUDA kernel from
-     h264_fer_tpu_torch/kernels/csrc (nvcc, sm_90a) and print the build time
-     and the ptxas report;
+  1. print the card's name and power limit; build the five CUDA kernels
+     from h264_fer_tpu_torch/kernels/csrc (one nvcc per source, all started
+     at once, sm_90a) and print each build's time and ptxas report;
   2. hold the K1 wavefront kernel against its plain PyTorch version on the
      card: bit-exact recon at 1920x1088 for QP 8, 28 and 46 on structured
      content made from a seed, plus two small grids (wide and tall); time
      both with CUDA events;
-  3. drive the main path: GopIntraEncoder encodes 8 frames at 1920x1088,
-     QP 28, on the card with the launch counts set to 0 just before; the
-     stream must equal, byte for byte, the stream of the plain chain (mode
-     decision, plain K1, levels, entropy) on the card, and parse back into
-     SPS, PPS and 8 IDR slices; a QCIF stream from the card must equal the
-     CPU path's (the path the CPU tests hold against the JAX reference).
-     Prints e2e fps, device frame fps and the per-stage device times;
-  4. print the kernels line and, last, {"ok": true, "device": {...}}.
+  3. drive the all-intra path: GopIntraEncoder encodes 8 frames at
+     1920x1088, QP 28, on the card with the launch counts set to 0 just
+     before; the stream must equal, byte for byte, the stream of the plain
+     chain (mode decision, plain K1, levels, entropy) on the card, and parse
+     back into SPS, PPS and 8 IDR slices; a QCIF stream from the card must
+     equal the CPU path's (the path the CPU tests hold against the JAX
+     reference). Prints e2e fps, device frame fps and the per-stage device
+     times;
+  4. hold K2 (integer search), K3 (qpel refine), K4 (P decision wavefront)
+     and K5 (MC) against their plain twins on the card, bit-exact: at
+     1920x1088 for QP 28, 40 and 46 (the three metric tiers) on the maps
+     and MVs of a content pair, then on QCIF grids with random previous
+     MVs beyond the search limit, random MC MVs at the limit, and flat
+     content where every score ties; time kernel and plain at QP 28;
+  5. drive the IPPP main path: GopIpppEncoder(1920, 1088, 28, gop_len=8)
+     encodes 16 frames with the launch counts set to 0 just before; the
+     first GOP's stream must equal, byte for byte, the stream of the plain
+     chain on the card (plain K1 and all four plain P twins), and the whole
+     stream parse back into SPS, PPS and per GOP an IDR and 7 P slice
+     headers; a QCIF IPPP stream from the card must equal the CPU path's.
+     Prints e2e fps, device ms per P frame for each stage and K4's counted
+     launches;
+  6. print the kernels line and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -29,6 +44,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -36,6 +52,10 @@ W, H, QP, N_FRAMES = 1920, 1088, 28, 8
 E2E_REPS = 5
 CHECK_QPS = (8, 28, 46)
 SEED = 7
+KERNEL_SOURCES = ("wavefront_i16", "me_int", "me_qpel", "wavefront_p", "mc")
+# the IPPP main path: bench.py's e2e_ippp_encode_1080p_fps configuration
+GOP_LEN, N_IPPP, WINDOW = 8, 16, 8
+P_QPS = (28, 40, 46)  # SAD, SSD and 2*SSD tiers
 # H100 SXM at 700 W: HBM3 rate (data sheet), and the int32 rate of the CUDA
 # cores (H100 whitepaper: 132 SMs x 64 int32 lanes x 1.98 GHz boost); K1's
 # work is int32.
@@ -179,26 +199,6 @@ def parse_stream(stream: bytes, n_frames: int, w: int, h: int, qp: int):
             raise AssertionError(f"slice {i}: {sh}")
 
 
-def plain_chain_stream(torch, dev, enc, frames) -> bytes:
-    """The stream of the oracle chain on the card: mode decision, plain K1,
-    levels and entropy per frame, stitched by the encoder."""
-    from h264_fer_tpu_torch.codec.entropy import i16_slice_entropy
-    from h264_fer_tpu_torch.codec.intra_decision import intra16_mode_decision
-    from h264_fer_tpu_torch.kernels.wavefront_i16 import (i16_levels_from_recon,
-                                                          i16_recon_plain)
-    from h264_fer_tpu_torch.ops.intra import INTRA16_TO_CHROMA_MODE
-
-    payloads = []
-    for frame in frames:
-        y, cb, cr = (torch.tensor(p, device=dev) for p in frame)
-        m16 = intra16_mode_decision(y.to(torch.int32), enc.qp)[0].to(torch.int32)
-        cm = torch.from_numpy(INTRA16_TO_CHROMA_MODE).to(dev)[m16.long()]
-        rec = i16_recon_plain(y, cb, cr, m16, cm, enc.qp, enc.qpc)
-        lv = i16_levels_from_recon(y, cb, cr, *rec, m16, cm, enc.qp, enc.qpc)
-        payloads.append(i16_slice_entropy(m16, cm, *lv, wmb=enc.wmb, hmb=enc.hmb))
-    return enc.stitch(payloads)
-
-
 def stage_times(torch, dev, frame):
     """Device ms of each stage of one 1080p frame, CUDA events."""
     from h264_fer_tpu_torch.codec.entropy import i16_slice_entropy
@@ -245,6 +245,371 @@ def device_busy(torch, fn):
                               for e in top]
 
 
+def build_all():
+    """Build every kernel source at once (one nvcc each) and print each
+    build's time and ptxas report."""
+    from h264_fer_tpu_torch.kernels import build
+
+    def timed(name):
+        t0 = time.perf_counter()
+        lib, log = build.compile_source(name)
+        return lib, log, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        done = dict(zip(KERNEL_SOURCES, pool.map(timed, KERNEL_SOURCES)))
+    for name, (lib, log, sec) in done.items():
+        print(f"built {lib.name} in {sec:.1f} s\n--- nvcc {name} ---\n{log.strip()}",
+              flush=True)
+    print(f"all {len(done)} builds: {time.perf_counter() - t0:.1f} s wall", flush=True)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(nbytes_moved: float, ops: float):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the int32 operations over the CUDA cores' int32 rate."""
+    t_bytes = nbytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def max_err(torch, got, want) -> int:
+    """Largest absolute difference over matching tensors (bools as 0/1)."""
+    return max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+               for g, w in zip(got, want))
+
+
+P_KERNELS = ("me_int", "me_qpel", "wavefront_p", "mc")
+DECIDE_KEYS = ("skip", "mb_type", "mv", "mvd")
+
+
+def p_kernels(plain: bool) -> dict:
+    """K2-K5 as the stage callables of p_frame_stages: the wrappers, which
+    launch the kernels on the card, or with `plain` their plain twins."""
+    from h264_fer_tpu_torch.kernels.mc import mc_bulk, mc_bulk_plain
+    from h264_fer_tpu_torch.kernels.me_int import integer_score_map, integer_score_map_plain
+    from h264_fer_tpu_torch.kernels.me_qpel import qpel_refine_map_plain, qpel_refine_maps
+    from h264_fer_tpu_torch.kernels.wavefront_p import pframe_decide, pframe_decide_plain
+
+    if not plain:
+        return {"me_int": integer_score_map, "me_qpel": qpel_refine_maps,
+                "wavefront_p": pframe_decide, "mc": mc_bulk}
+    return {"me_int": integer_score_map_plain,
+            "me_qpel": lambda y, planes, c1, c2, ext, metric: (
+                qpel_refine_map_plain(y, planes, c1, ext, metric),
+                qpel_refine_map_plain(y, planes, c2, ext, metric)),
+            "wavefront_p": pframe_decide_plain, "mc": mc_bulk_plain}
+
+
+def p_frame_stages(torch, kern, frame, ref, qp, mc_mv=None):
+    """One P frame through device_p_frame's stages (search window +-WINDOW,
+    adaptive MAXDIFF, the prefilter below QP 36), with K2-K5 the callables
+    `kern` of p_kernels. frame: (y, cb, cr) uint8 planes on one device;
+    ref: (ref_y, ref_cb, ref_cr, prev_mv); mc_mv: MVs for K5 in place of
+    the decision's. Returns (fns, args, outs): each stage's callable, its
+    arguments and its output, by stage name."""
+    from h264_fer_tpu_torch.codec.entropy import p_slice_entropy
+    from h264_fer_tpu_torch.codec.pframe import (adaptive_maxdiff, blocks_to_mbq,
+                                                 me_centres, me_params,
+                                                 pframe_residual_recon)
+    from h264_fer_tpu_torch.ops.interp import interpolated_planes, pad_chroma
+    from h264_fer_tpu_torch.ops.transform import chroma_qp
+
+    y, cb, cr = frame
+    ref_y, ref_cb, ref_cr, prev_mv = ref
+    h, w = y.shape
+    wmb, hmb = w // 16, h // 16
+    ext = WINDOW + 2
+    ext_c = ext // 2 + 1
+    metric_id, lam = me_params(qp)
+    mbq = lambda x: blocks_to_mbq(x, wmb, hmb)  # noqa: E731
+    fns = {"interp": interpolated_planes, **kern,
+           "residual_recon": pframe_residual_recon,
+           "entropy": lambda *a: p_slice_entropy(*a, wmb=wmb, hmb=hmb)}
+    args, outs = {}, {}
+
+    def run(name, *a):
+        args[name] = a
+        outs[name] = fns[name](*a)
+        return outs[name]
+
+    planes = run("interp", ref_y, ext)
+    im = run("me_int", y, planes[0], ext, WINDOW, metric_id)
+    c1, c2_blk, c2, q2ok = me_centres(im, prev_mv, wmb, hmb, WINDOW)
+    q1, q2 = run("me_qpel", y, planes, c1, c2_blk, ext, metric_id)
+    maxdiff = adaptive_maxdiff(y, wmb, hmb, -1)
+    dec = run("wavefront_p", y, planes, mbq(im), mbq(c1), mbq(q1), c2, mbq(q2),
+              q2ok, maxdiff, wmb, hmb, WINDOW, ext, metric_id, lam)
+    pred = run("mc", planes, pad_chroma(ref_cb, ext_c), pad_chroma(ref_cr, ext_c),
+               dec["mv"] if mc_mv is None else mc_mv, ext, ext_c, wmb, hmb)
+    levels = run("residual_recon", y, cb, cr, *pred, dec["skip"], maxdiff, wmb,
+                 hmb, qp, chroma_qp(qp), qp < 36)[0]
+    run("entropy", dec["skip"], dec["mb_type"], dec["mvd"], levels["luma"],
+        levels["cdc"], levels["cac"])
+    return fns, args, outs
+
+
+def kernel_outputs(out) -> list:
+    """A K2-K5 output as a list of tensors (K4's dict in DECIDE_KEYS order)."""
+    if isinstance(out, dict):
+        return [out[k] for k in DECIDE_KEYS]
+    return [out] if hasattr(out, "shape") else list(out)
+
+
+def distinct(torch, size: int, index_sets) -> int:
+    """How many distinct elements of a flat buffer of `size` elements the
+    int64 index tensors `index_sets` name."""
+    seen = None
+    for idx in index_sets:
+        if seen is None:
+            seen = torch.zeros(size, dtype=torch.bool, device=idx.device)
+        seen[idx.reshape(-1)] = True
+    return int(seen.sum())
+
+
+def qpel_reads(torch, y, planes, centres, ext) -> int:
+    """Bytes of the distinct phase samples K3's function reads: the 8x8
+    window of every block at each of the 49 offsets around each centre."""
+    _, he, we = planes.shape
+    h, w = y.shape
+    wb = w // 8
+    blk = torch.arange((h // 8) * wb, device=y.device)
+    bx0, by0 = (blk % wb) * 8, (blk // wb) * 8
+    ii = torch.arange(8, device=y.device)
+    win = (ii[:, None] * we + ii[None, :]).reshape(-1)
+
+    def windows():
+        for c in centres:
+            for k in range(49):
+                mvx, mvy = c[:, 0] + k % 7 - 3, c[:, 1] + k // 7 - 3
+                yield ((((mvy & 3) * 4 + (mvx & 3)).long() * he
+                        + (by0 + (mvy >> 2) + ext).clamp(0, he - 8)) * we
+                       + (bx0 + (mvx >> 2) + ext).clamp(0, we - 8))[:, None] + win
+
+    return distinct(torch, planes.numel(), windows())
+
+
+def mc_reads(torch, planes, c_pad, mv, ext, ext_c, wmb, hmb) -> int:
+    """Bytes of the distinct samples K5's function reads: one phase sample
+    per luma output, and in each chroma plane the bilinear taps of nonzero
+    weight of every chroma output."""
+    _, he, we = planes.shape
+    hp, wp = c_pad.shape
+    dev = mv.device
+
+    def per_sample(n):  # (MV x, MV y, x, y) of every sample of n x n quadrants
+        m = (mv.reshape(hmb, wmb, 2, 2, 2).permute(0, 2, 1, 3, 4)
+             .reshape(2 * hmb, 2 * wmb, 2).repeat_interleave(n, 0)
+             .repeat_interleave(n, 1))
+        yy, xx = torch.meshgrid(torch.arange(m.shape[0], device=dev),
+                                torch.arange(m.shape[1], device=dev), indexing="ij")
+        return m[..., 0], m[..., 1], xx, yy
+
+    mvx, mvy, xx, yy = per_sample(8)
+    luma = ((((mvy & 3) * 4 + (mvx & 3)).long() * he
+             + (yy + (mvy >> 2) + ext).clamp(0, he - 1)) * we
+            + (xx + (mvx >> 2) + ext).clamp(0, we - 1))
+    mvx, mvy, xx, yy = per_sample(4)
+    fx, fy = (mvx & 7) > 0, (mvy & 7) > 0
+    a = ((yy + (mvy >> 3) + ext_c + 1).clamp(0, hp - 2) * wp
+         + (xx + (mvx >> 3) + ext_c + 1).clamp(0, wp - 2))
+    # a tap of zero weight is not needed; it names the first tap again
+    taps = (a, torch.where(fx, a + 1, a), torch.where(fy, a + wp, a),
+            torch.where(fx & fy, a + wp + 1, a))
+    return (distinct(torch, planes.numel(), [luma])
+            + 2 * distinct(torch, c_pad.numel(), taps))
+
+
+def p_work(torch, args, outs) -> dict:
+    """{kernel: (bytes, int32 operations)} that each of K2-K5's functions
+    needs on these inputs: each input sample it reads counted once, each
+    output once. Operations per sample difference 3 (subtract, abs or
+    multiply, add)."""
+    y, plane0, _, window, _ = args["me_int"]
+    h, w = y.shape
+    nb, nmb = (h // 8) * (w // 8), (h // 16) * (w // 16)
+    S2 = (2 * window + 1) ** 2
+    _, _, c1, c2_blk, _, _ = args["me_qpel"]
+    d = args["wavefront_p"]
+    dec = outs["wavefront_p"]
+    planes, cb_pad, cr_pad, mv, ext, ext_c, wmb, hmb = args["mc"]
+    # K4 reads the skip test's 16x16 window at every MB and the unify
+    # trial's four at every MB whose final type shows it ran (coded, type
+    # != 0); a trial that unified the MB (type 0) is not counted
+    trials = int(((~dec["skip"]) & (dec["mb_type"] != 0)).sum())
+    return {
+        "me_int": (nbytes(y, plane0, outs["me_int"]), nb * S2 * 64 * 3),
+        "me_qpel": (nbytes(y, c1, c2_blk, *outs["me_qpel"])
+                    + qpel_reads(torch, y, planes, (c1, c2_blk), ext),
+                    2 * nb * 49 * 64 * 3),
+        # skip test 256 x (sub, abs, compare); 4 x 387 candidate costs of 8
+        # (2 sub, 2 abs, add, mul, add, compare); a unify trial 4 x 256 x 3
+        "wavefront_p": (nbytes(d[0], *d[2:9], *kernel_outputs(dec))
+                        + 256 * (nmb + 4 * trials),
+                        nmb * (256 * 3 + 4 * (S2 + 98) * 8) + trials * 4 * 256 * 3),
+        # luma: phase index and two shifted coordinates, ~8 per sample;
+        # chroma: the 4-tap bilinear and its weights, ~20 per sample
+        "mc": (nbytes(mv, *outs["mc"])
+               + mc_reads(torch, planes, cb_pad, mv, ext, ext_c, wmb, hmb),
+               h * w * 8 + (h * w // 2) * 20),
+    }
+
+
+def check_p_kernels(torch, label, ref, src, prev_mv, qp, mc_mv=None,
+                    time_it=False):
+    """K2-K5 kernel vs plain twin on one frame pair, each kernel fed the
+    plain chain's inputs. ref / src: (y, cb, cr) uint8 planes on the card;
+    prev_mv: the previous frame's MVs (nmb, 4, 2); mc_mv: MVs for K5 (the
+    plain decision's when None). Returns {kernel: (max_abs_err, ms,
+    plain_ms, bound_ms, bound_by)} (times None unless time_it) and the
+    plain decision."""
+    kern = p_kernels(plain=False)
+    plain, args, outs = p_frame_stages(torch, p_kernels(plain=True), src,
+                                       (*ref, prev_mv), qp, mc_mv)
+    work = p_work(torch, args, outs)
+    out = {}
+    for name in P_KERNELS:
+        a = args[name]
+        got = kernel_outputs(kern[name](*a))
+        torch.cuda.synchronize()
+        err = max_err(torch, got, kernel_outputs(outs[name]))
+        ms = plain_ms = None
+        if time_it:
+            ms = cuda_ms(torch, lambda: kern[name](*a), 20)
+            plain_ms = cuda_ms(torch, lambda: plain[name](*a), 1)
+        bound_ms, bound_by = bound(*work[name])
+        print(f"{name} {label} qp{qp}: max_abs_err {err} (tolerance 0)"
+              + (f", kernel {ms:.4f} ms, plain {plain_ms:.2f} ms" if time_it else "")
+              + f", bound {bound_ms:.4f} ms ({bound_by}, {work[name][0]} bytes)",
+              flush=True)
+        if err != 0:
+            raise AssertionError(f"{name} kernel != plain at {label} qp{qp}")
+        out[name] = (err, ms, plain_ms, bound_ms, bound_by)
+    return out, outs["wavefront_p"]
+
+
+def check_p_small_grids(torch, dev):
+    """K2-K5 on QCIF: random previous MVs up to beyond the search limit (so
+    q2 lanes are both valid and masked, and c2 is clamped), random MC MVs
+    over the whole ±lim range, and flat content where every score ties."""
+    rng = np.random.default_rng(SEED)
+    lim = 4 * (WINDOW + 2) - 4
+    w, h = 176, 144
+    nmb = (w // 16) * (h // 16)
+    pair = [tuple(torch.from_numpy(p).to(dev) for p in f) for f in content(2, w, h)]
+    flat = tuple(torch.full(p.shape, 128, dtype=torch.uint8, device=dev)
+                 for p in pair[0])
+    for qp in P_QPS:
+        prev = torch.from_numpy(rng.integers(-lim - 4, lim + 5, (nmb, 4, 2))
+                                .astype(np.int32)).to(dev)
+        mc_mv = torch.from_numpy(rng.integers(-lim, lim + 1, (nmb, 4, 2))
+                                 .astype(np.int32)).to(dev)
+        check_p_kernels(torch, "176x144 random MVs", pair[0], pair[1], prev, qp,
+                        mc_mv=mc_mv)
+        check_p_kernels(torch, "176x144 flat (ties)", flat, flat, prev, qp)
+
+
+def plain_i16_payload(torch, dev, enc, frame):
+    """One all-I16 frame through the oracle chain on the card: mode
+    decision, plain K1, levels and entropy. Returns (payload dict, recon
+    planes)."""
+    from h264_fer_tpu_torch.codec.entropy import i16_slice_entropy
+    from h264_fer_tpu_torch.codec.intra_decision import intra16_mode_decision
+    from h264_fer_tpu_torch.kernels.wavefront_i16 import (i16_levels_from_recon,
+                                                          i16_recon_plain)
+    from h264_fer_tpu_torch.ops.intra import INTRA16_TO_CHROMA_MODE
+
+    y, cb, cr = (torch.tensor(p, device=dev) for p in frame)
+    m16 = intra16_mode_decision(y.to(torch.int32), enc.qp)[0].to(torch.int32)
+    cm = torch.from_numpy(INTRA16_TO_CHROMA_MODE).to(dev)[m16.long()]
+    rec = i16_recon_plain(y, cb, cr, m16, cm, enc.qp, enc.qpc)
+    lv = i16_levels_from_recon(y, cb, cr, *rec, m16, cm, enc.qp, enc.qpc)
+    return i16_slice_entropy(m16, cm, *lv, wmb=enc.wmb, hmb=enc.hmb), rec
+
+
+def plain_chain_stream(torch, dev, enc, frames) -> bytes:
+    """The stream of the oracle chain on the card: mode decision, plain K1,
+    levels and entropy per frame, stitched by the encoder."""
+    return enc.stitch([plain_i16_payload(torch, dev, enc, f)[0] for f in frames])
+
+
+def plain_p_frame(torch, enc, frame, ref):
+    """One P frame through the oracle chain: device_p_frame's stages with
+    the plain twins of K2-K5. frame (y, cb, cr) uint8 on the device; ref
+    (ref_y, ref_cb, ref_cr, prev_mv)."""
+    _, _, outs = p_frame_stages(torch, p_kernels(plain=True), frame, ref, enc.qp)
+    _, ry, rcb, rcr = outs["residual_recon"]
+    dec = outs["wavefront_p"]
+    u8 = torch.uint8
+    return {"recon_y": ry.to(u8), "recon_cb": rcb.to(u8), "recon_cr": rcr.to(u8),
+            "skip": dec["skip"], "mv": dec["mv"], **outs["entropy"]}
+
+
+def plain_ippp_stream(torch, dev, enc, frames) -> bytes:
+    """The stream of one GOP (frames[0] the IDR) through the oracle chain on
+    the card, stitched by the encoder."""
+    from h264_fer_tpu_torch.codec.gop import next_reference
+
+    i_pay, rec = plain_i16_payload(torch, dev, enc, frames[0])
+    ref = (*rec, torch.zeros((enc.nmb, 4, 2), dtype=torch.int32, device=dev))
+    payloads = [i_pay]
+    for f, hdr_bits in zip(frames[1:], enc.hdr_bits):
+        out = plain_p_frame(torch, enc, tuple(torch.tensor(p, device=dev) for p in f),
+                            ref)
+        ref = next_reference(ref, out, hdr_bits)
+        payloads.append(out)
+    return enc.stitch(payloads, [len(frames)])
+
+
+def parse_ippp_stream(stream: bytes, lens, w: int, h: int, qp: int):
+    """Read back SPS, PPS and every slice header of an IPPP stream: per GOP
+    an IDR (idr_pic_id 0 for GOPs longer than one frame) and P slices with
+    frame_num j and POC 2j, as GopIpppEncoder._set_hdrs writes them."""
+    from h264_fer_tpu_torch.bitstream import nal
+    from h264_fer_tpu_torch.bitstream.bitio import BitReader
+    from h264_fer_tpu_torch.bitstream.params import I_SLICE, P_SLICE, PPS, SPS, SliceHeader
+
+    units = list(nal.iter_nal_units(stream))
+    want = [nal.NAL_SPS, nal.NAL_PPS]
+    for n in lens:
+        want += [nal.NAL_IDR] + [nal.NAL_NOT_IDR] * (n - 1)
+    if [u.nal_unit_type for u in units] != want:
+        raise AssertionError(f"NAL sequence {[u.nal_unit_type for u in units]}")
+    sps = SPS.parse(BitReader(units[0].rbsp))
+    pps = PPS.parse(BitReader(units[1].rbsp))
+    if (sps.width, sps.height) != (w, h) or pps.pic_init_qp != 14 + qp:
+        raise AssertionError(f"SPS {sps.width}x{sps.height} PPS qp {pps.pic_init_qp}")
+    i = 2
+    for n in lens:
+        for j in range(n):
+            u = units[i]
+            sh = SliceHeader.parse(BitReader(u.rbsp), sps, pps, u.nal_unit_type,
+                                   u.nal_ref_idc)
+            ok = (sh.slice_type == I_SLICE and sh.idr_pic_id == 0 if j == 0
+                  else sh.slice_type == P_SLICE and sh.frame_num == j
+                  and sh.pic_order_cnt_lsb == 2 * j)
+            if not ok or sh.slice_qp_y(pps) != qp:
+                raise AssertionError(f"slice {i - 2}: {sh}")
+            i += 1
+
+
+def p_stage_times(torch, dev, frames):
+    """Device ms of each stage of one 1080p P frame (CUDA events), the
+    second frame predicted from the first, with the kernels."""
+    ref, src = (tuple(torch.from_numpy(p).to(dev) for p in f) for f in frames[:2])
+    prev = torch.zeros(((W // 16) * (H // 16), 4, 2), dtype=torch.int32, device=dev)
+    fns, args, _ = p_frame_stages(torch, p_kernels(plain=False), src,
+                                  (*ref, prev), QP)
+    names = {"interp": "interp", "me_int": "k2_int_search", "me_qpel": "k3_qpel",
+             "wavefront_p": "k4_decide", "mc": "k5_mc",
+             "residual_recon": "residual_recon", "entropy": "entropy"}
+    return {label: cuda_ms(torch, lambda: fns[name](*args[name]), 5)
+            for name, label in names.items()}
+
+
 def main() -> int:
     import torch
 
@@ -252,9 +617,12 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this test "
               "needs an NVIDIA card", file=sys.stderr)
         return 1
-    from h264_fer_tpu_torch.kernels import build
+    from h264_fer_tpu_torch.kernels.mc import mc_bulk
+    from h264_fer_tpu_torch.kernels.me_int import integer_score_map
+    from h264_fer_tpu_torch.kernels.me_qpel import qpel_refine_maps
     from h264_fer_tpu_torch.kernels.wavefront_i16 import i16_recon
-    from h264_fer_tpu_torch.parallel.gop_device import GopIntraEncoder
+    from h264_fer_tpu_torch.kernels.wavefront_p import pframe_decide
+    from h264_fer_tpu_torch.parallel.gop_device import GopIntraEncoder, GopIpppEncoder
 
     dev = torch.device("cuda")
     name = card()
@@ -262,10 +630,7 @@ def main() -> int:
           flush=True)
 
     # ---- 1. build ------------------------------------------------------------
-    t0 = time.perf_counter()
-    lib, log = build.compile_source("wavefront_i16")
-    print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
-    print(f"--- nvcc wavefront_i16 ---\n{log.strip()}", flush=True)
+    build_all()
 
     # ---- 2. K1 kernel vs plain ----------------------------------------------
     small = [("176x144", 176, 144), ("80x176", 80, 176)]
@@ -342,22 +707,95 @@ def main() -> int:
     else:
         print("device busy share: not measured (the profiler saw no device time)")
 
-    # ---- 4. result --------------------------------------------------------
-    _, ms, plain_ms, bound_ms, bound_by = k1[QP]
+    # ---- 4. K2-K5 kernels vs plain twins ------------------------------------
+    check_p_small_grids(torch, dev)
+    pair = [tuple(torch.from_numpy(p).to(dev) for p in f) for f in content(3, W, H)]
+    zero_mv = torch.zeros(((W // 16) * (H // 16), 4, 2), dtype=torch.int32, device=dev)
+    pk = {}
+    for qp in P_QPS:
+        # two frames in a chain: frame 1 from frame 0 with no previous MVs,
+        # then frame 2 from frame 1 with frame 1's MVs as the c2 centres
+        _, dec = check_p_kernels(torch, f"{W}x{H}", pair[0], pair[1], zero_mv, qp)
+        pk[qp], _ = check_p_kernels(torch, f"{W}x{H} chained", pair[1], pair[2],
+                                    dec["mv"], qp, time_it=qp == QP)
+    print(f"K2-K5 checks done on {name}", flush=True)
+
+    # ---- 5. IPPP main path -----------------------------------------------------
+    frames = content(N_IPPP, W, H)
+    enc = GopIpppEncoder(W, H, QP, gop_len=GOP_LEN, device=dev)
+    enc.encode_sequence(frames[:2])  # warm-up: allocator, library loads
+    torch.cuda.synchronize()
+    counted = (i16_recon, integer_score_map, qpel_refine_maps, pframe_decide, mc_bulk)
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    stream = enc.encode_sequence(frames)
+    e2e_s = [time.perf_counter() - t0]
+    p_launches = {fn.__name__: fn.launches for fn in counted}
+    n_gops, n_p = N_IPPP // GOP_LEN, N_IPPP - N_IPPP // GOP_LEN
+    want = {"i16_recon": n_gops * ndiag, "integer_score_map": n_p,
+            "qpel_refine_maps": n_p, "pframe_decide": n_p * (W // 16 + 2 * (H // 16) - 2),
+            "mc_bulk": n_p}
+    if p_launches != want:
+        raise AssertionError(f"IPPP launches {p_launches}, expected {want}")
+    lens = [GOP_LEN] * n_gops
+    plain = plain_ippp_stream(torch, dev, enc, frames[:GOP_LEN])
+    rest = stream[len(plain):]
+    if not stream.startswith(plain) or not rest.startswith(b"\x00\x00\x00\x01\x25"):
+        raise AssertionError("IPPP first GOP != plain-chain stream")
+    parse_ippp_stream(stream, lens, W, H, QP)
+    qcif = content(6, 176, 144)
+    s_gpu = GopIpppEncoder(176, 144, QP, gop_len=4, device=dev).encode_sequence(qcif)
+    s_cpu = GopIpppEncoder(176, 144, QP, gop_len=4, device="cpu").encode_sequence(qcif)
+    if s_gpu != s_cpu:
+        raise AssertionError("QCIF IPPP stream on the card != CPU path stream")
+    for _ in range(E2E_REPS - 1):
+        t0 = time.perf_counter()
+        enc.encode_sequence(frames)
+        e2e_s.append(time.perf_counter() - t0)
+    fps = sorted(N_IPPP / t for t in e2e_s)
+    print(f"IPPP main path: {N_IPPP} frames {W}x{H} QP{QP} GOP {GOP_LEN}, "
+          f"{len(stream)} bytes, first GOP == plain chain, parses; launches "
+          f"{p_launches}; e2e fps median {fps[len(fps) // 2]:.2f} "
+          f"(runs {', '.join(f'{v:.2f}' for v in fps)}) on {name}", flush=True)
+    stages = p_stage_times(torch, dev, frames)
+    print("P stages (device ms, one frame): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+          + f", sum {sum(stages.values()):.3f} on {name}", flush=True)
+    wall, busy, top = device_busy(torch, lambda: enc.encode_sequence(frames[:GOP_LEN]))
+    if busy > 0:
+        print(f"profiled {GOP_LEN}-frame IPPP GOP: wall {wall:.1f} ms, kernels "
+              f"{busy:.1f} ms, device busy {100 * busy / wall:.1f} % on {name}")
+        for key, ms_k, count in top:
+            print(f"  {ms_k:8.3f} ms  {count:6d} x  {key[:90]}")
+    else:
+        print("device busy share: not measured (the profiler saw no device time)")
+
+    # ---- 6. result --------------------------------------------------------
+    rows = [("wavefront_i16", "h264_fer_tpu/kernels/wavefront_pallas.py:890",
+             launches, max(k1[q][0] for q in CHECK_QPS), k1[QP][1:]),
+            ("me_int", "h264_fer_tpu/kernels/me_int_pallas.py:34",
+             p_launches["integer_score_map"], None, None),
+            ("me_qpel", "h264_fer_tpu/kernels/me_pallas.py:28",
+             p_launches["qpel_refine_maps"], None, None),
+            ("wavefront_p", "h264_fer_tpu/kernels/wavefront_p_pallas.py:60",
+             p_launches["pframe_decide"], None, None),
+            ("mc", "h264_fer_tpu/kernels/mc_pallas.py:42",
+             p_launches["mc_bulk"], None, None)]
+    kernels = []
+    for kname, replaces, n, err, timing in rows:
+        if timing is None:  # a P kernel: its QP 28 run, errors over all tiers
+            err = max(pk[q][kname][0] for q in P_QPS)
+            timing = pk[QP][kname][1:]
+        ms, plain_ms, bound_ms, bound_by = timing
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"h264_fer_tpu_torch/kernels/csrc/{kname}.cu",
+            "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None})
     print(name)
-    print(json.dumps({"kernels": [{
-        "name": "wavefront_i16",
-        "route": "cuda",
-        "source": "h264_fer_tpu_torch/kernels/csrc/wavefront_i16.cu",
-        "replaces": "h264_fer_tpu/kernels/wavefront_pallas.py:890",
-        "launches": launches,
-        "max_abs_err": max(k1[q][0] for q in CHECK_QPS),
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

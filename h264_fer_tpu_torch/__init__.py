@@ -1,13 +1,20 @@
-"""H.264 Baseline all-Intra16x16 encoder in PyTorch and CUDA.
+"""H.264 Baseline all-Intra16x16 and IPPP encoder in PyTorch and CUDA.
 
 A port of the h264_fer_tpu JAX package (the frozen reference) to PyTorch
 on an NVIDIA H100. It imports neither JAX nor anything of h264_fer_tpu.
 Its entry points run on the card (device "cuda") unless the caller asks
 for the CPU, where the plain PyTorch version of each kernel runs.
 
-Main path: parallel.gop_device.GopIntraEncoder → codec.iframe.device_i16_frame
-→ mode decision, the CUDA wavefront kernel (kernels/csrc/wavefront_i16.cu),
+All-intra path: parallel.gop_device.GopIntraEncoder → codec.iframe.device_i16_frame
+→ mode decision, the CUDA wavefront kernel K1 (kernels/csrc/wavefront_i16.cu),
 levels, whole-slice CAVLC on the device → host slice header, payload, EPB.
+
+IPPP path: parallel.gop_device.GopIpppEncoder → codec.gop.device_gop_ippp,
+one GOP at a time: the I16 frame, then per P frame codec.pframe.device_p_frame
+→ interpolated planes, the CUDA kernels K2 (integer search, csrc/me_int.cu),
+K3 (qpel refine, csrc/me_qpel.cu), K4 (decision wavefront, csrc/wavefront_p.cu)
+and K5 (MC, csrc/mc.cu), residual and recon, P-slice CAVLC; the reference
+planes and MVs carried on the device → host slice headers, payloads, EPB.
 """
 
 from __future__ import annotations

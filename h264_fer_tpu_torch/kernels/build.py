@@ -8,7 +8,9 @@ header is compiled, so a build takes seconds (PERF.md compares it with
 torch.utils.cpp_extension.load, timed by kernels/time_build.py).
 
 Nothing here runs at import: the first launch of a kernel builds it. A
-missing nvcc or a failed compile raises; there is no fallback.
+missing nvcc or a failed compile raises; there is no fallback. `function`
+and `check_tensor` are what every kernel wrapper uses to bind its C entry
+point and to refuse a tensor the kernel does not take.
 """
 
 from __future__ import annotations
@@ -72,3 +74,25 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(compile_source(name)[0]))
             _libs[name] = lib
         return lib
+
+
+def function(name: str, symbol: str, argtypes):
+    """The C entry point `symbol` of csrc/<name>.cu, returning an int (the
+    CUDA error of its launches), with its argument types bound: pointers
+    and the stream as ctypes.c_void_p, so that ctypes does not cut them
+    to 32 bits."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def check_tensor(name: str, t, shape, dtype, device) -> None:
+    """Raise ValueError unless `t` is a contiguous `dtype` tensor of
+    `shape` on `device`."""
+    if (t.device != device or tuple(t.shape) != tuple(shape)
+            or t.dtype != dtype or not t.is_contiguous()):
+        raise ValueError(f"{name}: expected contiguous {dtype} {tuple(shape)} "
+                         f"on {device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")

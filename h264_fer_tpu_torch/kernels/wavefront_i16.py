@@ -27,24 +27,12 @@ import torch
 from ..ops import intra, transform
 from ..ops.device import const
 from ..ops.tables import INTRA4X4_SCAN_ORDER_XY, LEVEL_QUANTIZE, LEVEL_SCALE
-from ..ops.tiles import blocks_mb, mb_blocks, neighbours, to_mbs
+from ..ops.tiles import blocks_mb, chroma_blocks, chroma_mb, mb_blocks, neighbours, to_mbs
 from . import build
 
 # Z-scan block → its column / row in the MB's 4x4 grid of blocks
 _ZX = (INTRA4X4_SCAN_ORDER_XY[:, 0] // 4).astype(np.int64)
 _ZY = (INTRA4X4_SCAN_ORDER_XY[:, 1] // 4).astype(np.int64)
-
-
-def _cblocks(x):
-    """(..., 8, 8) chroma MBs → (..., 4, 4, 4) raster 4x4 blocks."""
-    b = x.reshape(*x.shape[:-2], 2, 4, 2, 4).transpose(-3, -2)
-    return b.reshape(*x.shape[:-2], 4, 4, 4)
-
-
-def _cmb(blocks):
-    """Inverse of _cblocks."""
-    b = blocks.reshape(*blocks.shape[:-3], 2, 2, 4, 4).transpose(-3, -2)
-    return b.reshape(*blocks.shape[:-3], 8, 8)
 
 
 def _i16_mb_code(src, p33, modes, csrc, p17, cmodes, qp: int, qpc: int):
@@ -75,13 +63,13 @@ def _i16_mb_code(src, p33, modes, csrc, p17, cmodes, qp: int, qpc: int):
     cidx = cmodes.long()[None, None, :, None, None].expand(1, 2, n, 8, 8)
     cpred = cpreds.gather(0, cidx)[0]
     cq = transform.quantize_residual(
-        transform.forward_transform_4x4(_cblocks(csrc - cpred)), qpc, True)
+        transform.forward_transform_4x4(chroma_blocks(csrc - cpred)), qpc, True)
     cqdc = transform.forward_dc_chroma(cq[..., 0, 0].reshape(2, n, 2, 2), qpc)
     cdcv = transform.inverse_dc_chroma(cqdc, qpc)
     cac = transform.zigzag_scan(cq)[..., 1:]
     ccoef = transform.set_dc(cq, cdcv.reshape(2, n, 4))
     cres = transform.inverse_residual(ccoef, qpc, True)
-    crecon = (cpred + _cmb(cres)).clamp(0, 255)
+    crecon = (cpred + chroma_mb(cres)).clamp(0, 255)
     return recon, crecon, i16dc, ac, cqdc.reshape(2, n, 4), cac
 
 
@@ -132,13 +120,9 @@ def _qtab(qp: int, qpc: int) -> np.ndarray:
 
 
 def _lib():
-    lib = build.load("wavefront_i16")
-    fn = lib.wavefront_i16_frame
-    if fn.argtypes is None:
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 8 + [i] * 4 + [vp, vp, ctypes.POINTER(i)]
-        fn.restype = ctypes.c_int
-    return fn
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    return build.function("wavefront_i16", "wavefront_i16_frame",
+                          [vp] * 8 + [i] * 4 + [vp, vp, ctypes.POINTER(i)])
 
 
 def i16_recon(y, cb, cr, modes, cmodes, qp: int, qpc: int):
@@ -160,11 +144,7 @@ def i16_recon(y, cb, cr, modes, cmodes, qp: int, qpc: int):
             ("cr", cr, (h // 2, w // 2), torch.uint8),
             ("modes", modes, (hmb * wmb,), torch.int32),
             ("cmodes", cmodes, (hmb * wmb,), torch.int32)):
-        if (t.device != y.device or tuple(t.shape) != shape
-                or t.dtype != dtype or not t.is_contiguous()):
-            raise ValueError(f"{name}: expected contiguous {dtype} {shape} on "
-                             f"{y.device}, got {t.dtype} {tuple(t.shape)} "
-                             f"on {t.device}")
+        build.check_tensor(name, t, shape, dtype, y.device)
     fn = _lib()
     ry, rcb, rcr = torch.empty_like(y), torch.empty_like(cb), torch.empty_like(cr)
     qtab = _qtab(qp, qpc)

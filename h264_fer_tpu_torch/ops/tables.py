@@ -110,3 +110,14 @@ RASTER_TO_LUMA_BLOCK = np.array(
      10, 11, 14, 15],
     dtype=np.int32,
 )
+
+# ---------------------------------------------------------------------------
+# Inter CBP <-> codeNum mapping, ChromaArrayType==1 (norm Table 9-4;
+# reference h264_globals.cpp:140-169).
+CODENUM_TO_CBP_INTER = np.array(
+    [0, 16, 1, 2, 4, 8, 32, 3, 5, 10, 12, 15, 47, 7, 11, 13,
+     14, 6, 9, 31, 35, 37, 42, 44, 33, 34, 36, 40, 39, 43, 45, 46,
+     17, 18, 20, 24, 19, 21, 26, 28, 23, 27, 29, 30, 22, 25, 38, 41],
+    dtype=np.int32,
+)
+CBP_TO_CODENUM_INTER = np.argsort(CODENUM_TO_CBP_INTER).astype(np.int32)

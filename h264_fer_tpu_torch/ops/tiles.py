@@ -1,5 +1,6 @@
 """MB tiling of frame planes (torch): MB tiles, their 4x4 blocks in Z-scan
-order, and each MB's neighbour samples in the layout of ops/intra."""
+(luma) or raster (chroma) order, and each MB's neighbour samples in the
+layout of ops/intra."""
 
 from __future__ import annotations
 
@@ -23,11 +24,29 @@ def blocks_mb(blocks):
     return b.reshape(*lead, 16, 16)
 
 
+def chroma_blocks(x):
+    """(..., 8, 8) chroma MBs → (..., 4, 4, 4) raster 4x4 blocks."""
+    b = x.reshape(*x.shape[:-2], 2, 4, 2, 4).transpose(-3, -2)
+    return b.reshape(*x.shape[:-2], 4, 4, 4)
+
+
+def chroma_mb(blocks):
+    """Inverse of chroma_blocks."""
+    b = blocks.reshape(*blocks.shape[:-3], 2, 2, 4, 4).transpose(-3, -2)
+    return b.reshape(*blocks.shape[:-3], 8, 8)
+
+
 def to_mbs(plane, n: int):
     """(H, W) plane → (nmb, n, n) raster-ordered MB tiles."""
     h, w = plane.shape
     return (plane.reshape(h // n, n, w // n, n).transpose(1, 2)
             .reshape(-1, n, n))
+
+
+def from_mbs(mbs, hm: int, wm: int):
+    """Inverse of to_mbs: (hm * wm, n, n) raster MB tiles → (H, W) plane."""
+    n = mbs.shape[-1]
+    return mbs.reshape(hm, wm, n, n).transpose(1, 2).reshape(hm * n, wm * n)
 
 
 def neighbours(plane, n: int):

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from .device import const
-from .tables import LEVEL_QUANTIZE, LEVEL_SCALE, QPI_TO_QPC, ZIGZAG_FLAT
+from .tables import INV_ZIGZAG_FLAT, LEVEL_QUANTIZE, LEVEL_SCALE, QPI_TO_QPC, ZIGZAG_FLAT
 
 # Forward core transform weights (quantizationTransform.cpp:41-100): the
 # reference computes h = (r << 6) - 32 for nonzero r, then
@@ -182,6 +182,13 @@ def zigzag_scan(c):
     """(..., 4, 4) blocks → (..., 16) zig-zag lists (transformScan)."""
     flat = c.reshape(c.shape[:-2] + (16,))
     return flat[..., const(ZIGZAG_FLAT.astype("int64"), c.device)]
+
+
+def zigzag_unscan(lst):
+    """(..., 16) zig-zag lists → (..., 4, 4) blocks (transformInverseScan,
+    scaleTransform.cpp:454-462)."""
+    flat = lst[..., const(INV_ZIGZAG_FLAT.astype("int64"), lst.device)]
+    return flat.reshape(lst.shape[:-1] + (4, 4))
 
 
 def set_dc(a, value):

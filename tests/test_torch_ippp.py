@@ -1,0 +1,117 @@
+"""The port's whole-GOP IPPP encoder against the JAX package: a stream
+byte-identical to the JAX GopIpppEncoder on one device, on the QCIF clip at
+QP 28 (SAD tier, MAXDIFF prefilter on) and QP 40 (SSD tier, prefilter
+off), which the JAX decoder decodes to the port's final reconstruction of
+each GOP; and the same GOP split under scene_cut_source, with the
+idr_pic_id sequence a one-frame GOP gives."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from h264_fer_tpu.codec.decoder import Decoder
+from h264_fer_tpu.parallel.gop_device import GopIpppEncoder as JaxGopIpppEncoder
+from h264_fer_tpu.vio.y4m import Y4MReader
+from h264_fer_tpu_torch.bitstream import nal
+from h264_fer_tpu_torch.bitstream.bitio import BitReader
+from h264_fer_tpu_torch.bitstream.params import SliceHeader
+from h264_fer_tpu_torch.codec.gop import device_gop_ippp
+from h264_fer_tpu_torch.parallel.gop_device import GopIpppEncoder
+
+torch.set_num_threads(1)
+
+W, H, GOP = 176, 144, 4
+QPS = [28, 40]
+
+
+@pytest.fixture(scope="module")
+def clip(fixtures_dir):
+    return list(Y4MReader(str(fixtures_dir / "clip_qcif_10f.y4m")))
+
+
+@pytest.fixture(scope="module")
+def streams(clip):
+    """{qp: (JAX stream, port stream)} of the first 6 frames: two GOPs."""
+    return {qp: (JaxGopIpppEncoder(W, H, qp, gop_len=GOP, devices=jax.devices()[:1]
+                                   ).encode_sequence(clip[:6]),
+                 GopIpppEncoder(W, H, qp, gop_len=GOP, device="cpu"
+                                ).encode_sequence(clip[:6]))
+            for qp in QPS}
+
+
+@pytest.mark.parametrize("qp", QPS)
+def test_gop_ippp_stream_byte_identical_to_jax(streams, qp):
+    ref, got = streams[qp]
+    assert got == ref
+
+
+class _SpecDecoder(Decoder):
+    """The JAX decoder in its spec-correct mode. By default it replicates
+    the reference decoder's stale-ChromaACLevel quirk (decoder.py:134-140),
+    which re-applies an earlier MB's chroma AC at coded MBs whose chroma CBP
+    is 0 and so departs from the encoder's own reconstruction in chroma;
+    the encoders (JAX and port alike) reconstruct with zero levels there."""
+
+    _spec_mode = property(lambda self: True, lambda self, value: None)
+
+
+@pytest.mark.parametrize("qp", QPS)
+def test_jax_decoder_reproduces_port_final_recon(clip, streams, qp):
+    stream = streams[qp][1]
+    decoded = list(_SpecDecoder().decode_annexb(stream))
+    quirk = list(Decoder().decode_annexb(stream))
+    assert len(decoded) == len(quirk) == 6
+    enc = GopIpppEncoder(W, H, qp, gop_len=GOP, device="cpu")
+    for start, n in ((0, 4), (4, 2)):
+        planes = [[torch.from_numpy(np.array(f[k])) for f in clip[start: start + n]]
+                  for k in range(3)]
+        out = device_gop_ippp(*planes, enc.hdr_bits[: n - 1], enc.window, qp,
+                              enc.qpc, enc.maxdiff, enc.prefilter)
+        last = start + n - 1
+        for k, key in enumerate(("recon_y", "recon_cb", "recon_cr")):
+            np.testing.assert_array_equal(decoded[last][k], out[key].numpy(),
+                                          err_msg=f"frame {last} {key}")
+        # the quirk touches chroma only
+        np.testing.assert_array_equal(quirk[last][0], out["recon_y"].numpy())
+
+
+def test_scene_cut_gops_match_jax(clip):
+    """A scene cut at frame 3 and the period at frame 4 give GOPs of 3, 1
+    and 4 frames: a one-frame GOP, after which the IDR's idr_pic_id is 1
+    (encoder._encode_slice), as the port's stream shows."""
+    frames = list(clip[:3]) + [tuple(255 - p for p in f) for f in clip[3:8]]
+    port = GopIpppEncoder(W, H, 28, gop_len=GOP, device="cpu", scene_cut_source=True)
+    ref = JaxGopIpppEncoder(W, H, 28, gop_len=GOP, devices=jax.devices()[:1],
+                            scene_cut_source=True)
+    assert port._gop_lengths(frames) == ref._gop_lengths(frames) == [3, 1, 4]
+    assert port._gop_lengths(clip) == ref._gop_lengths(clip)
+    units = list(nal.iter_nal_units(port.encode_sequence(frames)))[2:]
+    sps, pps = port.sps, port.pps
+    idr_ids = [SliceHeader.parse(BitReader(u.rbsp), sps, pps, u.nal_unit_type,
+                                 u.nal_ref_idc).idr_pic_id
+               for u in units if u.nal_unit_type == nal.NAL_IDR]
+    assert idr_ids == [0, 0, 1]
+
+
+def test_plain_chain_equals_encoder_stream(clip):
+    """The oracle chain that chip_smoke.py holds the kernel path against
+    (plain K1 and plain K2-K5, stitched by the encoder) gives the encoder's
+    own stream."""
+    import chip_smoke
+
+    enc = GopIpppEncoder(W, H, 28, gop_len=GOP, device="cpu")
+    assert (chip_smoke.plain_ippp_stream(torch, torch.device("cpu"), enc, clip[:GOP])
+            == enc.encode_sequence(clip[:GOP]))
+
+
+def test_encoder_limits():
+    with pytest.raises(NotImplementedError):
+        GopIpppEncoder(W, H, 28, gop_len=GOP, devices=["cpu", "cpu"])
+    with pytest.raises(ValueError):
+        GopIpppEncoder(W, H, 28, gop_len=1, device="cpu")
+    enc = GopIpppEncoder(W, H, 28, gop_len=GOP, device="cpu")
+    ref = JaxGopIpppEncoder(W, H, 28, gop_len=GOP, devices=jax.devices()[:1])
+    assert enc.headers() == ref.headers()
+    assert enc._p_hdrs == ref._p_hdrs

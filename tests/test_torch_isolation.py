@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from h264_fer_tpu_torch import entry
-from h264_fer_tpu_torch.parallel.gop_device import GopIntraEncoder
+from h264_fer_tpu_torch.parallel.gop_device import GopIntraEncoder, GopIpppEncoder
 
 torch.set_num_threads(1)
 
@@ -61,3 +61,5 @@ def test_default_device_raises_without_cuda():
         entry()
     with pytest.raises(RuntimeError, match="CUDA"):
         GopIntraEncoder(176, 144, 28)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GopIpppEncoder(176, 144, 28, gop_len=8)

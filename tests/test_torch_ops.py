@@ -73,6 +73,23 @@ def test_zigzag_scan():
     c = _blocks(np.random.default_rng(1), -50, 50)
     _eq(transform.zigzag_scan(torch.from_numpy(c)), jtf.zigzag_scan(c),
         "zigzag_scan")
+    lst = c.reshape(-1, 16)
+    _eq(transform.zigzag_unscan(torch.from_numpy(lst)), jtf.zigzag_unscan(lst),
+        "zigzag_unscan")
+
+
+def test_mb_tiling_round_trips():
+    """to_mbs / from_mbs and the chroma 4x4 block split are inverses, and
+    the chroma blocks are raster blocks of each 8x8 MB."""
+    from h264_fer_tpu_torch.ops import tiles
+
+    plane = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (48, 80)))
+    assert torch.equal(tiles.from_mbs(tiles.to_mbs(plane, 16), 3, 5), plane)
+    mbs = tiles.to_mbs(plane[:24, :40], 8)
+    blocks = tiles.chroma_blocks(mbs)
+    assert torch.equal(blocks[:, 1], mbs[:, :4, 4:])
+    assert torch.equal(blocks[:, 2], mbs[:, 4:, :4])
+    assert torch.equal(tiles.chroma_mb(blocks), mbs)
 
 
 def _neighbours(rng, n, size):
