@@ -27,13 +27,31 @@ Phases (any failure exits non-zero and prints no result line):
      content where every score ties; time kernel and plain at QP 28;
   5. drive the IPPP main path: GopIpppEncoder(1920, 1088, 28, gop_len=8)
      encodes 16 frames with the launch counts set to 0 just before; the
-     first GOP's stream must equal, byte for byte, the stream of the plain
-     chain on the card (plain K1 and all four plain P twins), and the whole
+     stream of the first GOP's first 4 frames (the IDR and 3 P frames) must
+     equal, byte for byte, the stream of the plain chain on the card (plain
+     K1 and all four plain P twins), and the whole
      stream parse back into SPS, PPS and per GOP an IDR and 7 P slice
      headers; a QCIF IPPP stream from the card must equal the CPU path's.
      Prints e2e fps, device ms per P frame for each stage and K4's counted
      launches;
-  6. print the kernels line and, last, {"ok": true, "device": {...}}.
+  6. hold K4x4 (Intra_4x4 recon), K7 (chroma wavefront) and K6 (mixed
+     arbitration wavefront) against their plain twins on the card,
+     bit-exact on every output: at 1920x1088 for QP 8, 28 and 46 in the
+     decided modes of a content frame (printing the I4x4 MB count of each K6
+     check; at QP 28 it must lie strictly between 0 and the MB count), on
+     QCIF and 80x176 grids with random Intra4x4 modes in every block, and on
+     a tall 64x208 grid (hmb > wmb) where both classes win. K4x4 lies on no
+     encode path, as its Pallas original: its path is one i4x4_luma call on
+     the 1080p frame at QP 28, with its count set to 0 just before. Times
+     kernels and plain twins at QP 28;
+  7. drive the mixed all-intra path: GopIntraEncoder(1920, 1088, 28,
+     mode="mixed") encodes 8 frames with the launch counts set to 0 just
+     before (254 K6 and 187 K7 launches per frame, no K1); the first
+     frame's stream must equal, byte for byte, the stream of the plain
+     chain on the card, and the whole stream parse back; a QCIF mixed stream
+     from the card must equal the CPU path's. Prints e2e fps, device ms of
+     each stage of one frame and the profiled busy share;
+  8. print the kernels line and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -52,9 +70,11 @@ W, H, QP, N_FRAMES = 1920, 1088, 28, 8
 E2E_REPS = 5
 CHECK_QPS = (8, 28, 46)
 SEED = 7
-KERNEL_SOURCES = ("wavefront_i16", "me_int", "me_qpel", "wavefront_p", "mc")
+KERNEL_SOURCES = ("wavefront_i16", "me_int", "me_qpel", "wavefront_p", "mc",
+                  "wavefront_i4x4", "wavefront_mixed")
 # the IPPP main path: bench.py's e2e_ippp_encode_1080p_fps configuration
 GOP_LEN, N_IPPP, WINDOW = 8, 16, 8
+N_PLAIN_IPPP = 4  # frames of the first GOP held against the plain chain
 P_QPS = (28, 40, 46)  # SAD, SSD and 2*SSD tiers
 # H100 SXM at 700 W: HBM3 rate (data sheet), and the int32 rate of the CUDA
 # cores (H100 whitepaper: 132 SMs x 64 int32 lanes x 1.98 GHz boost); K1's
@@ -116,22 +136,50 @@ def k1_pixel_ops(qp: int) -> float:
             + 5)           # +32, >>6, +pred, clip (min, max)
 
 
-def k1_ops(qp: int, qpc: int, m16: np.ndarray, cm: np.ndarray) -> float:
-    """int32 operations K1's function needs for one frame in these modes:
+def i16_luma_ops(qp: int, m16: np.ndarray) -> float:
+    """int32 operations of the Intra16x16 luma coding of MBs in modes m16:
     butterflies for every transform, each value computed once."""
-    nmb = m16.size
     luma_dc = 16 * (2 * 2 + 2 + (5 if qp < 36 else 4)  # 4x4 Hadamard, round,
                     + 2 * 2 + (3 if qp < 36 else 2))   # quant; inverse, scale
-    chroma_dc = 4 * (2 + 2 + 5 + 2 + 3)  # 2x2 Hadamard, round, quant, inverse, scale
-    # prediction: V and H copy; DC sums its 32 (chroma 2 x 8) samples;
-    # Plane needs its gradients per MB and an add, a shift and a clip per sample
+    # prediction: V and H copy; DC sums its 32 samples; Plane needs its
+    # gradients per MB and an add, a shift and a clip per sample
     luma_pred = (np.count_nonzero(m16 == 2) * 36
                  + np.count_nonzero(m16 == 3) * (54 + 4 * 256))
+    return m16.size * (256 * k1_pixel_ops(qp) + luma_dc) + luma_pred
+
+
+def chroma_ops(qpc: int, cm: np.ndarray) -> float:
+    """int32 operations of the intra chroma coding of MBs in chroma modes
+    cm (K7's function, K1's chroma half)."""
+    chroma_dc = 4 * (2 + 2 + 5 + 2 + 3)  # 2x2 Hadamard, round, quant, inverse, scale
     chroma_pred = 2 * (np.count_nonzero(cm == 0) * 22
                        + np.count_nonzero(cm == 3) * (30 + 4 * 64))
-    return (nmb * (256 * k1_pixel_ops(qp) + luma_dc
-                   + 2 * 64 * k1_pixel_ops(qpc) + 2 * chroma_dc)
-            + luma_pred + chroma_pred)
+    return cm.size * (2 * 64 * k1_pixel_ops(qpc) + 2 * chroma_dc) + chroma_pred
+
+
+def k1_ops(qp: int, qpc: int, m16: np.ndarray, cm: np.ndarray) -> float:
+    """int32 operations K1's function needs for one frame in these modes."""
+    return i16_luma_ops(qp, m16) + chroma_ops(qpc, cm)
+
+
+def i4x4_ops(qp: int, mode4: np.ndarray) -> float:
+    """int32 operations of the Intra_4x4 coding of blocks in modes mode4:
+    K1's per-sample pipeline with the DC quantised like the rest, and the
+    prediction (V and H copy; DC sums 8 samples per block; a directional
+    sample is (a + 2b + c + 2) >> 2 or (a + b + 1) >> 1, ~5)."""
+    quant, dequant = (5, 3) if qp < 24 else (4, 2)
+    modes = np.bincount(mode4.ravel(), minlength=9)
+    return (mode4.size * 16 * (k1_pixel_ops(qp) + (quant + dequant) / 16)
+            + modes[2] * 10 + modes[3:].sum() * 16 * 5)
+
+
+def cavlc_size_ops(*levels) -> float:
+    """int32 operations of the CAVLC bit sizes of blocks of zig-zag levels
+    (arrays (..., L)): a test per coefficient, ~12 per nonzero one (level
+    code, prefix and suffix length, suffixLength update, run_before) and
+    ~10 per block (TrailingOnes, total_zeros, nC, coeff_token)."""
+    return sum(lv.size + 12 * np.count_nonzero(lv) + 10 * (lv.size // lv.shape[-1])
+               for lv in levels)
 
 
 def k1_bound(w: int, h: int, qp: int, qpc: int, m16, cm):
@@ -243,6 +291,18 @@ def device_busy(torch, fn):
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     return wall * 1e3, busy, [(e.key, e.self_device_time_total / 1e3, e.count)
                               for e in top]
+
+
+def timed_once(torch, fn):
+    """(fn(), device ms of that one call), timed with CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def build_all():
@@ -610,6 +670,171 @@ def p_stage_times(torch, dev, frames):
             for name, label in names.items()}
 
 
+MIXED_KERNELS = ("wavefront_chroma", "wavefront_i4x4", "wavefront_mixed")
+
+
+def tall_frame():
+    """A 64x208 frame (hmb 13 > wmb 4) of flat MBs with noise, where both
+    MB classes win (the JAX package's tests/test_wavefront_mixed.py:58)."""
+    rng = np.random.default_rng(3)
+    w, h = 64, 208
+    base = rng.integers(0, 200, (h // 16, w // 16))
+    y = np.kron(base, np.ones((16, 16))).astype(np.uint8)
+    y = np.clip(y + rng.integers(-20, 20, (h, w)), 0, 255).astype(np.uint8)
+    return (y, rng.integers(0, 256, (h // 2, w // 2)).astype(np.uint8),
+            rng.integers(0, 256, (h // 2, w // 2)).astype(np.uint8))
+
+
+def plain_chroma(cb, cr, cmodes, qpc):
+    """Plain K7 and its levels: (rcb, rcr, cdc, cac)."""
+    from h264_fer_tpu_torch.kernels.wavefront_i16 import (chroma_levels_from_recon,
+                                                          chroma_recon_plain)
+
+    rcb, rcr = chroma_recon_plain(cb, cr, cmodes, qpc)
+    return (rcb, rcr, *chroma_levels_from_recon(cb, cr, rcb, rcr, cmodes, qpc))
+
+
+def mixed_inputs(torch, frame, qp, chroma=plain_chroma):
+    """The mixed frame's stages up to K6 on one frame (y, cb, cr) on a
+    device: returns (decision dict, chroma modes, chroma levels (cdc, cac),
+    K6's arguments). chroma: K7 and its levels as a callable (cb, cr,
+    cmodes, qpc) → (rcb, rcr, cdc, cac); the plain twin's by default."""
+    from h264_fer_tpu_torch.codec.entropy import chroma_setup
+    from h264_fer_tpu_torch.codec.intra_decision import intra_mode_decision
+    from h264_fer_tpu_torch.ops.intra import INTRA16_TO_CHROMA_MODE
+    from h264_fer_tpu_torch.ops.transform import chroma_qp
+
+    y, cb, cr = frame
+    h, w = y.shape
+    dec = intra_mode_decision(y.to(torch.int32), qp)
+    cm = torch.from_numpy(INTRA16_TO_CHROMA_MODE).to(y.device)[dec["mode16"].long()]
+    _, _, cdc, cac = chroma(cb, cr, cm, chroma_qp(qp))
+    ch = chroma_setup(cdc, cac, w // 16, h // 16)
+    return dec, cm, (cdc, cac), (y, dec["mode16"], dec["mode4"], cm,
+                                 ch["cbp_chroma"], ch["bits"], qp)
+
+
+def mixed_payload(dec, cm, cdc, cac, mx):
+    """The slice payload of a mixed frame from its mode decision, chroma
+    modes and levels, and K6's outputs mx."""
+    from h264_fer_tpu_torch.codec.entropy import mixed_slice_entropy
+
+    hmb, wmb = (n // 16 for n in mx["recon_y"].shape)
+    return mixed_slice_entropy(
+        mx["choice4"], dec["mode16"], cm, mx["i16dc"], mx["i16ac"], mx["lv4"],
+        mx["prev_flags"], mx["rem_modes"], mx["cbp_luma"], mx["tc_luma"], cdc, cac,
+        wmb=wmb, hmb=hmb)
+
+
+def check_mixed_kernels(torch, label, frame, qp, mode4=None, time_it=False):
+    """K7, K4x4 and K6 kernel vs plain twin on one frame (y, cb, cr) on the
+    card, each fed the plain chain's inputs: the decided modes, or Intra4x4
+    modes mode4 in their place. Returns ({kernel: (max_abs_err, ms,
+    plain_ms, bound_ms, bound_by)} (times None unless time_it), the I4x4 MB
+    count of K6, K4x4's launches in its own path run when time_it, and the
+    plain chain's slice payload of the frame)."""
+    from h264_fer_tpu_torch.kernels.wavefront_i4x4 import i4x4_luma, i4x4_luma_plain
+    from h264_fer_tpu_torch.kernels.wavefront_i16 import chroma_recon, chroma_recon_plain
+    from h264_fer_tpu_torch.kernels.wavefront_mixed import (KEYS, TABLES, mixed_luma,
+                                                            mixed_luma_plain)
+    from h264_fer_tpu_torch.ops.transform import chroma_qp
+
+    y, cb, cr = frame
+    dec, cm, (cdc, cac), args = mixed_inputs(torch, frame, qp)
+    if mode4 is not None:
+        args = args[:2] + (mode4,) + args[3:]
+    m4 = args[2]
+    qpc = chroma_qp(qp)
+    k4_launches = None
+    if time_it:  # K4x4's own path: one call, counted
+        i4x4_luma.launches = 0
+    got4 = i4x4_luma(y, m4, qp)
+    if time_it:
+        k4_launches = i4x4_luma.launches
+    got6 = mixed_luma(*args)
+    got7 = chroma_recon(cb, cr, cm, qpc)
+    want4, plain4_ms = timed_once(torch, lambda: i4x4_luma_plain(y, m4, qp))
+    want6, plain6_ms = timed_once(torch, lambda: mixed_luma_plain(*args))
+    want7, plain7_ms = timed_once(torch, lambda: chroma_recon_plain(cb, cr, cm, qpc))
+    errs = {"wavefront_chroma": max_err(torch, got7, want7),
+            "wavefront_i4x4": max_err(torch, got4, want4),
+            "wavefront_mixed": max_err(torch, [got6[k] for k in KEYS],
+                                       [want6[k] for k in KEYS])}
+    n4 = int(got6["choice4"].sum())
+    nmb = got6["choice4"].numel()
+    m16n, cmn, m4n = (t.cpu().numpy() for t in (args[1], cm, m4))
+    lv = [got6[k].cpu().numpy() for k in ("i16dc", "i16ac", "lv4")]
+    work = {  # (bytes, int32 operations) of each function on these inputs
+        "wavefront_chroma": (nbytes(cb, cr, cm, *got7), chroma_ops(qpc, cmn)),
+        "wavefront_i4x4": (nbytes(y, m4, *got4), i4x4_ops(qp, m4n)),
+        # both candidates, the 33 blocks' CAVLC sizes, MPM and the choice
+        "wavefront_mixed": (nbytes(*args[:6], *(got6[k] for k in KEYS)) + TABLES.nbytes,
+                            i16_luma_ops(qp, m16n) + i4x4_ops(qp, m4n)
+                            + cavlc_size_ops(*lv) + nmb * (16 * 8 + 100))}
+    times = {}
+    if time_it:
+        times = {"wavefront_chroma": (cuda_ms(torch, lambda: chroma_recon(cb, cr, cm, qpc), 20),
+                                      plain7_ms),
+                 "wavefront_i4x4": (cuda_ms(torch, lambda: i4x4_luma(y, m4, qp), 20),
+                                    plain4_ms),
+                 "wavefront_mixed": (cuda_ms(torch, lambda: mixed_luma(*args), 10),
+                                     plain6_ms)}
+    out = {}
+    for name in MIXED_KERNELS:
+        bound_ms, bound_by = bound(*work[name])
+        ms, plain_ms = times.get(name, (None, None))
+        print(f"{name} {label} qp{qp}: max_abs_err {errs[name]} (tolerance 0)"
+              + (f", kernel {ms:.4f} ms, plain {plain_ms:.1f} ms" if time_it else "")
+              + f", bound {bound_ms:.4f} ms ({bound_by}, {work[name][0]} bytes)",
+              flush=True)
+        if errs[name] != 0:
+            raise AssertionError(f"{name} kernel != plain at {label} qp{qp}")
+        out[name] = (errs[name], ms, plain_ms, bound_ms, bound_by)
+    print(f"K6 {label} qp{qp}: {n4} I4x4 MBs of {nmb}", flush=True)
+    return out, n4, k4_launches, mixed_payload(dec, cm, cdc, cac, want6)
+
+
+def plain_mixed_payload(torch, dev, enc, frame):
+    """One mixed frame through the oracle chain on a device: mode decision,
+    plain K7 and its levels, chroma setup, plain K6, mixed entropy."""
+    from h264_fer_tpu_torch.kernels.wavefront_mixed import mixed_luma_plain
+
+    planes = tuple(torch.tensor(p, device=dev) for p in frame)
+    dec, cm, (cdc, cac), args = mixed_inputs(torch, planes, enc.qp)
+    return mixed_payload(dec, cm, cdc, cac, mixed_luma_plain(*args))
+
+
+def mixed_stage_times(torch, dev, frame):
+    """Device ms of each stage of one 1080p mixed frame, CUDA events."""
+    from h264_fer_tpu_torch.codec.entropy import chroma_setup, mixed_slice_entropy
+    from h264_fer_tpu_torch.codec.intra_decision import intra_mode_decision
+    from h264_fer_tpu_torch.kernels.wavefront_i16 import (chroma_frame,
+                                                          chroma_levels_from_recon,
+                                                          chroma_recon)
+    from h264_fer_tpu_torch.kernels.wavefront_mixed import mixed_luma
+    from h264_fer_tpu_torch.ops.transform import chroma_qp
+
+    qpc = chroma_qp(QP)
+    y, cb, cr = (torch.from_numpy(p).to(dev) for p in frame)
+    dec, cm, (cdc, cac), args = mixed_inputs(torch, (y, cb, cr), QP, chroma_frame)
+    rcb, rcr = chroma_recon(cb, cr, cm, qpc)
+    mx = mixed_luma(*args)
+    ent_args = (mx["choice4"], dec["mode16"], cm, *(mx[k] for k in (
+        "i16dc", "i16ac", "lv4", "prev_flags", "rem_modes", "cbp_luma", "tc_luma")),
+        cdc, cac)
+    yi = y.to(torch.int32)
+    return {
+        "mode_decision": cuda_ms(torch, lambda: intra_mode_decision(yi, QP), 5),
+        "k7_chroma": cuda_ms(torch, lambda: chroma_recon(cb, cr, cm, qpc), 5),
+        "chroma_levels": cuda_ms(torch, lambda: chroma_levels_from_recon(
+            cb, cr, rcb, rcr, cm, qpc), 5),
+        "chroma_setup": cuda_ms(torch, lambda: chroma_setup(cdc, cac, W // 16, H // 16), 5),
+        "k6_mixed": cuda_ms(torch, lambda: mixed_luma(*args), 5),
+        "entropy": cuda_ms(torch, lambda: mixed_slice_entropy(
+            *ent_args, wmb=W // 16, hmb=H // 16), 5),
+    }
+
+
 def main() -> int:
     import torch
 
@@ -620,7 +845,8 @@ def main() -> int:
     from h264_fer_tpu_torch.kernels.mc import mc_bulk
     from h264_fer_tpu_torch.kernels.me_int import integer_score_map
     from h264_fer_tpu_torch.kernels.me_qpel import qpel_refine_maps
-    from h264_fer_tpu_torch.kernels.wavefront_i16 import i16_recon
+    from h264_fer_tpu_torch.kernels.wavefront_i16 import chroma_recon, i16_recon
+    from h264_fer_tpu_torch.kernels.wavefront_mixed import mixed_luma
     from h264_fer_tpu_torch.kernels.wavefront_p import pframe_decide
     from h264_fer_tpu_torch.parallel.gop_device import GopIntraEncoder, GopIpppEncoder
 
@@ -739,10 +965,10 @@ def main() -> int:
     if p_launches != want:
         raise AssertionError(f"IPPP launches {p_launches}, expected {want}")
     lens = [GOP_LEN] * n_gops
-    plain = plain_ippp_stream(torch, dev, enc, frames[:GOP_LEN])
-    rest = stream[len(plain):]
-    if not stream.startswith(plain) or not rest.startswith(b"\x00\x00\x00\x01\x25"):
-        raise AssertionError("IPPP first GOP != plain-chain stream")
+    plain = plain_ippp_stream(torch, dev, enc, frames[:N_PLAIN_IPPP])
+    rest = stream[len(plain):]  # the first GOP goes on with a P slice
+    if not stream.startswith(plain) or not rest.startswith(b"\x00\x00\x00\x01\x21"):
+        raise AssertionError("IPPP first frames != plain-chain stream")
     parse_ippp_stream(stream, lens, W, H, QP)
     qcif = content(6, 176, 144)
     s_gpu = GopIpppEncoder(176, 144, QP, gop_len=4, device=dev).encode_sequence(qcif)
@@ -755,7 +981,8 @@ def main() -> int:
         e2e_s.append(time.perf_counter() - t0)
     fps = sorted(N_IPPP / t for t in e2e_s)
     print(f"IPPP main path: {N_IPPP} frames {W}x{H} QP{QP} GOP {GOP_LEN}, "
-          f"{len(stream)} bytes, first GOP == plain chain, parses; launches "
+          f"{len(stream)} bytes, first {N_PLAIN_IPPP} frames == plain chain, parses; "
+          "launches "
           f"{p_launches}; e2e fps median {fps[len(fps) // 2]:.2f} "
           f"(runs {', '.join(f'{v:.2f}' for v in fps)}) on {name}", flush=True)
     stages = p_stage_times(torch, dev, frames)
@@ -771,7 +998,81 @@ def main() -> int:
     else:
         print("device busy share: not measured (the profiler saw no device time)")
 
-    # ---- 6. result --------------------------------------------------------
+    # ---- 6. K4x4, K7 and K6 kernels vs plain twins ----------------------------
+    nwave = W // 16 + 2 * (H // 16 - 1)
+    for label, w, h in small:  # random Intra4x4 modes in every block
+        f = tuple(torch.from_numpy(p).to(dev) for p in content(1, w, h)[0])
+        m4 = torch.from_numpy(rng.integers(0, 9, ((w // 16) * (h // 16), 16))
+                              .astype(np.int32)).to(dev)
+        check_mixed_kernels(torch, f"{label} random modes", f, 30, mode4=m4)
+    _, n4, _, _ = check_mixed_kernels(torch, "64x208", tuple(
+        torch.from_numpy(p).to(dev) for p in tall_frame()), 30)
+    if not 0 < n4 < 52:
+        raise AssertionError(f"64x208: {n4} I4x4 MBs; both classes should win")
+    frames = content(N_FRAMES, W, H)  # the mixed path's frames
+    frame = tuple(torch.from_numpy(p).to(dev) for p in frames[0])
+    mk = {}
+    for qp in CHECK_QPS:
+        mk[qp], n4, launched, payload = check_mixed_kernels(
+            torch, f"{W}x{H}", frame, qp, time_it=qp == QP)
+        if qp == QP:  # the plain chain of the mixed path's first frame
+            k4_launches, plain_payload = launched, payload
+            if not 0 < n4 < (W // 16) * (H // 16):
+                raise AssertionError(f"K6 chose I4x4 at {n4} MBs: the arbitration "
+                                     f"should run both ways at QP {QP}")
+    if k4_launches != nwave:
+        raise AssertionError(f"K4x4 launched {k4_launches} times, expected {nwave}")
+    print(f"K4x4, K7 and K6 checks done on {name}", flush=True)
+
+    # ---- 7. mixed all-intra path ------------------------------------------------
+    enc = GopIntraEncoder(W, H, QP, mode="mixed", device=dev)
+    enc.encode_sequence(frames[:2])  # warm-up: allocator, library loads
+    torch.cuda.synchronize()
+    counted = (mixed_luma, chroma_recon, i16_recon)
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    stream = enc.encode_sequence(frames)
+    e2e_s = [time.perf_counter() - t0]
+    m_launches = {fn.__name__: fn.launches for fn in counted}
+    want = {"mixed_luma": N_FRAMES * nwave, "chroma_recon": N_FRAMES * ndiag,
+            "i16_recon": 0}
+    if m_launches != want:
+        raise AssertionError(f"mixed launches {m_launches}, expected {want}")
+    plain = enc.stitch([plain_payload])
+    rest = stream[len(plain):]
+    if not stream.startswith(plain) or not rest.startswith(b"\x00\x00\x00\x01\x25"):
+        raise AssertionError("mixed first frame != plain-chain stream")
+    parse_stream(stream, N_FRAMES, W, H, QP)
+    qcif = content(3, 176, 144)
+    s_gpu = GopIntraEncoder(176, 144, QP, mode="mixed", device=dev).encode_sequence(qcif)
+    s_cpu = GopIntraEncoder(176, 144, QP, mode="mixed", device="cpu").encode_sequence(qcif)
+    if s_gpu != s_cpu:
+        raise AssertionError("QCIF mixed stream on the card != CPU path stream")
+    for _ in range(E2E_REPS - 1):
+        t0 = time.perf_counter()
+        enc.encode_sequence(frames)
+        e2e_s.append(time.perf_counter() - t0)
+    fps = sorted(N_FRAMES / t for t in e2e_s)
+    print(f"mixed path: {N_FRAMES} frames {W}x{H} QP{QP}, {len(stream)} bytes, "
+          f"first frame == plain chain, parses; launches {m_launches}; e2e fps "
+          f"median {fps[len(fps) // 2]:.2f} (runs {', '.join(f'{v:.2f}' for v in fps)}) "
+          f"on {name}", flush=True)
+    stages = mixed_stage_times(torch, dev, frames[0])
+    print("mixed stages (device ms, one frame): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+          + f", sum {sum(stages.values()):.3f} on {name}", flush=True)
+    wall, busy, top = device_busy(torch, lambda: enc.encode_sequence(frames[:2]))
+    if busy > 0:
+        print(f"profiled 2-frame mixed encode: wall {wall:.1f} ms, kernels "
+              f"{busy:.1f} ms, device busy {100 * busy / wall:.1f} % on {name}")
+        for key, ms_k, count in top:
+            print(f"  {ms_k:8.3f} ms  {count:6d} x  {key[:90]}")
+    else:
+        print("device busy share: not measured (the profiler saw no device time)")
+
+    # ---- 8. result --------------------------------------------------------
+    csrc = "h264_fer_tpu_torch/kernels/csrc/"
     rows = [("wavefront_i16", "h264_fer_tpu/kernels/wavefront_pallas.py:890",
              launches, max(k1[q][0] for q in CHECK_QPS), k1[QP][1:]),
             ("me_int", "h264_fer_tpu/kernels/me_int_pallas.py:34",
@@ -782,6 +1083,16 @@ def main() -> int:
              p_launches["pframe_decide"], None, None),
             ("mc", "h264_fer_tpu/kernels/mc_pallas.py:42",
              p_launches["mc_bulk"], None, None)]
+    for kname, replaces, n in (
+            ("wavefront_i4x4", "h264_fer_tpu/kernels/wavefront_pallas.py:551",
+             k4_launches),
+            ("wavefront_mixed", "h264_fer_tpu/kernels/wavefront_mixed.py:54",
+             m_launches["mixed_luma"]),
+            ("wavefront_chroma", "h264_fer_tpu/kernels/wavefront.py:222",
+             m_launches["chroma_recon"])):
+        rows.append((kname, replaces, n, max(mk[q][kname][0] for q in CHECK_QPS),
+                     mk[QP][kname][1:]))
+    sources = {"wavefront_chroma": "wavefront_i16"}
     kernels = []
     for kname, replaces, n, err, timing in rows:
         if timing is None:  # a P kernel: its QP 28 run, errors over all tiers
@@ -790,7 +1101,7 @@ def main() -> int:
         ms, plain_ms, bound_ms, bound_by = timing
         kernels.append({
             "name": kname, "route": "cuda",
-            "source": f"h264_fer_tpu_torch/kernels/csrc/{kname}.cu",
+            "source": f"{csrc}{sources.get(kname, kname)}.cu",
             "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None})

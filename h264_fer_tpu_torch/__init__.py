@@ -1,4 +1,5 @@
-"""H.264 Baseline all-Intra16x16 and IPPP encoder in PyTorch and CUDA.
+"""H.264 Baseline intra (all-Intra16x16 or mixed I4x4/I16) and IPPP encoder
+in PyTorch and CUDA.
 
 A port of the h264_fer_tpu JAX package (the frozen reference) to PyTorch
 on an NVIDIA H100. It imports neither JAX nor anything of h264_fer_tpu.
@@ -8,6 +9,13 @@ for the CPU, where the plain PyTorch version of each kernel runs.
 All-intra path: parallel.gop_device.GopIntraEncoder → codec.iframe.device_i16_frame
 → mode decision, the CUDA wavefront kernel K1 (kernels/csrc/wavefront_i16.cu),
 levels, whole-slice CAVLC on the device → host slice header, payload, EPB.
+
+Mixed all-intra path: GopIntraEncoder(mode="mixed") → codec.iframe.device_mixed_frame
+→ the full intra mode decision (Intra16x16 and Intra4x4 modes), K7 (the chroma
+wavefront, csrc/wavefront_i16.cu's wavefront_chroma_frame), chroma setup, K6
+(the exact I4x4-vs-I16 arbitration wavefront, csrc/wavefront_mixed.cu, whose
+Intra_4x4 MB coding csrc/intra4x4.cuh shares with K4x4,
+csrc/wavefront_i4x4.cu), mixed-slice CAVLC → the same host stitch.
 
 IPPP path: parallel.gop_device.GopIpppEncoder → codec.gop.device_gop_ippp,
 one GOP at a time: the I16 frame, then per P frame codec.pframe.device_p_frame

@@ -1,21 +1,24 @@
-"""All-Intra16x16 frame encode on one device: modes → K1 recon → levels →
-slice entropy.
+"""I-frame encode on one device: all-Intra16x16 (modes → K1 recon → levels
+→ slice entropy) and mixed I4x4/I16 (modes → K7 chroma → K6 arbitration →
+slice entropy).
 
-The counterpart of h264_fer_tpu/codec/tpu_iframe.device_i16_frame_impl with
-deblock=False (the in-loop filter is not ported yet). Every stage runs on
-the device of the input planes and none reads a value back, so a caller
-can queue many frames before it reads the first payload.
+The counterparts of h264_fer_tpu/codec/tpu_iframe.device_i16_frame_impl
+and device_mixed_frame_impl with deblock=False (the in-loop filter is not
+ported yet). Every stage runs on the device of the input planes and none
+reads a value back, so a caller can queue many frames before it reads the
+first payload.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..kernels.wavefront_i16 import i16_frame
+from ..kernels.wavefront_i16 import chroma_frame, i16_frame
+from ..kernels.wavefront_mixed import mixed_luma
 from ..ops.device import const
 from ..ops.intra import INTRA16_TO_CHROMA_MODE
-from .entropy import i16_slice_entropy
-from .intra_decision import intra16_mode_decision
+from .entropy import chroma_setup, i16_slice_entropy, mixed_slice_entropy
+from .intra_decision import intra16_mode_decision, intra_mode_decision
 
 
 def device_i16_frame(y, cb, cr, qp: int, qpc: int):
@@ -36,5 +39,33 @@ def device_i16_frame(y, cb, cr, qp: int, qpc: int):
         "recon_cb": rcb,
         "recon_cr": rcr,
         "nz_luma": (ac != 0).any(dim=2) | (i16dc != 0).any(dim=1)[:, None],
+        **ent,
+    }
+
+
+def device_mixed_frame(y, cb, cr, qp: int, qpc: int):
+    """Encode one frame with the exact I4x4-vs-I16 choice per MB. y (H, W),
+    cb/cr (H/2, W/2) uint8 tensors on one device. Returns dict:
+    recon_y/recon_cb/recon_cr (uint8), choice4 (nmb,) bool, i4x4_mode
+    (nmb, 16), and the mixed_slice_entropy outputs (words, nbits, mb_type,
+    cbp_luma, cbp_chroma, tc_luma, tc_chroma, nz_luma)."""
+    h, w = y.shape
+    wmb, hmb = w // 16, h // 16
+    dec = intra_mode_decision(y.to(torch.int32), qp)
+    m16, mode4 = dec["mode16"], dec["mode4"]
+    cmode = const(INTRA16_TO_CHROMA_MODE, y.device)[m16.long()]
+    rcb, rcr, cdc, cac = chroma_frame(cb, cr, cmode, qpc)
+    ch = chroma_setup(cdc, cac, wmb, hmb)
+    mx = mixed_luma(y, m16, mode4, cmode, ch["cbp_chroma"], ch["bits"], qp)
+    ent = mixed_slice_entropy(
+        mx["choice4"], m16, cmode, mx["i16dc"], mx["i16ac"], mx["lv4"],
+        mx["prev_flags"], mx["rem_modes"], mx["cbp_luma"], mx["tc_luma"],
+        cdc, cac, wmb=wmb, hmb=hmb)
+    return {
+        "recon_y": mx["recon_y"],
+        "recon_cb": rcb,
+        "recon_cr": rcr,
+        "choice4": mx["choice4"],
+        "i4x4_mode": mode4,
         **ent,
     }

@@ -2,15 +2,18 @@
 
 `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` for
 sm_90a into `h264_fer_tpu_torch/_build/lib<name>-<hash>.so`, then loaded
-with ctypes. The file name carries a hash of the source and the flags, so a
-changed source is rebuilt and a stale library is never loaded. No PyTorch
+with ctypes. The file name carries a hash of the source, of every
+csrc header it includes (`#include "x.cuh"`, followed transitively) and of
+the flags, so a changed source or shared header is rebuilt and a stale
+library is never loaded. No PyTorch
 header is compiled, so a build takes seconds (PERF.md compares it with
 torch.utils.cpp_extension.load, timed by kernels/time_build.py).
 
 Nothing here runs at import: the first launch of a kernel builds it. A
 missing nvcc or a failed compile raises; there is no fallback. `function`
 and `check_tensor` are what every kernel wrapper uses to bind its C entry
-point and to refuse a tensor the kernel does not take.
+point and to refuse a tensor the kernel does not take; `launch` runs the
+entry points that loop over dependent launches and count them.
 """
 
 from __future__ import annotations
@@ -19,16 +22,21 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
+
+import numpy as np
+import torch
 
 CSRC = pathlib.Path(__file__).parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -44,11 +52,25 @@ def nvcc() -> str:
     return found
 
 
+def includes(src: pathlib.Path) -> list[pathlib.Path]:
+    """src and the files it includes with quotes, transitively (paths
+    relative to the including file), each once, src first."""
+    found, todo = [], [src]
+    while todo:
+        f = todo.pop(0)
+        if f not in found:
+            found.append(f)
+            todo += [f.parent / m for m in _INCLUDE.findall(f.read_text())]
+    return found
+
+
 def compile_source(name: str) -> tuple[pathlib.Path, str]:
     """Compile csrc/<name>.cu unless its library is up to date. Returns
     (library path, nvcc/ptxas output; empty when nothing was compiled)."""
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in includes(src):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
     out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
     if out.exists():
         return out, ""
@@ -86,6 +108,27 @@ def function(name: str, symbol: str, argtypes):
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return fn
+
+
+def launch(wrapper, name: str, symbol: str, args, device) -> None:
+    """Run the C entry point `symbol` of csrc/<name>.cu on the current
+    stream of `device`. It takes `args` (a tensor or a numpy array as its
+    data pointer, an int as an int), then the stream and an int* through
+    which it reports how many launches it made, and returns the first CUDA
+    error. Adds those launches to `wrapper.launches`, then raises
+    RuntimeError if the error is not 0."""
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    ints = [isinstance(a, (int, np.integer)) for a in args]
+    fn = function(name, symbol, [i if n else vp for n in ints] + [vp, ctypes.POINTER(i)])
+    ptrs = [int(a) if n else a.ctypes.data if isinstance(a, np.ndarray)
+            else a.data_ptr() for a, n in zip(args, ints)]
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = fn(*ptrs, torch.cuda.current_stream(device).cuda_stream,
+                 ctypes.byref(launched))
+    wrapper.launches += launched.value
+    if err:
+        raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")
 
 
 def check_tensor(name: str, t, shape, dtype, device) -> None:

@@ -1,4 +1,5 @@
-"""All-Intra16x16 frame reconstruction wavefront (K1) and its levels.
+"""All-Intra16x16 frame reconstruction wavefront (K1), its chroma half
+(K7), and their levels.
 
 `i16_recon` is the wrapper of the CUDA kernel csrc/wavefront_i16.cu, which
 replaces the Pallas kernel _i16_recon_kernel_body
@@ -13,13 +14,20 @@ reconstruction in one batched pass, as i16_levels_from_recon_impl
 (wavefront_pallas.py:1089) does; `i16_frame` returns the tuple of
 pallas_i16_frame_fast_impl.
 
-Both the plain wavefront and the levels run one per-MB function,
-`_i16_mb_code`, on MBs whose neighbours are final.
+`chroma_recon` (K7) launches K1's chroma half as a kernel of its own (the C
+entry point wavefront_chroma_frame; both run csrc/intra16.cuh's chroma_mb),
+one launch per MB anti-diagonal: the device form of the XLA loop
+wavefront_chroma_impl (h264_fer_tpu/kernels/wavefront.py:222) that the
+mixed I frame runs, where the luma is K6's. Its plain twin is `chroma_recon_plain`, its levels come
+from `chroma_levels_from_recon`, and `chroma_frame` returns the tuple of
+wavefront_chroma_impl. K1 reconstructs chroma by the same rule (chroma
+mode given per MB, chroma QP, 2x2 DC path).
+
+The plain wavefronts and the levels run the per-MB functions
+`_i16_luma_code` and `_chroma_code` on MBs whose neighbours are final.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import numpy as np
 import torch
@@ -35,14 +43,10 @@ _ZX = (INTRA4X4_SCAN_ORDER_XY[:, 0] // 4).astype(np.int64)
 _ZY = (INTRA4X4_SCAN_ORDER_XY[:, 1] // 4).astype(np.int64)
 
 
-def _i16_mb_code(src, p33, modes, csrc, p17, cmodes, qp: int, qpc: int):
-    """Code n MBs whose neighbours are final.
-
-    src (n, 16, 16), p33 (n, 33), modes (n,); csrc (2, n, 8, 8), p17
-    (2, n, 17), cmodes (n,), all int32. Returns (recon (n, 16, 16),
-    crecon (2, n, 8, 8), i16dc (n, 16), ac (n, 16, 15), cdc (2, n, 4),
-    cac (2, n, 4, 15)).
-    """
+def _i16_luma_code(src, p33, modes, qp: int):
+    """Code n Intra16x16 MBs whose neighbours are final: src (n, 16, 16),
+    p33 (n, 33), modes (n,), int32. Returns (recon (n, 16, 16), i16dc
+    (n, 16), ac (n, 16, 15))."""
     n = src.shape[0]
     preds = intra.predict_16x16_all_modes(p33)  # (4, n, 16, 16)
     pred = preds.gather(0, modes.long()[None, :, None, None].expand(1, n, 16, 16))[0]
@@ -57,8 +61,14 @@ def _i16_mb_code(src, p33, modes, csrc, p17, cmodes, qp: int, qpc: int):
     dcv = transform.inverse_dc_luma(qdc, qp)
     coef = transform.set_dc(q, dcv[:, zy, zx])
     res = transform.inverse_residual(coef, qp, True)
-    recon = (pred + blocks_mb(res)).clamp(0, 255)
+    return (pred + blocks_mb(res)).clamp(0, 255), i16dc, ac
 
+
+def _chroma_code(csrc, p17, cmodes, qpc: int):
+    """Code the chroma of n MBs whose neighbours are final: csrc
+    (2, n, 8, 8), p17 (2, n, 17), cmodes (n,), int32. Returns (crecon
+    (2, n, 8, 8), cdc (2, n, 4), cac (2, n, 4, 15))."""
+    n = csrc.shape[1]
     cpreds = intra.predict_chroma_all_modes(p17)  # (4, 2, n, 8, 8)
     cidx = cmodes.long()[None, None, :, None, None].expand(1, 2, n, 8, 8)
     cpred = cpreds.gather(0, cidx)[0]
@@ -69,60 +79,89 @@ def _i16_mb_code(src, p33, modes, csrc, p17, cmodes, qp: int, qpc: int):
     cac = transform.zigzag_scan(cq)[..., 1:]
     ccoef = transform.set_dc(cq, cdcv.reshape(2, n, 4))
     cres = transform.inverse_residual(ccoef, qpc, True)
-    crecon = (cpred + chroma_mb(cres)).clamp(0, 255)
-    return recon, crecon, i16dc, ac, cqdc.reshape(2, n, 4), cac
+    return (cpred + chroma_mb(cres)).clamp(0, 255), cqdc.reshape(2, n, 4), cac
+
+
+def _diagonals(hmb: int, wmb: int, dev):
+    """(r, c, mb) of each MB anti-diagonal d = r + c, in order."""
+    for d in range(hmb + wmb - 1):
+        r = torch.arange(max(0, d - wmb + 1), min(d, hmb - 1) + 1, device=dev)
+        yield r, d - r, r * wmb + d - r
+
+
+def _recon_planes(p: int, h: int, w: int, dev):
+    """p int32 recon planes of h x w samples with a -1 border on top and
+    left, the unavailable samples: sample (y, x) is at (y + 1, x + 1). The
+    diagonals fill the rest."""
+    return torch.full((p, h + 1, w + 1), -1, dtype=torch.int32, device=dev)
+
+
+def _step(pad, r, c, n: int, code):
+    """Reconstruct the n x n MBs (r, c) of one diagonal into the padded
+    recon planes pad (p, H + 1, W + 1): `code` maps the MBs' neighbours
+    (p, k, 2n + 1) to their recon (p, k, n, n)."""
+    i = torch.arange(n, device=pad.device)
+    ry, cx = (n * r)[:, None], (n * c)[:, None]
+    nbr = torch.cat([pad[:, n * r, n * c][..., None], pad[:, ry + 1 + i, cx],
+                     pad[:, ry, cx + 1 + i]], dim=-1)
+    pad[:, (ry + 1 + i)[:, :, None], (cx + 1 + i)[:, None, :]] = code(nbr)
 
 
 def i16_recon_plain(y, cb, cr, modes, cmodes, qp: int, qpc: int):
     """Plain PyTorch K1: uint8 planes (H, W), (H/2, W/2) and int32 modes
     (nmb,) → uint8 recon planes. One step per anti-diagonal d = r + c."""
     h, w = y.shape
-    hmb, wmb = h // 16, w // 16
-    dev = y.device
     ysrc = to_mbs(y.to(torch.int32), 16)
     csrc = torch.stack([to_mbs(cb.to(torch.int32), 8),
                         to_mbs(cr.to(torch.int32), 8)])
-    # recon planes with a -1 border on top and left: unavailable samples
-    ypad = torch.full((h + 1, w + 1), -1, dtype=torch.int32, device=dev)
-    cpad = torch.full((2, h // 2 + 1, w // 2 + 1), -1, dtype=torch.int32,
-                      device=dev)
-    i16 = torch.arange(16, device=dev)
-    i8 = torch.arange(8, device=dev)
-    for d in range(hmb + wmb - 1):
-        r = torch.arange(max(0, d - wmb + 1), min(d, hmb - 1) + 1, device=dev)
-        c = d - r
-        mb = r * wmb + c
-        # padded coordinates: pixel (py, px) of the plane is at (py+1, px+1)
-        ry, cx = (16 * r)[:, None], (16 * c)[:, None]
-        p33 = torch.cat([ypad[16 * r, 16 * c][:, None],
-                         ypad[ry + 1 + i16, cx],
-                         ypad[ry, cx + 1 + i16]], dim=-1)
-        cry, ccx = (8 * r)[:, None], (8 * c)[:, None]
-        p17 = torch.cat([cpad[:, 8 * r, 8 * c][..., None],
-                         cpad[:, cry + 1 + i8, ccx],
-                         cpad[:, cry, ccx + 1 + i8]], dim=-1)
-        recon, crecon, *_ = _i16_mb_code(
-            ysrc[mb], p33, modes[mb], csrc[:, mb], p17, cmodes[mb], qp, qpc)
-        ypad[(ry + 1 + i16)[:, :, None], (cx + 1 + i16)[:, None, :]] = recon
-        cpad[:, (cry + 1 + i8)[:, :, None], (ccx + 1 + i8)[:, None, :]] = crecon
+    ypad = _recon_planes(1, h, w, y.device)
+    cpad = _recon_planes(2, h // 2, w // 2, y.device)
+    for r, c, mb in _diagonals(h // 16, w // 16, y.device):
+        _step(ypad, r, c, 16,
+              lambda p: _i16_luma_code(ysrc[mb], p[0], modes[mb], qp)[0][None])
+        _step(cpad, r, c, 8,
+              lambda p: _chroma_code(csrc[:, mb], p, cmodes[mb], qpc)[0])
     u8 = torch.uint8
-    return (ypad[1:, 1:].to(u8), cpad[0, 1:, 1:].to(u8), cpad[1, 1:, 1:].to(u8))
+    return (ypad[0, 1:, 1:].to(u8), cpad[0, 1:, 1:].to(u8), cpad[1, 1:, 1:].to(u8))
 
 
-def _qtab(qp: int, qpc: int) -> np.ndarray:
-    """The 12 per-QP multipliers the kernel takes (see QTab in the .cu)."""
-    def three(table, q):
-        m = table[q % 6]
-        return [int(m[0, 0]), int(m[1, 1]), int(m[0, 1])]
-    return np.array(three(LEVEL_QUANTIZE, qp) + three(LEVEL_SCALE, qp)
-                    + three(LEVEL_QUANTIZE, qpc) + three(LEVEL_SCALE, qpc),
-                    dtype=np.int32)
+def chroma_recon_plain(cb, cr, cmodes, qpc: int):
+    """Plain PyTorch K7: the chroma half of K1, the non-banded
+    wavefront_chroma_impl (h264_fer_tpu/kernels/wavefront.py:222). uint8
+    planes (H/2, W/2), int32 chroma modes (nmb,) → uint8 recon planes."""
+    h, w = cb.shape
+    csrc = torch.stack([to_mbs(cb.to(torch.int32), 8),
+                        to_mbs(cr.to(torch.int32), 8)])
+    cpad = _recon_planes(2, h, w, cb.device)
+    for r, c, mb in _diagonals(h // 8, w // 8, cb.device):
+        _step(cpad, r, c, 8,
+              lambda p: _chroma_code(csrc[:, mb], p, cmodes[mb], qpc)[0])
+    return cpad[0, 1:, 1:].to(torch.uint8), cpad[1, 1:, 1:].to(torch.uint8)
 
 
-def _lib():
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    return build.function("wavefront_i16", "wavefront_i16_frame",
-                          [vp] * 8 + [i] * 4 + [vp, vp, ctypes.POINTER(i)])
+def qtab(qp: int) -> np.ndarray:
+    """LEVEL_QUANTIZE and LEVEL_SCALE of qp in the 3-value pattern (even,
+    even), (odd, odd), mixed: the 6 ints of the kernels' QpTab."""
+    return np.array([int(t[qp % 6][i, j]) for t in (LEVEL_QUANTIZE, LEVEL_SCALE)
+                     for i, j in ((0, 0), (1, 1), (0, 1))], dtype=np.int32)
+
+
+def _check_planes(y, cb, cr, modes, cmodes):
+    """Raise unless the planes and modes are what the kernel takes; returns
+    (wmb, hmb). y may be None (chroma only)."""
+    h, w = 2 * cb.shape[0], 2 * cb.shape[1]
+    if h % 16 or w % 16:
+        raise ValueError(f"frame {w}x{h} is not a whole number of MBs")
+    hmb, wmb = h // 16, w // 16
+    checks = [("cb", cb, (h // 2, w // 2), torch.uint8),
+              ("cr", cr, (h // 2, w // 2), torch.uint8),
+              ("cmodes", cmodes, (hmb * wmb,), torch.int32)]
+    if y is not None:
+        checks += [("y", y, (h, w), torch.uint8),
+                   ("modes", modes, (hmb * wmb,), torch.int32)]
+    for name, t, shape, dtype in checks:
+        build.check_tensor(name, t, shape, dtype, cb.device)
+    return wmb, hmb
 
 
 def i16_recon(y, cb, cr, modes, cmodes, qp: int, qpc: int):
@@ -134,37 +173,47 @@ def i16_recon(y, cb, cr, modes, cmodes, qp: int, qpc: int):
         return i16_recon_plain(y, cb, cr, modes, cmodes, qp, qpc)
     if y.device.type != "cuda":
         raise ValueError(f"unsupported device {y.device}")
-    h, w = y.shape
-    if h % 16 or w % 16:
-        raise ValueError(f"frame {w}x{h} is not a whole number of MBs")
-    hmb, wmb = h // 16, w // 16
-    for name, t, shape, dtype in (
-            ("y", y, (h, w), torch.uint8),
-            ("cb", cb, (h // 2, w // 2), torch.uint8),
-            ("cr", cr, (h // 2, w // 2), torch.uint8),
-            ("modes", modes, (hmb * wmb,), torch.int32),
-            ("cmodes", cmodes, (hmb * wmb,), torch.int32)):
-        build.check_tensor(name, t, shape, dtype, y.device)
-    fn = _lib()
+    wmb, hmb = _check_planes(y, cb, cr, modes, cmodes)
     ry, rcb, rcr = torch.empty_like(y), torch.empty_like(cb), torch.empty_like(cr)
-    qtab = _qtab(qp, qpc)
-    stream = torch.cuda.current_stream(y.device).cuda_stream
-    launched = ctypes.c_int(0)
-    with torch.cuda.device(y.device):
-        err = fn(y.data_ptr(), cb.data_ptr(), cr.data_ptr(), modes.data_ptr(),
-                 cmodes.data_ptr(), ry.data_ptr(), rcb.data_ptr(),
-                 rcr.data_ptr(), wmb, hmb, qp, qpc,
-                 qtab.ctypes.data_as(ctypes.c_void_p), stream,
-                 ctypes.byref(launched))
-    i16_recon.launches += launched.value
-    if err:
-        raise RuntimeError(f"wavefront_i16 kernel launch failed: CUDA error {err}")
+    build.launch(i16_recon, "wavefront_i16", "wavefront_i16_frame",
+                 (y, cb, cr, modes, cmodes, ry, rcb, rcr, wmb, hmb, qp, qpc,
+                  np.concatenate([qtab(qp), qtab(qpc)])), y.device)
     return ry, rcb, rcr
 
 
 # kernel launches so far, as counted by the C launch loop (one per
 # accepted anti-diagonal launch)
 i16_recon.launches = 0
+
+
+def chroma_recon(cb, cr, cmodes, qpc: int):
+    """K7: reconstruct the intra chroma of a frame. cb/cr (H/2, W/2)
+    uint8, cmodes (nmb,) int32 chroma modes, qpc the chroma QP. Returns
+    the uint8 recon planes. CUDA tensors go to the kernel, CPU tensors to
+    chroma_recon_plain."""
+    if cb.device.type == "cpu":
+        return chroma_recon_plain(cb, cr, cmodes, qpc)
+    if cb.device.type != "cuda":
+        raise ValueError(f"unsupported device {cb.device}")
+    wmb, hmb = _check_planes(None, cb, cr, None, cmodes)
+    rcb, rcr = torch.empty_like(cb), torch.empty_like(cr)
+    build.launch(chroma_recon, "wavefront_i16", "wavefront_chroma_frame",
+                 (cb, cr, cmodes, rcb, rcr, wmb, hmb, qpc, qtab(qpc)), cb.device)
+    return rcb, rcr
+
+
+# kernel launches so far, counted as i16_recon's
+chroma_recon.launches = 0
+
+
+def chroma_levels_from_recon(cb, cr, rcb, rcr, cmodes, qpc: int):
+    """Chroma levels of an intra frame from its chroma reconstruction
+    (source and recon planes of any integer dtype): (cdc (2, nmb, 4),
+    cac (2, nmb, 4, 15)) int32."""
+    i32 = torch.int32
+    csrc = torch.stack([to_mbs(cb.to(i32), 8), to_mbs(cr.to(i32), 8)])
+    p17 = torch.stack([neighbours(rcb.to(i32), 8), neighbours(rcr.to(i32), 8)])
+    return _chroma_code(csrc, p17, cmodes, qpc)[1:]
 
 
 def i16_levels_from_recon(y, cb, cr, ry, rcb, rcr, modes, cmodes,
@@ -175,12 +224,16 @@ def i16_levels_from_recon(y, cb, cr, ry, rcb, rcr, modes, cmodes,
     Returns (i16dc (nmb, 16), ac (nmb, 16, 15), cdc (2, nmb, 4),
     cac (2, nmb, 4, 15)) int32, as i16_levels_from_recon_impl."""
     i32 = torch.int32
-    csrc = torch.stack([to_mbs(cb.to(i32), 8), to_mbs(cr.to(i32), 8)])
-    p17 = torch.stack([neighbours(rcb.to(i32), 8), neighbours(rcr.to(i32), 8)])
-    _, _, i16dc, ac, cdc, cac = _i16_mb_code(
-        to_mbs(y.to(i32), 16), neighbours(ry.to(i32), 16), modes,
-        csrc, p17, cmodes, qp, qpc)
-    return i16dc, ac, cdc, cac
+    _, i16dc, ac = _i16_luma_code(to_mbs(y.to(i32), 16),
+                                  neighbours(ry.to(i32), 16), modes, qp)
+    return (i16dc, ac, *chroma_levels_from_recon(cb, cr, rcb, rcr, cmodes, qpc))
+
+
+def chroma_frame(cb, cr, cmodes, qpc: int):
+    """(recon_cb, recon_cr, cdc, cac): the tuple of wavefront_chroma_impl,
+    recon planes as uint8."""
+    rcb, rcr = chroma_recon(cb, cr, cmodes, qpc)
+    return (rcb, rcr, *chroma_levels_from_recon(cb, cr, rcb, rcr, cmodes, qpc))
 
 
 def i16_frame(y, cb, cr, modes, cmodes, qp: int, qpc: int):

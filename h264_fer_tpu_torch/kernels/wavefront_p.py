@@ -16,8 +16,6 @@ top-left neighbours all lie on earlier diagonals.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -320,24 +318,14 @@ def pframe_decide(src_y, planes, int_map, c1mv, q1map, c2mv, q2map, q2ok,
         build.check_tensor(name, t, shape, dtype, dev)
     if src_y.data_ptr() % 4:
         raise ValueError("src_y: the kernel reads it in 4-byte words")
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    fn = build.function("wavefront_p", "wavefront_p_frame",
-                        [vp] * 14 + [i] * 6 + [vp, ctypes.POINTER(i)])
     skip = torch.empty(nmb, dtype=torch.bool, device=dev)
     mb_type = torch.empty(nmb, dtype=I32, device=dev)
     mv = torch.empty((nmb, 4, 2), dtype=I32, device=dev)
     mvd = torch.empty((nmb, 4, 2), dtype=I32, device=dev)
     state_t = torch.empty(nmb, dtype=I32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    launched = ctypes.c_int(0)
-    with torch.cuda.device(dev):
-        err = fn(*(t.data_ptr() for t in args), skip.data_ptr(),
-                 mb_type.data_ptr(), mv.data_ptr(), mvd.data_ptr(),
-                 state_t.data_ptr(), w, hmb, window, ext, metric_id, lam,
-                 stream, ctypes.byref(launched))
-    pframe_decide.launches += launched.value
-    if err:
-        raise RuntimeError(f"wavefront_p kernel launch failed: CUDA error {err}")
+    build.launch(pframe_decide, "wavefront_p", "wavefront_p_frame",
+                 (*args, skip, mb_type, mv, mvd, state_t, w, hmb, window, ext,
+                  metric_id, lam), dev)
     return {"skip": skip, "mb_type": mb_type, "mv": mv, "mvd": mvd}
 
 

@@ -69,13 +69,16 @@ def se_code(v):
     return ue_code(torch.where(v > 0, 2 * v - 1, -2 * v))
 
 
-def block_symbols_bulk(levels, max_num_coeff: int):
+def block_symbols_bulk(levels, max_num_coeff: int, sizes_only: bool = False):
     """Per-block CAVLC symbols for a batch of blocks.
 
-    levels: (..., L) int32 zig-zag lists. max_num_coeff: 16/15/4; 4 selects
-    the chroma DC total_zeros table. Returns dict: tc, t1, rest_bits (all
+    levels: (..., L) int32 zig-zag lists. max_num_coeff: 16/15/4, 4 selecting
+    the chroma DC total_zeros table; or a tensor of 15s and 16s that
+    broadcasts over the blocks (lists of 15 zero-padded to L = 16). Returns dict: tc, t1, rest_bits (all
     bits but coeff_token), ct_len / ct_val (..., 5) per nC context, and the
-    symbol stream vals / lens (..., 2L+3) with slot 0 zero.
+    symbol stream vals / lens (..., 2L+3) with slot 0 zero. With
+    sizes_only, only tc, t1, rest_bits and ct_len (what a bit-size
+    comparison needs, as the JAX function's sizes_only).
     """
     L = levels.shape[-1]
     dev = levels.device
@@ -97,23 +100,19 @@ def block_symbols_bulk(levels, max_num_coeff: int):
     ones = ((rev_vals.abs() == 1) & valid)[..., :3].to(I32)
     t1 = torch.cumprod(ones, dim=-1).sum(dim=-1, dtype=I32)
 
-    ct_idx = (tc * 4 + t1).long()
-    ct_len = const(_CT_LEN, dev)[ct_idx]  # (..., 5)
-    ct_val = const(_CT_BITS, dev)[ct_idx]
-
-    zero = torch.zeros(lead, dtype=I32, device=dev)
-    vcols = [zero]  # slot 0: coeff_token (finalize_symbols)
-    lcols = [zero]
+    ct_len = const(_CT_LEN, dev)[(tc * 4 + t1).long()]  # (..., 5)
     bits = t1.clone()
-
-    # trailing one signs, fused into one symbol of t1 bits
-    sign = (rev_vals < 0).to(I32)
-    t1_val = zero
-    for k in range(3):
-        shift = (t1 - 1 - k).clamp(min=0)
-        t1_val = t1_val + torch.where(k < t1, sign[..., k] << shift, 0)
-    vcols.append(t1_val)
-    lcols.append(t1)
+    if not sizes_only:
+        zero = torch.zeros(lead, dtype=I32, device=dev)
+        vcols = [zero]  # slot 0: coeff_token (finalize_symbols)
+        lcols = [zero, t1]
+        # trailing one signs, fused into one symbol of t1 bits
+        sign = (rev_vals < 0).to(I32)
+        t1_val = zero
+        for k in range(3):
+            shift = (t1 - 1 - k).clamp(min=0)
+            t1_val = t1_val + torch.where(k < t1, sign[..., k] << shift, 0)
+        vcols.append(t1_val)
 
     # level codes (adaptive suffixLength, unrolled over L)
     suffix_len = torch.where((tc > 10) & (t1 < 3), 1, 0).to(I32)
@@ -126,27 +125,28 @@ def block_symbols_bulk(levels, max_num_coeff: int):
         # suffix_len == 0
         p0 = torch.where(code < 14, code, torch.where(code < 30, 14, 15))
         s0 = torch.where(code < 14, 0, torch.where(code < 30, 4, 12))
-        u0 = torch.where(code < 14, 0,
-                         torch.where(code < 30, code - 14, code - 30))
         # suffix_len > 0
         pr = code >> sl
         px = pr.clamp(max=15)
         sx = torch.where(pr < 15, sl, 12)
-        ux = torch.where(pr < 15, code & ((1 << sl) - 1), code - (15 << sl))
         prefix = torch.where(sl == 0, p0, px)
         ssize = torch.where(sl == 0, s0, sx)
-        suffix = torch.where(sl == 0, u0, ux)
         length = torch.where(active, prefix + 1 + ssize, 0).to(I32)
         bits = bits + length
-        vcols.append(torch.where(active, (1 << ssize) | suffix, 0).to(I32))
-        lcols.append(length)
+        if not sizes_only:
+            u0 = torch.where(code < 14, 0,
+                             torch.where(code < 30, code - 14, code - 30))
+            ux = torch.where(pr < 15, code & ((1 << sl) - 1), code - (15 << sl))
+            suffix = torch.where(sl == 0, u0, ux)
+            vcols.append(torch.where(active, (1 << ssize) | suffix, 0).to(I32))
+            lcols.append(length)
         sl1 = sl.clamp(min=1)
         grow = (lv.abs() > (3 << (sl1 - 1))) & (sl1 < 6)
         suffix_len = torch.where(active, sl1 + grow.to(I32), suffix_len)
 
     # total_zeros
     total_zeros = torch.where(tc > 0, rev_pos[..., 0] + 1 - tc, 0)
-    if max_num_coeff == 4:
+    if isinstance(max_num_coeff, int) and max_num_coeff == 4:
         tzl, tzb = TOTAL_ZEROS_CDC_LEN, TOTAL_ZEROS_CDC_BITS
     else:
         tzl, tzb = TOTAL_ZEROS_LEN, TOTAL_ZEROS_BITS
@@ -155,8 +155,6 @@ def block_symbols_bulk(levels, max_num_coeff: int):
                + total_zeros.clamp(0, tzl.shape[1] - 1)).long()
     tz_len = torch.where(tz_active, const(tzl.reshape(-1), dev)[tz_flat], 0)
     bits = bits + tz_len
-    vcols.append(torch.where(tz_active, const(tzb.reshape(-1), dev)[tz_flat], 0))
-    lcols.append(tz_len)
 
     # run_before: zerosLeft before run k is rev_pos[k] + k + 1 - tc, so the
     # whole section vectorizes over k
@@ -170,15 +168,20 @@ def block_symbols_bulk(levels, max_num_coeff: int):
     rb_len = torch.where(esc, torch.where(run < 7, 3, run - 3),
                          const(RUN_BEFORE_LEN.reshape(-1), dev)[rb_flat])
     rb_len = torch.where(active, rb_len, 0).to(I32)
+    bits = bits + rb_len.sum(dim=-1, dtype=I32)
+    out = {"tc": tc, "t1": t1, "rest_bits": bits, "ct_len": ct_len}
+    if sizes_only:
+        return out
+
+    vcols.append(torch.where(tz_active, const(tzb.reshape(-1), dev)[tz_flat], 0))
+    lcols.append(tz_len)
     rb_val = torch.where(esc, torch.where(run < 7, 7 - run, 1),
                          const(RUN_BEFORE_BITS.reshape(-1), dev)[rb_flat])
     rb_val = torch.where(active, rb_val, 0).to(I32)
-    bits = bits + rb_len.sum(dim=-1, dtype=I32)
-
     vals = torch.cat([torch.stack(vcols, dim=-1).to(I32), rb_val], dim=-1)
     lens = torch.cat([torch.stack(lcols, dim=-1).to(I32), rb_len], dim=-1)
-    return {"tc": tc, "t1": t1, "rest_bits": bits,
-            "ct_len": ct_len, "ct_val": ct_val, "vals": vals, "lens": lens}
+    ct_val = const(_CT_BITS, dev)[(tc * 4 + t1).long()]
+    return {**out, "ct_val": ct_val, "vals": vals, "lens": lens}
 
 
 def finalize_symbols(blk, ctx):

@@ -7,14 +7,15 @@ the reference's integer transform pipeline bit for bit:
   - chroma QP map:                   inttransform.cpp:8-14
 
 Every function is batched over leading dims: (..., 4, 4) int32 tensors
-(or (..., 2, 2) for chroma DC) on any device. The 4x4 products are written
-as unrolled integer sums with Python-int weights, because integer matmul is
-not available on CUDA and the weights need no tensor. `>>` on int32 is an
+(or (..., 2, 2) for chroma DC) on any device. The 4x4 products are
+broadcast integer products and sums, because integer matmul is not
+available on CUDA. `>>` on int32 is an
 arithmetic shift, as in the reference's g++ build.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .device import const
@@ -32,19 +33,17 @@ _HAD2 = ((1, 1), (1, -1))
 
 
 def _left(m, x):
-    """m @ x for a constant int matrix m over the last two dims of x."""
-    n = len(m[0])
-    return torch.stack(
-        [sum(m[i][k] * x[..., k, :] for k in range(n)) for i in range(len(m))],
-        dim=-2)
+    """m @ x for a constant int matrix m over the last two dims of x, as
+    one broadcast product and sum (integer matmul is not available on
+    CUDA)."""
+    mt = const(np.array(m, np.int32), x.device)
+    return (mt[:, :, None] * x[..., None, :, :]).sum(dim=-2, dtype=torch.int32)
 
 
 def _right_t(x, m):
     """x @ m^T for a constant int matrix m over the last two dims of x."""
-    n = len(m[0])
-    return torch.stack(
-        [sum(m[j][k] * x[..., :, k] for k in range(n)) for j in range(len(m))],
-        dim=-1)
+    mt = const(np.array(m, np.int32), x.device)
+    return (x[..., :, None, :] * mt).sum(dim=-1, dtype=torch.int32)
 
 
 def _table(table, qp: int, like: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Sequence encoders on one device: frames in, Annex-B bytes out.
 
 The counterparts of the single-device branches of
-h264_fer_tpu/parallel/gop_device.GopIntraEncoder (mode="i16") and
+h264_fer_tpu/parallel/gop_device.GopIntraEncoder (mode "i16" or "mixed") and
 GopIpppEncoder. Every frame is uploaded (pinned host buffer, non-blocking
 copy) and its device program queued before any payload is read back; the
 host then reads all payload sizes in one transfer and the used words of all
@@ -20,7 +20,7 @@ from ..bitstream import nal as nal_mod
 from ..bitstream.bitio import BitWriter
 from ..bitstream.params import I_SLICE, P_SLICE, PPS, SPS, SliceHeader
 from ..codec.gop import device_gop_ippp
-from ..codec.iframe import device_i16_frame
+from ..codec.iframe import device_i16_frame, device_mixed_frame
 from ..ops import transform
 from ..ops.cavlc_bulk import words_to_bytes
 from ..ops.device import DEFAULT_DEVICE, resolve_device
@@ -81,18 +81,22 @@ class _Stream:
 
 
 class GopIntraEncoder(_Stream):
-    """All-Intra16x16 sequence encoder on one device (CUDA by default)."""
+    """All-intra sequence encoder on one device (CUDA by default).
+
+    mode: "i16" (every MB Intra16x16) or "mixed" (the exact
+    I4x4-vs-I16 bit-cost choice per MB, device_mixed_frame)."""
 
     def __init__(self, width: int, height: int, qp: int, mode: str = "i16",
                  device=DEFAULT_DEVICE, deblock: bool = False,
                  devices=None) -> None:
         if width % 16 or height % 16:
             raise ValueError(f"frame {width}x{height} is not a whole number of MBs")
-        if mode != "i16":
-            raise NotImplementedError(f"mode={mode!r}: only 'i16' is ported")
+        if mode not in ("i16", "mixed"):
+            raise ValueError(f"mode={mode!r}: 'i16' or 'mixed'")
         if deblock:
             raise NotImplementedError("deblocking is not ported yet")
         self.device = _one_device(device, devices)
+        self._frame = device_mixed_frame if mode == "mixed" else device_i16_frame
         self.w, self.h, self.qp = width, height, qp
         self.wmb, self.hmb = width // 16, height // 16
         self.qpc = transform.chroma_qp(qp, 0)
@@ -107,14 +111,14 @@ class GopIntraEncoder(_Stream):
         outs = []
         for f in frames:
             y, cb, cr = (_upload(p, self.device) for p in f)
-            out = device_i16_frame(y, cb, cr, self.qp, self.qpc)
+            out = self._frame(y, cb, cr, self.qp, self.qpc)
             outs.append({"words": out["words"], "nbits": out["nbits"]})
         return outs
 
     def stitch(self, payloads, idr_base: int = 0) -> bytes:
         """The Annex-B stream of frames whose slice payloads are `payloads`
-        (dicts holding the `words` and `nbits` of i16_slice_entropy, on any
-        device). idr_base: idr_pic_id of the first frame."""
+        (dicts holding the `words` and `nbits` of a slice entropy stage, on
+        any device). idr_base: idr_pic_id of the first frame."""
         out = bytearray(self.headers())
         for i, (words, nbits) in enumerate(read_payloads(payloads)):
             out += self._idr_nal(words, nbits, idr_base + i)

@@ -1,6 +1,7 @@
 """The kernel build step with a stand-in nvcc (no CUDA toolkit here): one
-compile per source, results named by content hash, failures raised with
-the compiler's output, up-to-date libraries not rebuilt."""
+compile per source, results named by content hash (the source and the
+headers it includes), failures raised with the compiler's output,
+up-to-date libraries not rebuilt."""
 
 import os
 import stat
@@ -53,6 +54,23 @@ def test_build_all_compiles_each_source_once(fake_toolchain):
     (fake_toolchain / "a.cu").write_text("kernel a, changed")
     changed = build.compile_source("a")[0]
     assert changed != first["a"][0] and changed.exists()
+
+
+def test_changed_header_rebuilds_its_includers(fake_toolchain):
+    (fake_toolchain / "common.cuh").write_text("int x;")
+    (fake_toolchain / "k.cuh").write_text('#pragma once\n#include "common.cuh"\n')
+    (fake_toolchain / "k.cu").write_text('#include <cstdint>\n#include "k.cuh"\nkernel k')
+    (fake_toolchain / "other.cu").write_text("kernel other")
+    assert [f.name for f in build.includes(fake_toolchain / "k.cu")] == [
+        "k.cu", "k.cuh", "common.cuh"]
+    first = build.compile_source("k")[0]
+    other = build.compile_source("other")[0]
+    (fake_toolchain / "common.cuh").write_text("int y;")
+    lib, log = build.compile_source("k")
+    assert lib != first and lib.exists()
+    assert f"compiled {fake_toolchain / 'k.cu'}" in log
+    assert build.compile_source("k") == (lib, "")
+    assert build.compile_source("other") == (other, "")  # does not include it
 
 
 def test_build_failure_raises_with_compiler_output(fake_toolchain):

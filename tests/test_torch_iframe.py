@@ -81,10 +81,11 @@ def test_gop_encoder_idr_base_and_limits(clip):
     assert enc.headers() == ref.headers()
     assert (enc.encode_sequence(clip[:2], idr_base=5)
             == ref.encode_sequence(clip[:2], idr_base=5))
-    for kwargs in ({"mode": "mixed"}, {"deblock": True},
-                   {"devices": ["cpu", "cpu"]}):
+    for kwargs in ({"deblock": True}, {"devices": ["cpu", "cpu"]}):
         with pytest.raises(NotImplementedError):
             GopIntraEncoder(W, H, 28, device="cpu", **kwargs)
+    with pytest.raises(ValueError):
+        GopIntraEncoder(W, H, 28, mode="i4x4", device="cpu")
 
 
 def test_emulation_prevention_matches_jax():

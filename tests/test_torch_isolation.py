@@ -62,4 +62,6 @@ def test_default_device_raises_without_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         GopIntraEncoder(176, 144, 28)
     with pytest.raises(RuntimeError, match="CUDA"):
+        GopIntraEncoder(176, 144, 28, mode="mixed")
+    with pytest.raises(RuntimeError, match="CUDA"):
         GopIpppEncoder(176, 144, 28, gop_len=8)
