@@ -4,21 +4,25 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
-  1. print the card's name and power limit; build the five CUDA kernels
-     from h264_fer_tpu_torch/kernels/csrc (one nvcc per source, all started
-     at once, sm_90a) and print each build's time and ptxas report;
-  2. hold the K1 wavefront kernel against its plain PyTorch version on the
-     card: bit-exact recon at 1920x1088 for QP 8, 28 and 46 on structured
-     content made from a seed, plus two small grids (wide and tall); time
-     both with CUDA events;
+  1. print the card's name and power limit; build the CUDA kernels from
+     the eight sources in h264_fer_tpu_torch/kernels/csrc (one nvcc per
+     source, all started at once, sm_90a) and print each build's time and
+     ptxas report;
+  2. hold the K1 wavefront kernel and K1t (K1 writing its levels) against
+     their plain PyTorch versions on the card: bit-exact recon (and K1t's
+     four level arrays) at 1920x1088 for QP 8, 28 and 46 on structured
+     content made from a seed, plus two small grids (wide and tall) and
+     random modes, and K1t's recon equal to K1's; time them with CUDA
+     events. K1 lies on no encode path since K1t replaced it: its path is
+     one i16_recon call at 1080p, counted;
   3. drive the all-intra path: GopIntraEncoder encodes 8 frames at
      1920x1088, QP 28, on the card with the launch counts set to 0 just
-     before; the stream must equal, byte for byte, the stream of the plain
-     chain (mode decision, plain K1, levels, entropy) on the card, and parse
-     back into SPS, PPS and 8 IDR slices; a QCIF stream from the card must
-     equal the CPU path's (the path the CPU tests hold against the JAX
-     reference). Prints e2e fps, device frame fps and the per-stage device
-     times;
+     before (187 K1t launches per frame, no K1); the stream must equal,
+     byte for byte, the stream of the plain chain (mode decision, plain K1t,
+     entropy) on the card, and parse back into SPS, PPS and 8 IDR slices; a
+     QCIF stream from the card must equal the CPU path's (the path the CPU
+     tests hold against the JAX reference). Prints e2e fps, device frame
+     fps and the per-stage device times;
   4. hold K2 (integer search), K3 (qpel refine), K4 (P decision wavefront)
      and K5 (MC) against their plain twins on the card, bit-exact: at
      1920x1088 for QP 28, 40 and 46 (the three metric tiers) on the maps
@@ -46,12 +50,30 @@ Phases (any failure exits non-zero and prints no result line):
      kernels and plain twins at QP 28;
   7. drive the mixed all-intra path: GopIntraEncoder(1920, 1088, 28,
      mode="mixed") encodes 8 frames with the launch counts set to 0 just
-     before (254 K6 and 187 K7 launches per frame, no K1); the first
+     before (254 K6 and 187 K7 launches per frame, no K1 or K1t); the first
      frame's stream must equal, byte for byte, the stream of the plain
      chain on the card, and the whole stream parse back; a QCIF mixed stream
      from the card must equal the CPU path's. Prints e2e fps, device ms of
      each stage of one frame and the profiled busy share;
-  8. print the kernels line and, last, {"ok": true, "device": {...}}.
+  8. hold K8 (the in-loop filter) against its plain twin on the card,
+     bit-exact: at 1920x1088 on an I frame's state at QP 16, 28 and 46 and
+     on a P frame's state at QP 28, 36 and 46 (the session encoder's, after
+     an IDR), then on QCIF and 64x208 with random state (every bS 0-4);
+     time kernel and plain at QP 28 on the P state, where the bound counts
+     the filter's operations only on the lines that pass its alpha / beta
+     test;
+  9. drive the session path: Encoder(1920, 1088, EncoderConfig(qp=28,
+     intra_every=8, deblock=True)) encodes 16 frames with the launch counts
+     set to 0 just before (187 K1t launches per IDR, 254 K8 launches per
+     frame, the P kernels as in phase 5); the first 3 frames' stream must
+     equal, byte for byte, the plain chain's (the same encoder with every
+     kernel swapped for its plain twin), and the stream parse back with the
+     filter signalled in the PPS and every slice header; QCIF session
+     streams from the card, with i16 IDRs and with mixed IDRs, must equal
+     the CPU path's. Prints e2e fps, K8's
+     ms and launches per frame, the session's stage times and the profiled
+     busy share;
+  10. print the kernels line and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -71,10 +93,13 @@ E2E_REPS = 5
 CHECK_QPS = (8, 28, 46)
 SEED = 7
 KERNEL_SOURCES = ("wavefront_i16", "me_int", "me_qpel", "wavefront_p", "mc",
-                  "wavefront_i4x4", "wavefront_mixed")
+                  "wavefront_i4x4", "wavefront_mixed", "deblock")
 # the IPPP main path: bench.py's e2e_ippp_encode_1080p_fps configuration
 GOP_LEN, N_IPPP, WINDOW = 8, 16, 8
 N_PLAIN_IPPP = 4  # frames of the first GOP held against the plain chain
+# the session path: 16 frames, an IDR every 8, the in-loop filter on
+N_SESSION, SESSION_INTRA_EVERY, N_PLAIN_SESSION = 16, 8, 3
+K8_I_QPS, K8_P_QPS = (16, 28, 46), (28, 36, 46)
 P_QPS = (28, 40, 46)  # SAD, SSD and 2*SSD tiers
 # H100 SXM at 700 W: HBM3 rate (data sheet), and the int32 rate of the CUDA
 # cores (H100 whitepaper: 132 SMs x 64 int32 lanes x 1.98 GHz boost); K1's
@@ -225,6 +250,42 @@ def check_k1(torch, dev, name, frame, qp, modes=None):
     return err, ms, plain_ms, *bound
 
 
+def check_k1t(torch, dev, name, frame, qp, modes=None):
+    """K1t kernel vs plain twin on one frame (recon and the four level
+    arrays), and its recon vs K1's, in the decided modes or in the given
+    (mode16, chroma mode) arrays; returns (max_abs_err, ms, plain_ms,
+    bound_ms, bound_by)."""
+    from h264_fer_tpu_torch.codec.intra_decision import intra16_mode_decision
+    from h264_fer_tpu_torch.kernels.wavefront_i16 import (i16_frame, i16_frame_plain,
+                                                          i16_recon)
+    from h264_fer_tpu_torch.ops.intra import INTRA16_TO_CHROMA_MODE
+    from h264_fer_tpu_torch.ops.transform import chroma_qp
+
+    y, cb, cr = (torch.from_numpy(p).to(dev) for p in frame)
+    if modes is None:
+        m16 = intra16_mode_decision(y.to(torch.int32), qp)[0].to(torch.int32)
+        cm = torch.from_numpy(INTRA16_TO_CHROMA_MODE).to(dev)[m16.long()]
+    else:
+        m16, cm = (torch.from_numpy(m).to(dev) for m in modes)
+    qpc = chroma_qp(qp)
+    args = (y, cb, cr, m16, cm, qp, qpc)
+    got = i16_frame(*args)
+    want, plain_ms = timed_once(torch, lambda: i16_frame_plain(*args))
+    err = max_err(torch, got, want)
+    k1_err = max_err(torch, [got[0], got[3], got[4]], i16_recon(*args))
+    ms = cuda_ms(torch, lambda: i16_frame(*args), 20)
+    h, w = y.shape
+    nmb = (w // 16) * (h // 16)
+    bound_ms, bound_by = bound(nbytes(y, cb, cr, m16, cm, *got),
+                               k1_ops(qp, qpc, m16.cpu().numpy(), cm.cpu().numpy()))
+    print(f"K1t {name} qp{qp}: max_abs_err {err} (tolerance 0; recon vs K1 {k1_err}), "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms per frame, bound {bound_ms:.4f} ms "
+          f"({bound_by}; {nmb} MBs)", flush=True)
+    if err != 0 or k1_err != 0:
+        raise AssertionError(f"K1t kernel != plain or != K1 at {name} qp{qp}")
+    return err, ms, plain_ms, bound_ms, bound_by
+
+
 def parse_stream(stream: bytes, n_frames: int, w: int, h: int, qp: int):
     """Read back SPS, PPS and the IDR slice headers with the port's parsers."""
     from h264_fer_tpu_torch.bitstream import nal
@@ -251,7 +312,7 @@ def stage_times(torch, dev, frame):
     """Device ms of each stage of one 1080p frame, CUDA events."""
     from h264_fer_tpu_torch.codec.entropy import i16_slice_entropy
     from h264_fer_tpu_torch.codec.intra_decision import intra16_mode_decision
-    from h264_fer_tpu_torch.kernels.wavefront_i16 import i16_levels_from_recon, i16_recon
+    from h264_fer_tpu_torch.kernels.wavefront_i16 import i16_frame
     from h264_fer_tpu_torch.ops.intra import INTRA16_TO_CHROMA_MODE
     from h264_fer_tpu_torch.ops.transform import chroma_qp
 
@@ -260,15 +321,12 @@ def stage_times(torch, dev, frame):
     yi = y.to(torch.int32)
     m16 = intra16_mode_decision(yi, QP)[0].to(torch.int32)
     cm = torch.from_numpy(INTRA16_TO_CHROMA_MODE).to(dev)[m16.long()]
-    rec = i16_recon(y, cb, cr, m16, cm, QP, qpc)
-    lv = i16_levels_from_recon(y, cb, cr, *rec, m16, cm, QP, qpc)
+    _, i16dc, ac, _, _, cdc, cac = i16_frame(y, cb, cr, m16, cm, QP, qpc)
     return {
         "mode_decision": cuda_ms(torch, lambda: intra16_mode_decision(yi, QP), 5),
-        "k1_recon": cuda_ms(torch, lambda: i16_recon(y, cb, cr, m16, cm, QP, qpc), 5),
-        "levels": cuda_ms(torch, lambda: i16_levels_from_recon(
-            y, cb, cr, *rec, m16, cm, QP, qpc), 5),
+        "k1t_recon_levels": cuda_ms(torch, lambda: i16_frame(y, cb, cr, m16, cm, QP, qpc), 5),
         "entropy": cuda_ms(torch, lambda: i16_slice_entropy(
-            m16, cm, *lv, wmb=W // 16, hmb=H // 16), 5),
+            m16, cm, i16dc, ac, cdc, cac, wmb=W // 16, hmb=H // 16), 5),
     }
 
 
@@ -574,25 +632,24 @@ def check_p_small_grids(torch, dev):
 
 def plain_i16_payload(torch, dev, enc, frame):
     """One all-I16 frame through the oracle chain on the card: mode
-    decision, plain K1, levels and entropy. Returns (payload dict, recon
-    planes)."""
+    decision, plain K1t (plain K1, then the levels from its recon) and
+    entropy. Returns (payload dict, recon planes)."""
     from h264_fer_tpu_torch.codec.entropy import i16_slice_entropy
     from h264_fer_tpu_torch.codec.intra_decision import intra16_mode_decision
-    from h264_fer_tpu_torch.kernels.wavefront_i16 import (i16_levels_from_recon,
-                                                          i16_recon_plain)
+    from h264_fer_tpu_torch.kernels.wavefront_i16 import i16_frame_plain
     from h264_fer_tpu_torch.ops.intra import INTRA16_TO_CHROMA_MODE
 
     y, cb, cr = (torch.tensor(p, device=dev) for p in frame)
     m16 = intra16_mode_decision(y.to(torch.int32), enc.qp)[0].to(torch.int32)
     cm = torch.from_numpy(INTRA16_TO_CHROMA_MODE).to(dev)[m16.long()]
-    rec = i16_recon_plain(y, cb, cr, m16, cm, enc.qp, enc.qpc)
-    lv = i16_levels_from_recon(y, cb, cr, *rec, m16, cm, enc.qp, enc.qpc)
-    return i16_slice_entropy(m16, cm, *lv, wmb=enc.wmb, hmb=enc.hmb), rec
+    ry, i16dc, ac, rcb, rcr, cdc, cac = i16_frame_plain(y, cb, cr, m16, cm, enc.qp, enc.qpc)
+    return (i16_slice_entropy(m16, cm, i16dc, ac, cdc, cac, wmb=enc.wmb, hmb=enc.hmb),
+            (ry, rcb, rcr))
 
 
 def plain_chain_stream(torch, dev, enc, frames) -> bytes:
-    """The stream of the oracle chain on the card: mode decision, plain K1,
-    levels and entropy per frame, stitched by the encoder."""
+    """The stream of the oracle chain on the card: mode decision, plain
+    K1t and entropy per frame, stitched by the encoder."""
     return enc.stitch([plain_i16_payload(torch, dev, enc, f)[0] for f in frames])
 
 
@@ -835,6 +892,165 @@ def mixed_stage_times(torch, dev, frame):
     }
 
 
+def k8_filtered_lines(state, qp: int, qpc: int):
+    """(luma, chroma) lines that pass the alpha / beta test on an edge with
+    bS > 0 in a plain K8 run on this state: the lines the filter proper
+    works on. Counted by a wrapper around the plain twin's _filter_lines,
+    on a run of its own so that the timed plain run stays as it is."""
+    from unittest import mock
+
+    from h264_fer_tpu_torch.kernels import deblock
+
+    counts = [0, 0]
+    inner = deblock._filter_lines
+
+    def counted(s, bs, alpha, beta, tc0_tab, chroma):
+        a0, a1 = s[..., 0], s[..., 1]
+        passed = (((a0[0] - a0[1]).abs() < alpha) & ((a1 - a0).abs() < beta).all(0)
+                  & (bs > 0))
+        counts[chroma] += int(passed.sum())
+        return inner(s, bs, alpha, beta, tc0_tab, chroma)
+
+    with mock.patch.object(deblock, "_filter_lines", counted):
+        deblock.deblock_frame_plain(*state, qp, qpc)
+    return counts
+
+
+def k8_ops(bs_v, bs_h, luma_lines: int, chroma_lines: int) -> float:
+    """int32 operations of K8's function on these bS maps: ~10 to derive
+    each bS, the alpha / beta test (~9) on every line of an edge with
+    bS > 0 (a Cb and a Cr edge of 2 lines per luma 4-line group at luma
+    offsets 0 and 8), and the filter itself (~36 a luma line, ~12 a chroma
+    line) only on the lines that pass the test (k8_filtered_lines): the
+    others return after it."""
+    coded = (bs_v > 0).sum().item() + (bs_h > 0).sum().item()
+    chroma = (bs_v[:, ::2] > 0).sum().item() + (bs_h[:, ::2] > 0).sum().item()
+    return (32 * bs_v.shape[0] * 10 + (coded + chroma) * 4 * 9
+            + luma_lines * 36 + chroma_lines * 12)
+
+
+def check_k8(torch, label, state, qp, time_it=False):
+    """K8 kernel vs plain twin on one frame's state (y, cb, cr uint8,
+    mb_intra, nz_luma, mv) on the card. Returns (max_abs_err, ms, plain_ms,
+    bound_ms, bound_by) (ms and the bound None unless time_it) and the
+    number of samples the filter changed."""
+    from h264_fer_tpu_torch.kernels.deblock import bs_maps, deblock_frame, deblock_frame_plain
+    from h264_fer_tpu_torch.ops.transform import chroma_qp
+
+    qpc = chroma_qp(qp)
+    got = deblock_frame(*state, qp, qpc)
+    want, plain_ms = timed_once(torch, lambda: deblock_frame_plain(*state, qp, qpc))
+    err = max_err(torch, got, want)
+    changed = sum(int((g != p).sum()) for g, p in zip(got, state[:3]))
+    ms = bound_ms = bound_by = None
+    timing = ""
+    if time_it:
+        ms = cuda_ms(torch, lambda: deblock_frame(*state, qp, qpc), 20)
+        h, w = state[0].shape
+        bs_v, bs_h = bs_maps(*state[3:], w // 16, h // 16)
+        lines = k8_filtered_lines(state, qp, qpc)
+        bound_ms, bound_by = bound(nbytes(*state, *got), k8_ops(bs_v, bs_h, *lines))
+        timing = (f", kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+                  f"{lines[0]} luma + {lines[1]} chroma lines filtered)")
+    print(f"K8 {label} qp{qp}: max_abs_err {err} (tolerance 0), {changed} samples "
+          f"filtered, plain {plain_ms:.1f} ms" + timing, flush=True)
+    if err != 0:
+        raise AssertionError(f"K8 kernel != plain at {label} qp{qp}")
+    return (err, ms, plain_ms, bound_ms, bound_by), changed
+
+
+def encoder_state(enc):
+    """The state the session encoder's filter reads after its last frame,
+    taken before the filter (run with deblock off): (recon y, cb, cr,
+    mb_intra, nz_luma, mv) on its device."""
+    return (*enc._ref, enc._mb_class == 6, enc._nz, enc._mv)
+
+
+def random_state(torch, dev, w, h, seed):
+    """Content planes and random P-frame state: mixed intra flags, sparse
+    coded-block flags and quadrant MVs whose neighbour deltas fall on both
+    sides of 4, so every bS 0-4 occurs."""
+    rng = np.random.default_rng(seed)
+    nmb = (w // 16) * (h // 16)
+    mv = rng.integers(-3, 4, (nmb, 1, 2)) * 2 + rng.integers(-2, 3, (nmb, 4, 2))
+    return (*(torch.from_numpy(p).to(dev) for p in content(1, w, h, seed)[0]),
+            torch.from_numpy(rng.random(nmb) < 0.15).to(dev),
+            torch.from_numpy(rng.random((nmb, 16)) < 0.3).to(dev),
+            torch.from_numpy(mv.astype(np.int32)).to(dev))
+
+
+def plain_patches():
+    """Context managers that swap every kernel wrapper the session encoder
+    (i16 I frames) calls for its plain twin, where the encoder's modules
+    look it up."""
+    from unittest import mock
+
+    from h264_fer_tpu_torch.codec import encoder, iframe, pframe
+    from h264_fer_tpu_torch.kernels.deblock import deblock_frame_plain
+    from h264_fer_tpu_torch.kernels.wavefront_i16 import i16_frame_plain
+
+    plain = p_kernels(plain=True)
+    return [mock.patch.object(iframe, "i16_frame", i16_frame_plain),
+            mock.patch.object(iframe, "deblock_frame", deblock_frame_plain),
+            mock.patch.object(encoder, "deblock_frame", deblock_frame_plain),
+            mock.patch.object(pframe, "integer_score_map", plain["me_int"]),
+            mock.patch.object(pframe, "qpel_refine_maps", plain["me_qpel"]),
+            mock.patch.object(pframe, "pframe_decide", plain["wavefront_p"]),
+            mock.patch.object(pframe, "mc_bulk", plain["mc"])]
+
+
+def plain_session_stream(torch, dev, cfg, frames, counted) -> bytes:
+    """The session stream of `frames` through the oracle chain on the card:
+    the same Encoder with every kernel swapped for its plain twin. Fails if
+    a counted kernel launched meanwhile."""
+    from contextlib import ExitStack
+
+    from h264_fer_tpu_torch.codec.encoder import Encoder
+
+    before = [fn.launches for fn in counted]
+    with ExitStack() as stack:
+        for patch in plain_patches():
+            stack.enter_context(patch)
+        h, w = frames[0][0].shape
+        stream = Encoder(w, h, cfg, device=dev).encode_sequence(frames)
+    if [fn.launches for fn in counted] != before:
+        raise AssertionError("a kernel launched in the plain session chain")
+    return stream
+
+
+def parse_session_stream(stream: bytes, stats, w: int, h: int, qp: int):
+    """Read back SPS, PPS and every slice header of a session stream: the
+    filter signalled in the PPS and enabled in every slice, the frame types
+    of `stats`, and the reference's frame_num / POC / idr_pic_id sequence."""
+    from h264_fer_tpu_torch.bitstream import nal
+    from h264_fer_tpu_torch.bitstream.bitio import BitReader
+    from h264_fer_tpu_torch.bitstream.params import I_SLICE, P_SLICE, PPS, SPS, SliceHeader
+
+    units = list(nal.iter_nal_units(stream))
+    want = [nal.NAL_SPS, nal.NAL_PPS] + [nal.NAL_IDR if s["idr"] else nal.NAL_NOT_IDR
+                                         for s in stats]
+    if [u.nal_unit_type for u in units] != want:
+        raise AssertionError(f"NAL sequence {[u.nal_unit_type for u in units]}")
+    sps = SPS.parse(BitReader(units[0].rbsp))
+    pps = PPS.parse(BitReader(units[1].rbsp))
+    if ((sps.width, sps.height) != (w, h) or pps.pic_init_qp != 14 + qp
+            or pps.deblocking_filter_control_present_flag != 1):
+        raise AssertionError(f"SPS {sps.width}x{sps.height} PPS {pps}")
+    frame_num, idr_id, prev_idr = 0, -1, False
+    for i, (u, s) in enumerate(zip(units[2:], stats)):
+        sh = SliceHeader.parse(BitReader(u.rbsp), sps, pps, u.nal_unit_type, u.nal_ref_idc)
+        if s["idr"]:
+            frame_num, idr_id = 0, idr_id + 1 if prev_idr else 0
+            ok = sh.slice_type == I_SLICE and sh.idr_pic_id == idr_id
+        else:
+            frame_num += 1
+            ok = sh.slice_type == P_SLICE and sh.frame_num == frame_num
+        prev_idr = s["idr"]
+        if (not ok or sh.pic_order_cnt_lsb != 2 * frame_num
+                or sh.disable_deblocking_filter_idc != 0 or sh.slice_qp_y(pps) != qp):
+            raise AssertionError(f"slice {i}: {sh}")
+
+
 def main() -> int:
     import torch
 
@@ -845,9 +1061,11 @@ def main() -> int:
     from h264_fer_tpu_torch.kernels.mc import mc_bulk
     from h264_fer_tpu_torch.kernels.me_int import integer_score_map
     from h264_fer_tpu_torch.kernels.me_qpel import qpel_refine_maps
-    from h264_fer_tpu_torch.kernels.wavefront_i16 import chroma_recon, i16_recon
+    from h264_fer_tpu_torch.kernels.deblock import deblock_frame
+    from h264_fer_tpu_torch.kernels.wavefront_i16 import chroma_recon, i16_frame, i16_recon
     from h264_fer_tpu_torch.kernels.wavefront_mixed import mixed_luma
     from h264_fer_tpu_torch.kernels.wavefront_p import pframe_decide
+    from h264_fer_tpu_torch.ops.transform import chroma_qp
     from h264_fer_tpu_torch.parallel.gop_device import GopIntraEncoder, GopIpppEncoder
 
     dev = torch.device("cuda")
@@ -858,37 +1076,47 @@ def main() -> int:
     # ---- 1. build ------------------------------------------------------------
     build_all()
 
-    # ---- 2. K1 kernel vs plain ----------------------------------------------
+    # ---- 2. K1 and K1t kernels vs plain ------------------------------------
     small = [("176x144", 176, 144), ("80x176", 80, 176)]
     for label, w, h in small:
-        check_k1(torch, dev, label, content(1, w, h)[0], QP)
+        for check in (check_k1, check_k1t):
+            check(torch, dev, label, content(1, w, h)[0], QP)
     # every mode at every MB, the frame edges included, where the -1
     # neighbours of V, H and Plane enter the prediction
     rng = np.random.default_rng(SEED)
     for qp in (0, 51):
         modes = tuple(rng.integers(0, 4, 99).astype(np.int32) for _ in range(2))
-        check_k1(torch, dev, "176x144 random modes", content(1, 176, 144)[0],
-                 qp, modes)
-    k1 = {}
+        for check in (check_k1, check_k1t):
+            check(torch, dev, "176x144 random modes", content(1, 176, 144)[0], qp, modes)
+    k1, k1t = {}, {}
     frame = content(1, W, H)[0]
     for qp in CHECK_QPS:
         k1[qp] = check_k1(torch, dev, f"{W}x{H}", frame, qp)
-    print(f"K1 checks done on {name}", flush=True)
+        k1t[qp] = check_k1t(torch, dev, f"{W}x{H}", frame, qp)
+    # K1's own path, now that K1t runs on every encode path: one call
+    y, cb, cr = (torch.from_numpy(p).to(dev) for p in frame)
+    modes = torch.zeros(y.numel() // 256, dtype=torch.int32, device=dev)
+    i16_recon.launches = 0
+    i16_recon(y, cb, cr, modes, modes, QP, chroma_qp(QP))
+    k1_launches = i16_recon.launches
+    print(f"K1 and K1t checks done on {name}", flush=True)
 
     # ---- 3. main path ----------------------------------------------------------
     frames = content(N_FRAMES, W, H)
     enc = GopIntraEncoder(W, H, QP, device=dev)
     enc.encode_sequence(frames[:2])  # warm-up: allocator, library load
     torch.cuda.synchronize()
-    i16_recon.launches = 0
+    i16_recon.launches = i16_frame.launches = 0
     t0 = time.perf_counter()
     stream = enc.encode_sequence(frames)
     e2e_s = [time.perf_counter() - t0]
-    launches = i16_recon.launches  # counted by the kernel's C launch loop
+    launches = i16_frame.launches  # counted by the kernel's C launch loop
     ndiag = W // 16 + H // 16 - 1
-    if launches != N_FRAMES * ndiag:
-        raise AssertionError(f"K1 launched {launches} times, "
-                             f"expected {N_FRAMES * ndiag}")
+    if (launches, i16_recon.launches) != (N_FRAMES * ndiag, 0):
+        raise AssertionError(f"K1t launched {launches} times, K1 {i16_recon.launches}, "
+                             f"expected {N_FRAMES * ndiag} and 0")
+    if k1_launches != ndiag:
+        raise AssertionError(f"K1 launched {k1_launches} times in one call")
     if stream != plain_chain_stream(torch, dev, enc, frames):
         raise AssertionError("kernel-path stream != plain-chain stream")
     parse_stream(stream, N_FRAMES, W, H, QP)
@@ -907,7 +1135,6 @@ def main() -> int:
           f"(runs {', '.join(f'{v:.2f}' for v in fps)}) on {name}", flush=True)
 
     from h264_fer_tpu_torch.codec.iframe import device_i16_frame
-    from h264_fer_tpu_torch.ops.transform import chroma_qp
 
     dframes = [tuple(torch.from_numpy(p).to(dev) for p in f) for f in frames]
     qpc = chroma_qp(QP)
@@ -951,7 +1178,7 @@ def main() -> int:
     enc = GopIpppEncoder(W, H, QP, gop_len=GOP_LEN, device=dev)
     enc.encode_sequence(frames[:2])  # warm-up: allocator, library loads
     torch.cuda.synchronize()
-    counted = (i16_recon, integer_score_map, qpel_refine_maps, pframe_decide, mc_bulk)
+    counted = (i16_frame, integer_score_map, qpel_refine_maps, pframe_decide, mc_bulk)
     for fn in counted:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -959,7 +1186,7 @@ def main() -> int:
     e2e_s = [time.perf_counter() - t0]
     p_launches = {fn.__name__: fn.launches for fn in counted}
     n_gops, n_p = N_IPPP // GOP_LEN, N_IPPP - N_IPPP // GOP_LEN
-    want = {"i16_recon": n_gops * ndiag, "integer_score_map": n_p,
+    want = {"i16_frame": n_gops * ndiag, "integer_score_map": n_p,
             "qpel_refine_maps": n_p, "pframe_decide": n_p * (W // 16 + 2 * (H // 16) - 2),
             "mc_bulk": n_p}
     if p_launches != want:
@@ -1028,7 +1255,7 @@ def main() -> int:
     enc = GopIntraEncoder(W, H, QP, mode="mixed", device=dev)
     enc.encode_sequence(frames[:2])  # warm-up: allocator, library loads
     torch.cuda.synchronize()
-    counted = (mixed_luma, chroma_recon, i16_recon)
+    counted = (mixed_luma, chroma_recon, i16_recon, i16_frame)
     for fn in counted:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -1036,7 +1263,7 @@ def main() -> int:
     e2e_s = [time.perf_counter() - t0]
     m_launches = {fn.__name__: fn.launches for fn in counted}
     want = {"mixed_luma": N_FRAMES * nwave, "chroma_recon": N_FRAMES * ndiag,
-            "i16_recon": 0}
+            "i16_recon": 0, "i16_frame": 0}
     if m_launches != want:
         raise AssertionError(f"mixed launches {m_launches}, expected {want}")
     plain = enc.stitch([plain_payload])
@@ -1071,10 +1298,103 @@ def main() -> int:
     else:
         print("device busy share: not measured (the profiler saw no device time)")
 
-    # ---- 8. result --------------------------------------------------------
+    # ---- 8. K8 kernel vs plain twin ----------------------------------------
+    from h264_fer_tpu_torch.codec.encoder import Encoder, EncoderConfig
+
+    frames = content(2, W, H)
+    k8 = {}
+    for qp in sorted(set(K8_I_QPS) | set(K8_P_QPS)):
+        enc = Encoder(W, H, EncoderConfig(qp=qp), device=dev)
+        enc.encode_frame(*frames[0])
+        if qp in K8_I_QPS:
+            k8["I", qp], _ = check_k8(torch, f"{W}x{H} I state",
+                                      encoder_state(enc), qp)
+        enc.encode_frame(*frames[1])
+        if qp in K8_P_QPS:
+            k8["P", qp], changed = check_k8(torch, f"{W}x{H} P state",
+                                            encoder_state(enc), qp,
+                                            time_it=qp == QP)
+            if qp == QP and not changed:
+                raise AssertionError(f"K8 filtered no sample of the P frame at QP {QP}")
+    for label, w, h, qp in (("176x144 random state", 176, 144, 30),
+                            ("64x208 random state", 64, 208, 38)):
+        k8[label, qp], _ = check_k8(torch, label, random_state(torch, dev, w, h, w + qp), qp)
+    print(f"K8 checks done on {name}", flush=True)
+
+    # ---- 9. session path ---------------------------------------------------
+    cfg = EncoderConfig(qp=QP, intra_every=SESSION_INTRA_EVERY, deblock=True)
+    frames = content(N_SESSION, W, H)
+    Encoder(W, H, cfg, device=dev).encode_sequence(frames[:2])  # warm-up
+    torch.cuda.synchronize()
+    counted = (i16_frame, i16_recon, deblock_frame, integer_score_map,
+               qpel_refine_maps, pframe_decide, mc_bulk)
+    for fn in counted:
+        fn.launches = 0
+    enc = Encoder(W, H, cfg, device=dev)
+    t0 = time.perf_counter()
+    stream = enc.encode_sequence(frames)
+    e2e_s = [time.perf_counter() - t0]
+    s_launches = {fn.__name__: fn.launches for fn in counted}
+    n_idr = sum(st["idr"] for st in enc.stats)
+    n_p = N_SESSION - n_idr
+    want = {"i16_frame": n_idr * ndiag, "i16_recon": 0, "deblock_frame": N_SESSION * nwave,
+            "integer_score_map": n_p, "qpel_refine_maps": n_p,
+            "pframe_decide": n_p * nwave, "mc_bulk": n_p}
+    if s_launches != want or n_idr != N_SESSION // SESSION_INTRA_EVERY:
+        raise AssertionError(f"session launches {s_launches} with {n_idr} IDRs, "
+                             f"expected {want}")
+    plain = plain_session_stream(torch, dev, cfg, frames[:N_PLAIN_SESSION], counted)
+    rest = stream[len(plain):]  # frame N_PLAIN_SESSION is a P slice
+    if not stream.startswith(plain) or not rest.startswith(b"\x00\x00\x00\x01\x21"):
+        raise AssertionError("session first frames != plain-chain stream")
+    parse_session_stream(stream, enc.stats, W, H, QP)
+    qcif = content(6, 176, 144)
+    for iframe, n_qcif, every in (("i16", 6, 4), ("mixed", 3, 2)):
+        qcfg = EncoderConfig(qp=QP, intra_every=every, deblock=True)
+        if (Encoder(176, 144, qcfg, iframe=iframe, device=dev).encode_sequence(qcif[:n_qcif])
+                != Encoder(176, 144, qcfg, iframe=iframe,
+                           device="cpu").encode_sequence(qcif[:n_qcif])):
+            raise AssertionError(f"QCIF {iframe} session stream on the card != CPU path stream")
+    for _ in range(E2E_REPS - 1):
+        e = Encoder(W, H, cfg, device=dev)
+        t0 = time.perf_counter()
+        e.encode_sequence(frames)
+        e2e_s.append(time.perf_counter() - t0)
+    fps = sorted(N_SESSION / t for t in e2e_s)
+    print(f"session path: {N_SESSION} frames {W}x{H} QP{QP} intra_every "
+          f"{SESSION_INTRA_EVERY} deblock, {n_idr} IDR + {n_p} P, {len(stream)} bytes, "
+          f"first {N_PLAIN_SESSION} frames == plain chain, parses; launches {s_launches} "
+          f"({s_launches['deblock_frame'] // N_SESSION} K8 per frame); e2e fps median "
+          f"{fps[len(fps) // 2]:.2f} (runs {', '.join(f'{v:.2f}' for v in fps)}) on {name}",
+          flush=True)
+    e = Encoder(W, H, cfg, device=dev)
+    _, idr_ms = timed_once(torch, lambda: e.encode_frame(*frames[0]))
+    _, p_ms = timed_once(torch, lambda: e.encode_frame(*frames[1]))
+    i_state = Encoder(W, H, EncoderConfig(qp=QP), device=dev)
+    i_state.encode_frame(*frames[0])
+    i_state = encoder_state(i_state)
+    k8_i_ms = cuda_ms(torch, lambda: deblock_frame(*i_state, QP, chroma_qp(QP)), 20)
+    print(f"session stages (device ms, one frame): idr_frame {idr_ms:.3f}, p_frame "
+          f"{p_ms:.3f}, k8_i_state {k8_i_ms:.4f}, k8_p_state {k8['P', QP][1]:.4f} "
+          f"on {name}", flush=True)
+    wall, busy, top = device_busy(
+        torch, lambda: Encoder(W, H, cfg, device=dev).encode_sequence(frames[:4]))
+    if busy > 0:
+        print(f"profiled 4-frame session encode (IDR + 3 P): wall {wall:.1f} ms, kernels "
+              f"{busy:.1f} ms, device busy {100 * busy / wall:.1f} % on {name}")
+        for key, ms_k, count in top:
+            print(f"  {ms_k:8.3f} ms  {count:6d} x  {key[:90]}")
+    else:
+        print("device busy share: not measured (the profiler saw no device time)")
+
+    # ---- 10. result -------------------------------------------------------
     csrc = "h264_fer_tpu_torch/kernels/csrc/"
     rows = [("wavefront_i16", "h264_fer_tpu/kernels/wavefront_pallas.py:890",
-             launches, max(k1[q][0] for q in CHECK_QPS), k1[QP][1:]),
+             k1_launches, max(k1[q][0] for q in CHECK_QPS), k1[QP][1:]),
+            ("wavefront_i16_levels", "h264_fer_tpu/kernels/wavefront_pallas.py:173",
+             launches, max(k1t[q][0] for q in CHECK_QPS), k1t[QP][1:]),
+            ("deblock", "h264_fer_tpu/kernels/deblock_tpu.py:204",
+             s_launches["deblock_frame"], max(v[0] for v in k8.values()), k8["P", QP][1:]),
             ("me_int", "h264_fer_tpu/kernels/me_int_pallas.py:34",
              p_launches["integer_score_map"], None, None),
             ("me_qpel", "h264_fer_tpu/kernels/me_pallas.py:28",
@@ -1092,7 +1412,7 @@ def main() -> int:
              m_launches["chroma_recon"])):
         rows.append((kname, replaces, n, max(mk[q][kname][0] for q in CHECK_QPS),
                      mk[QP][kname][1:]))
-    sources = {"wavefront_chroma": "wavefront_i16"}
+    sources = {"wavefront_chroma": "wavefront_i16", "wavefront_i16_levels": "wavefront_i16"}
     kernels = []
     for kname, replaces, n, err, timing in rows:
         if timing is None:  # a P kernel: its QP 28 run, errors over all tiers

@@ -1,5 +1,5 @@
 """H.264 Baseline intra (all-Intra16x16 or mixed I4x4/I16) and IPPP encoder
-in PyTorch and CUDA.
+with the in-loop deblocking filter, in PyTorch and CUDA.
 
 A port of the h264_fer_tpu JAX package (the frozen reference) to PyTorch
 on an NVIDIA H100. It imports neither JAX nor anything of h264_fer_tpu.
@@ -7,8 +7,9 @@ Its entry points run on the card (device "cuda") unless the caller asks
 for the CPU, where the plain PyTorch version of each kernel runs.
 
 All-intra path: parallel.gop_device.GopIntraEncoder → codec.iframe.device_i16_frame
-→ mode decision, the CUDA wavefront kernel K1 (kernels/csrc/wavefront_i16.cu),
-levels, whole-slice CAVLC on the device → host slice header, payload, EPB.
+→ mode decision, the CUDA wavefront kernel K1t (kernels/csrc/wavefront_i16.cu:
+the reconstruction with the levels written from the kernel), whole-slice
+CAVLC on the device → host slice header, payload, EPB.
 
 Mixed all-intra path: GopIntraEncoder(mode="mixed") → codec.iframe.device_mixed_frame
 → the full intra mode decision (Intra16x16 and Intra4x4 modes), K7 (the chroma
@@ -23,6 +24,12 @@ one GOP at a time: the I16 frame, then per P frame codec.pframe.device_p_frame
 K3 (qpel refine, csrc/me_qpel.cu), K4 (decision wavefront, csrc/wavefront_p.cu)
 and K5 (MC, csrc/mc.cu), residual and recon, P-slice CAVLC; the reference
 planes and MVs carried on the device → host slice headers, payloads, EPB.
+
+Session path: codec.encoder.Encoder, one frame in and one slice NAL out
+(python -m h264_fer_tpu_torch encode, cli.py): IDRs by period or scene cut
+(frame SAD on the device) through the I frames above, P frames through
+device_p_frame, the trailing-skip drop, then with cfg.deblock the in-loop
+filter K8 (csrc/deblock.cu, knight waves of MB windows) on every frame.
 """
 
 from __future__ import annotations

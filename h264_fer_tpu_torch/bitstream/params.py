@@ -8,13 +8,15 @@ log2_max_frame_num 9 / poc type 0 / 1 ref frame / no VUI,
 headers_and_parameter_sets.cpp:305-392,478-513) so that our parameter sets
 are diffable against reference streams.
 
-A copy of h264_fer_tpu/bitstream/params.py.
+A copy of h264_fer_tpu/bitstream/params.py, plus `parameter_sets`, which
+writes the SPS and PPS NAL units that open every stream.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+from . import nal as nal_mod
 from .bitio import BitReader, BitWriter
 from .expgolomb import read_se, read_ue, write_se, write_ue
 
@@ -301,3 +303,14 @@ class SliceHeader:
 
     def slice_qp_y(self, pps: PPS) -> int:
         return pps.pic_init_qp + self.slice_qp_delta
+
+
+def parameter_sets(sps: SPS, pps: PPS) -> bytes:
+    """The SPS and PPS NAL units."""
+    out = b""
+    for ps, nal_type in ((sps, nal_mod.NAL_SPS), (pps, nal_mod.NAL_PPS)):
+        w = BitWriter()
+        ps.write(w)
+        w.rbsp_trailing_bits()
+        out += nal_mod.write_nal_unit(1, nal_type, w.getvalue())
+    return out

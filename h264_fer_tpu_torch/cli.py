@@ -1,0 +1,148 @@
+"""Command-line interface of the port.
+
+    python -m h264_fer_tpu_torch encode in.y4m out.264 [options]
+    python -m h264_fer_tpu_torch psnr ref.y4m test.y4m
+
+encode runs the session Encoder (codec/encoder.py): the device I frames
+(--iframe i16 or mixed) and P frames, with the in-loop filter under
+--deblock, on the card unless --device cpu. --gop-devices 1 runs the
+sequence encoders instead (parallel/gop_device.py): all-intra when
+--intra-every is 1, else fixed GOPs of --intra-every frames. Per-frame
+statistics (bytes, ms, MB-type histogram) print with --stats. The options
+are those of the JAX package's CLI (h264_fer_tpu/cli.py), less the ones
+that choose between host and device paths: here every frame runs on the
+device. Decoding is not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+
+def _read_frames(args, rd):
+    for i, frame in enumerate(rd):
+        if args.start_frame and i + 1 < args.start_frame:
+            continue
+        yield frame
+        if args.end_frame and i + 1 >= args.end_frame:
+            break
+
+
+def _cmd_encode(args) -> int:
+    from .codec.encoder import Encoder, EncoderConfig
+    from .vio.y4m import Y4MReader
+
+    rd = Y4MReader(args.input)
+    if args.gop_devices or args.tile_devices:
+        if args.tile_devices or args.gop_devices > 1:
+            raise NotImplementedError("multi-device encoding is not ported yet")
+        from .parallel.gop_device import GopIntraEncoder, GopIpppEncoder
+
+        frames = list(_read_frames(args, rd))
+        t0 = time.time()
+        if args.intra_every == 1:
+            enc = GopIntraEncoder(rd.width, rd.height, args.qp, mode=args.iframe,
+                                  device=args.device)
+        else:
+            enc = GopIpppEncoder(
+                rd.width, rd.height, args.qp, gop_len=args.intra_every,
+                window_size=args.window_size, maxdiff=args.maxdiff,
+                lossy_prefilter=not args.no_prefilter, device=args.device)
+        stream = enc.encode_sequence(frames)
+        dt = time.time() - t0
+        with open(args.output, "wb") as f:
+            f.write(stream)
+        n = len(frames)
+        print(f"{n} frames {rd.width}x{rd.height} -> {len(stream)} bytes "
+              f"in {dt:.1f}s ({n / max(dt, 1e-9):.2f} fps) [{type(enc).__name__}]")
+        return 0
+
+    cfg = EncoderConfig(
+        qp=args.qp,
+        intra_every=args.intra_every,
+        window_size=args.window_size,
+        maxdiff=args.maxdiff,
+        lossy_prefilter=not args.no_prefilter,
+        scene_cut_idr=not args.no_scene_cut,
+        deblock=args.deblock,
+    )
+    enc = Encoder(rd.width, rd.height, cfg, iframe=args.iframe, device=args.device)
+    t0 = time.time()
+    n = 0
+    with open(args.output, "wb") as f:
+        f.write(enc.headers())
+        for frame in _read_frames(args, rd):
+            f.write(enc.encode_frame(*frame))
+            n += 1
+    dt = time.time() - t0
+    total = sum(s["bytes"] for s in enc.stats)
+    print(
+        f"{n} frames {rd.width}x{rd.height} -> {total} bytes "
+        f"({total * 8 * rd.header.fps_num / max(1, n) / rd.header.fps_den / 1000:.1f} kbit/s) "
+        f"in {dt:.1f}s ({n / max(dt, 1e-9):.2f} fps)"
+    )
+    if args.stats:
+        print(f"{'frame':>5} {'type':>4} {'bytes':>7} {'ms':>8}  mb types "
+              "[16x16 16x8 8x16 8x8 8x8r0 skip intra]")
+        for i, s in enumerate(enc.stats):
+            print(f"{i:>5} {'IDR' if s['idr'] else 'P':>4} {s['bytes']:>7} "
+                  f"{s['ms']:>8.1f}  {s['mb_types']}")
+    return 0
+
+
+def _cmd_psnr(args) -> int:
+    import numpy as np
+
+    from .vio.y4m import Y4MReader, psnr
+
+    a = list(Y4MReader(args.ref, crop_to_mb=False))
+    b = list(Y4MReader(args.test, crop_to_mb=False))
+    names = ("Y", "Cb", "Cr")
+    for k in range(3):
+        vals = [psnr(x[k], y[k]) for x, y in zip(a, b)]
+        print(f"{names[k]}: mean {np.mean(vals):.2f} dB  min {np.min(vals):.2f}")
+    return 0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="h264_fer_tpu_torch", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    e = sub.add_parser("encode", help="encode Y4M to Annex-B .264")
+    e.add_argument("input")
+    e.add_argument("output")
+    e.add_argument("--qp", type=int, default=28)
+    e.add_argument("--intra-every", type=int, default=100)
+    e.add_argument("--window-size", type=int, default=16)
+    e.add_argument("--maxdiff", type=int, default=-1)
+    e.add_argument("--start-frame", type=int, default=0)
+    e.add_argument("--end-frame", type=int, default=0)
+    e.add_argument("--no-prefilter", action="store_true")
+    e.add_argument("--no-scene-cut", action="store_true")
+    e.add_argument("--deblock", action="store_true", help="in-loop deblocking filter")
+    e.add_argument("--iframe", choices=["i16", "mixed"], default="i16",
+                   help="I frames: i16 (Intra_16x16 only) or mixed (the exact "
+                        "I4x4-vs-I16 choice per MB)")
+    e.add_argument("--gop-devices", type=int, default=0, metavar="N",
+                   help="the sequence encoders on N devices (all-intra or "
+                        "fixed-GOP IPPP; scene cut off); only N = 1 is ported")
+    e.add_argument("--tile-devices", type=int, default=0, metavar="N",
+                   help="MB-row bands over N devices (not ported yet)")
+    e.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    e.add_argument("--stats", action="store_true")
+    e.set_defaults(fn=_cmd_encode)
+
+    q = sub.add_parser("psnr", help="PSNR between two Y4M files")
+    q.add_argument("ref")
+    q.add_argument("test")
+    q.set_defaults(fn=_cmd_psnr)
+
+    args = p.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -34,20 +34,27 @@ def trailing_skip_drop(skip, nbits, trail_bits, hdr_bits: int):
     return (idx > last_coded) & drop
 
 
-def next_reference(ref, out, hdr_bits: int):
-    """The state the next P frame reads after P frame `out` (device_p_frame's
-    dict): (ref_y, ref_cb, ref_cr, prev_mv), where ref is this frame's
-    (ref_y, ref_cb, ref_cr, prev_mv); the MBs a decoder never reads
-    (trailing_skip_drop) keep ref's samples and MVs."""
+def restore_dropped(keep, ref, out):
+    """(y, cb, cr, mv) of P frame `out` (device_p_frame's dict) with the MBs
+    `keep` ((nmb,) bool, trailing_skip_drop's) taken from ref, the previous
+    frame's (y, cb, cr, mv): what decoders hold after the frame."""
     ref_y, ref_cb, ref_cr, prev_mv = ref
-    hmb, wmb = ref_y.shape[0] // 16, ref_y.shape[1] // 16
-    keep = trailing_skip_drop(out["skip"], out["nbits"], out["trail_bits"], hdr_bits)
-    keep_px = keep.reshape(hmb, wmb).repeat_interleave(16, 0).repeat_interleave(16, 1)
+    wmb = ref_y.shape[1] // 16
+    keep_px = keep.reshape(-1, wmb).repeat_interleave(16, 0).repeat_interleave(16, 1)
     keep_c = keep_px[::2, ::2]
     return (torch.where(keep_px, ref_y, out["recon_y"]),
             torch.where(keep_c, ref_cb, out["recon_cb"]),
             torch.where(keep_c, ref_cr, out["recon_cr"]),
             torch.where(keep[:, None, None], prev_mv, out["mv"]))
+
+
+def next_reference(ref, out, hdr_bits: int):
+    """The state the next P frame reads after P frame `out` (device_p_frame's
+    dict): (ref_y, ref_cb, ref_cr, prev_mv), where ref is this frame's
+    (ref_y, ref_cb, ref_cr, prev_mv); the MBs a decoder never reads
+    (trailing_skip_drop) keep ref's samples and MVs."""
+    keep = trailing_skip_drop(out["skip"], out["nbits"], out["trail_bits"], hdr_bits)
+    return restore_dropped(keep, ref, out)
 
 
 def device_gop_ippp(ys, cbs, crs, p_hdr_bits, window: int, qp: int, qpc: int,

@@ -2,7 +2,8 @@
 wavefront (K4) → MC (K5) → residual and recon → whole-slice CAVLC.
 
 The counterpart of h264_fer_tpu/codec/tpu_pframe.py (device_p_frame_impl
-and its bulk stages) with deblocking off. Everything that does not depend
+and its bulk stages); the in-loop filter runs after it, in the session
+encoder (codec/encoder.py). Everything that does not depend
 on the in-frame MV-prediction chain is whole-frame batched work; the chain
 itself runs in the K4 wavefront, which reads only the precomputed maps and
 the planes. No stage reads a value back to the host, so a caller can queue

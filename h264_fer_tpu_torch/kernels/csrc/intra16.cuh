@@ -1,7 +1,7 @@
 // The Intra16x16 luma coding and the intra chroma coding of one macroblock,
-// shared by the K1 wavefront (both), K7 (chroma, csrc/wavefront_i16.cu) and
-// K6 (the I16 candidate, csrc/wavefront_mixed.cu): the device forms of
-// kernels/wavefront_i16._i16_luma_code and _chroma_code.
+// shared by the K1 and K1t wavefronts (both), K7 (chroma; all three in
+// csrc/wavefront_i16.cu) and K6 (the I16 candidate, csrc/wavefront_mixed.cu):
+// the device forms of kernels/wavefront_i16._i16_luma_code and _chroma_code.
 //
 // One thread per sample: 256 for the luma, 128 for the chroma (64 of Cb, then
 // 64 of Cr). Each function synchronises its own threads with a named barrier
@@ -137,12 +137,15 @@ struct ChromaScratch {
 // threads t = 0..127 that use barrier `bar` call it, thread t owning sample
 // ((t >> 3) & 7, t & 7) of plane t >> 6. Reads the neighbours from, and
 // writes the MB to, the uint8 recon planes (Wc samples wide), whose earlier
-// MBs are final.
+// MBs are final. Where cdc / cac are not null (pointing at this MB's entry
+// of the (2, nmb, 4) / (2, nmb, 4, 15) level arrays), writes the quantised
+// levels: cdc[plane][raster index] of the 2x2 DC block, cac[plane][raster
+// block][zig-zag index - 1].
 __device__ void chroma_mb(const uint8_t* __restrict__ cbsrc,
                           const uint8_t* __restrict__ crsrc, uint8_t* cbrec,
                           uint8_t* crrec, int Wc, int r, int c, int mode,
-                          int qpc, const QpTab& tab, ChromaScratch& s, int t,
-                          int bar) {
+                          int qpc, const QpTab& tab, ChromaScratch& s,
+                          int32_t* cdc, int32_t* cac, int nmb, int t, int bar) {
   const bool top_ok = r > 0, left_ok = c > 0, corner_ok = top_ok && left_ok;
   const int cx0 = c * 8, cy0 = r * 8;
   const int p = t >> 6, cy = (t >> 3) & 7, cx = t & 7;
@@ -226,6 +229,9 @@ __device__ void chroma_mb(const uint8_t* __restrict__ cbsrc,
     // the DC matrices dc[plane][by][bx] at index plane * 4 + by * 2 + bx
     if (is_dc) s.v[p * 4 + (cy >> 2) * 2 + (cx >> 2)] = coef;
     q = quant_ac(coef, qpc, tab.lq[pat(cy, cx)]);
+    if (cac && !is_dc)
+      cac[p * nmb * 60 + ((cy >> 2) * 2 + (cx >> 2)) * 15 +
+          kInvZigzag[(cy & 3) * 4 + (cx & 3)] - 1] = q;
   }
   group_sync(bar, 128);
   // 2x2 DC path by threads 0..7 (plane k, row i, column j)
@@ -239,6 +245,7 @@ __device__ void chroma_mb(const uint8_t* __restrict__ cbsrc,
     const int a = s.r[k * 4 + i * 2], b = s.r[k * 4 + i * 2 + 1];
     const int fdc = ((j ? a - b : a + b) + 2) >> 2;
     s.v[t] = (((fdc * 32) >> (qpc / 6)) * tab.lq[0] + 16384) >> 15;
+    if (cdc) cdc[k * nmb * 4 + i * 2 + j] = s.v[t];
   }
   group_sync(bar, 128);
   if (t < 8) {

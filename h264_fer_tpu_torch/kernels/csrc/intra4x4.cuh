@@ -33,16 +33,6 @@ struct MbNbr {
   int top_ok, tr_ok;
 };
 
-// Rows r0..r1 of the MBs on knight wave d = 2r + c (0 <= c < wmb); none
-// when r1 < r0. r0 = ceil((d - wmb + 1) / 2), clamped at 0: the halving is
-// done only on a positive value, as C++ division truncates toward zero.
-__host__ __device__ inline void knight_rows(int d, int wmb, int hmb, int* r0,
-                                            int* r1) {
-  const int t = d - wmb + 2;
-  *r0 = t > 0 ? t / 2 : 0;
-  *r1 = d / 2 < hmb - 1 ? d / 2 : hmb - 1;
-}
-
 // Fill nb for MB (r, c) of the row-major uint8 plane rec (W samples wide,
 // wmb MBs), by threads tid of nthreads; the caller synchronises after.
 __device__ void load_nbr(const uint8_t* rec, int W, int wmb, int r, int c,

@@ -1,6 +1,6 @@
-// Integer transform and quantisation steps of the H.264 intra paths, shared
-// by the wavefront kernels (included by csrc/*.cu; the build hashes it with
-// each source that includes it).
+// Integer transform and quantisation steps of the H.264 intra paths and the
+// knight-wave schedule, shared by the wavefront kernels (included by
+// csrc/*.cu; the build hashes it with each source that includes it).
 //
 // Arithmetic is int32 exactly as the reference: `>>` on signed int is an
 // arithmetic shift under nvcc, and a left shift of a value that may be
@@ -100,5 +100,15 @@ __constant__ int kInvZigzag[16] = {0, 1, 5, 6, 2, 4, 7, 12,
 // raster 4x4 block of an MB (4 * row + column) → its Z-scan index
 __constant__ int kRasterToZ[16] = {0, 1, 4, 5, 2, 3, 6, 7,
                                    8, 9, 12, 13, 10, 11, 14, 15};
+
+// Rows r0..r1 of the MBs on knight wave d = 2r + c (0 <= c < wmb); none
+// when r1 < r0. r0 = ceil((d - wmb + 1) / 2), clamped at 0: the halving is
+// done only on a positive value, as C++ division truncates toward zero.
+__host__ __device__ inline void knight_rows(int d, int wmb, int hmb, int* r0,
+                                            int* r1) {
+  const int t = d - wmb + 2;
+  *r0 = t > 0 ? t / 2 : 0;
+  *r1 = d / 2 < hmb - 1 ? d / 2 : hmb - 1;
+}
 
 }  // namespace

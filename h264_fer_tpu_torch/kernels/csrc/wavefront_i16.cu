@@ -1,15 +1,19 @@
-// Intra_16x16 reconstruction wavefront over MB anti-diagonals (K1), and its
-// chroma half alone (K7), for sm_90a.
+// Intra_16x16 reconstruction wavefront over MB anti-diagonals (K1), the
+// same writing its levels (K1t), and its chroma half alone (K7), for
+// sm_90a.
 //
-// Replaces the Pallas kernel _i16_recon_kernel_body
+// K1 replaces the Pallas kernel _i16_recon_kernel_body
 // (h264_fer_tpu/kernels/wavefront_pallas.py:890, called by
 // pallas_i16_frame_fast_impl at :1170). It computes the same function: for
 // every MB, in the decided Intra16x16 mode, the prediction from the
 // reconstructed top row, left column and corner; the forward 4x4 integer
 // DCT and quantisation; the 4x4 Hadamard DC path; the inverse of both; and
 // the clipped reconstruction. The same for Cb and Cr (8x8, 2x2 DC, chroma
-// mode given per MB). Levels are not written: the caller rebuilds them from
-// the reconstruction in bulk (kernels/wavefront_i16.py). K7
+// mode given per MB). K1 writes no levels. K1t
+// (wavefront_i16_frame_levels) replaces _i16_kernel_body
+// (wavefront_pallas.py:173, via pallas_i16_frame at :437): the same launches
+// and per-MB code, which also write each MB's levels as they leave the
+// quantiser, so no pass rebuilds them from the reconstruction. K7
 // (wavefront_chroma_frame) is K1's chroma half alone: the mixed I frame's
 // chroma, whose luma is K6's (csrc/wavefront_mixed.cu).
 //
@@ -39,14 +43,20 @@
 
 namespace {
 
+// Level arrays K1t writes, null for K1: i16dc (nmb, 16), ac (nmb, 16, 15),
+// cdc (2, nmb, 4), cac (2, nmb, 4, 15) int32.
+struct Levels {
+  int32_t *dc, *ac, *cdc, *cac;
+};
+
 __global__ void __launch_bounds__(384)
 i16_diag_kernel(const uint8_t* __restrict__ ysrc,
                 const uint8_t* __restrict__ cbsrc,
                 const uint8_t* __restrict__ crsrc,
                 const int32_t* __restrict__ modes,
                 const int32_t* __restrict__ cmodes, uint8_t* yrec,
-                uint8_t* cbrec, uint8_t* crrec, int wmb, int d, int r0,
-                int qp, int qpc, QpTab luma, QpTab chroma) {
+                uint8_t* cbrec, uint8_t* crrec, Levels lv, int wmb, int nmb,
+                int d, int r0, int qp, int qpc, QpTab luma, QpTab chroma) {
   const int r = r0 + blockIdx.x, c = d - r;
   const int mb = r * wmb + c, W = wmb * 16;
   const int x0 = c * 16, y0 = r * 16;
@@ -65,12 +75,14 @@ i16_diag_kernel(const uint8_t* __restrict__ ysrc,
     }
     group_sync(1, 256);
     const int v = i16_luma_mb(top, left, corner, left_ok, top_ok, modes[mb],
-                              ysrc + y0 * W + x0, W, qp, luma, ls, nullptr,
-                              nullptr, t, 1);
+                              ysrc + y0 * W + x0, W, qp, luma, ls,
+                              lv.dc ? lv.dc + mb * 16 : nullptr,
+                              lv.ac ? lv.ac + mb * 240 : nullptr, t, 1);
     yrec[(y0 + (t >> 4)) * W + x0 + (t & 15)] = (uint8_t)v;
   } else {
     chroma_mb(cbsrc, crsrc, cbrec, crrec, wmb * 8, r, c, cmodes[mb], qpc, chroma,
-              cs, t - 256, 2);
+              cs, lv.cdc ? lv.cdc + mb * 4 : nullptr,
+              lv.cac ? lv.cac + mb * 60 : nullptr, nmb, t - 256, 2);
   }
 }
 
@@ -83,7 +95,7 @@ chroma_diag_kernel(const uint8_t* __restrict__ cbsrc,
   const int r = r0 + blockIdx.x, c = d - r;
   __shared__ ChromaScratch cs;
   chroma_mb(cbsrc, crsrc, cbrec, crrec, wmb * 8, r, c, cmodes[r * wmb + c], qpc,
-            chroma, cs, threadIdx.x, 1);
+            chroma, cs, nullptr, nullptr, 0, threadIdx.x, 1);
 }
 
 // qtab: 6 ints of one QP, LEVEL_QUANTIZE then LEVEL_SCALE, in QpTab order
@@ -113,6 +125,20 @@ int launch_diagonals(int wmb, int hmb, Launch launch, int* launched) {
   return 0;
 }
 
+int launch_i16(const uint8_t* ysrc, const uint8_t* cbsrc, const uint8_t* crsrc,
+               const int32_t* modes, const int32_t* cmodes, uint8_t* yrec,
+               uint8_t* cbrec, uint8_t* crrec, Levels lv, int wmb, int hmb,
+               int qp, int qpc, const int* qtab, cudaStream_t stream,
+               int* launched) {
+  const QpTab luma = make_tab(qtab), chroma = make_tab(qtab + 6);
+  return launch_diagonals(wmb, hmb, [&](int d, int r0, int n) {
+    i16_diag_kernel<<<n, 384, 0, stream>>>(ysrc, cbsrc, crsrc, modes, cmodes,
+                                           yrec, cbrec, crrec, lv, wmb,
+                                           wmb * hmb, d, r0, qp, qpc, luma,
+                                           chroma);
+  }, launched);
+}
+
 }  // namespace
 
 // K1: reconstructs a whole all-I16 frame (luma and chroma). qtab: 12 ints,
@@ -123,12 +149,24 @@ extern "C" int wavefront_i16_frame(const uint8_t* ysrc, const uint8_t* cbsrc,
                                    uint8_t* cbrec, uint8_t* crrec, int wmb,
                                    int hmb, int qp, int qpc, const int* qtab,
                                    cudaStream_t stream, int* launched) {
-  const QpTab luma = make_tab(qtab), chroma = make_tab(qtab + 6);
-  return launch_diagonals(wmb, hmb, [&](int d, int r0, int n) {
-    i16_diag_kernel<<<n, 384, 0, stream>>>(ysrc, cbsrc, crsrc, modes, cmodes,
-                                           yrec, cbrec, crrec, wmb, d, r0, qp,
-                                           qpc, luma, chroma);
-  }, launched);
+  return launch_i16(ysrc, cbsrc, crsrc, modes, cmodes, yrec, cbrec, crrec,
+                    Levels{nullptr, nullptr, nullptr, nullptr}, wmb, hmb, qp,
+                    qpc, qtab, stream, launched);
+}
+
+// K1t: K1 that also writes every MB's levels as they leave the quantiser
+// (the Pallas kernel _i16_kernel_body, h264_fer_tpu/kernels/
+// wavefront_pallas.py:173, via pallas_i16_frame at :437): i16dc (nmb, 16),
+// ac (nmb, 16, 15), cdc (2, nmb, 4), cac (2, nmb, 4, 15) int32.
+extern "C" int wavefront_i16_frame_levels(
+    const uint8_t* ysrc, const uint8_t* cbsrc, const uint8_t* crsrc,
+    const int32_t* modes, const int32_t* cmodes, uint8_t* yrec, uint8_t* cbrec,
+    uint8_t* crrec, int32_t* i16dc, int32_t* ac, int32_t* cdc, int32_t* cac,
+    int wmb, int hmb, int qp, int qpc, const int* qtab, cudaStream_t stream,
+    int* launched) {
+  return launch_i16(ysrc, cbsrc, crsrc, modes, cmodes, yrec, cbrec, crrec,
+                    Levels{i16dc, ac, cdc, cac}, wmb, hmb, qp, qpc, qtab,
+                    stream, launched);
 }
 
 // K7: reconstructs the intra chroma of a frame, the chroma half of K1 (the

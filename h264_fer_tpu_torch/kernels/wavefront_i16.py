@@ -1,5 +1,5 @@
-"""All-Intra16x16 frame reconstruction wavefront (K1), its chroma half
-(K7), and their levels.
+"""All-Intra16x16 frame reconstruction wavefront (K1), the same writing
+its levels (K1t), its chroma half (K7), and their levels.
 
 `i16_recon` is the wrapper of the CUDA kernel csrc/wavefront_i16.cu, which
 replaces the Pallas kernel _i16_recon_kernel_body
@@ -9,10 +9,13 @@ kernel (one launch per MB anti-diagonal) or raises; on a CPU tensor it runs
 `i16_recon_plain`, the same function in plain PyTorch: a Python loop over
 the diagonals with vector ops over the MBs of each.
 
-`i16_levels_from_recon` rebuilds the coefficient levels from the finished
-reconstruction in one batched pass, as i16_levels_from_recon_impl
-(wavefront_pallas.py:1089) does; `i16_frame` returns the tuple of
-pallas_i16_frame_fast_impl.
+`i16_frame` (K1t) replaces the Pallas kernel _i16_kernel_body
+(wavefront_pallas.py:173, via pallas_i16_frame at :437) and returns its
+tuple: on a CUDA tensor one launch of K1's wavefront that also writes the
+levels (the C entry point wavefront_i16_frame_levels); on a CPU tensor
+`i16_frame_plain`, plain K1 then `i16_levels_from_recon`, which rebuilds
+the levels from the finished reconstruction in one batched pass, as
+i16_levels_from_recon_impl (wavefront_pallas.py:1089) does.
 
 `chroma_recon` (K7) launches K1's chroma half as a kernel of its own (the C
 entry point wavefront_chroma_frame; both run csrc/intra16.cuh's chroma_mb),
@@ -236,10 +239,36 @@ def chroma_frame(cb, cr, cmodes, qpc: int):
     return (rcb, rcr, *chroma_levels_from_recon(cb, cr, rcb, rcr, cmodes, qpc))
 
 
-def i16_frame(y, cb, cr, modes, cmodes, qp: int, qpc: int):
-    """(recon_y, i16dc, ac, recon_cb, recon_cr, cdc, cac): the tuple of
-    pallas_i16_frame_fast_impl, recon planes as uint8."""
-    ry, rcb, rcr = i16_recon(y, cb, cr, modes, cmodes, qp, qpc)
+def i16_frame_plain(y, cb, cr, modes, cmodes, qp: int, qpc: int):
+    """Plain PyTorch K1t: plain K1, then the levels from its recon."""
+    ry, rcb, rcr = i16_recon_plain(y, cb, cr, modes, cmodes, qp, qpc)
     i16dc, ac, cdc, cac = i16_levels_from_recon(
         y, cb, cr, ry, rcb, rcr, modes, cmodes, qp, qpc)
     return ry, i16dc, ac, rcb, rcr, cdc, cac
+
+
+def i16_frame(y, cb, cr, modes, cmodes, qp: int, qpc: int):
+    """K1t: (recon_y, i16dc, ac, recon_cb, recon_cr, cdc, cac), the tuple of
+    pallas_i16_frame (and of pallas_i16_frame_fast_impl), recon planes as
+    uint8. CUDA tensors go to the kernel, which writes the levels as it
+    reconstructs (the C entry point wavefront_i16_frame_levels); CPU
+    tensors to i16_frame_plain."""
+    if y.device.type == "cpu":
+        return i16_frame_plain(y, cb, cr, modes, cmodes, qp, qpc)
+    if y.device.type != "cuda":
+        raise ValueError(f"unsupported device {y.device}")
+    wmb, hmb = _check_planes(y, cb, cr, modes, cmodes)
+    nmb, dev, i32 = wmb * hmb, y.device, torch.int32
+    ry, rcb, rcr = torch.empty_like(y), torch.empty_like(cb), torch.empty_like(cr)
+    i16dc = torch.empty((nmb, 16), dtype=i32, device=dev)
+    ac = torch.empty((nmb, 16, 15), dtype=i32, device=dev)
+    cdc = torch.empty((2, nmb, 4), dtype=i32, device=dev)
+    cac = torch.empty((2, nmb, 4, 15), dtype=i32, device=dev)
+    build.launch(i16_frame, "wavefront_i16", "wavefront_i16_frame_levels",
+                 (y, cb, cr, modes, cmodes, ry, rcb, rcr, i16dc, ac, cdc, cac,
+                  wmb, hmb, qp, qpc, np.concatenate([qtab(qp), qtab(qpc)])), dev)
+    return ry, i16dc, ac, rcb, rcr, cdc, cac
+
+
+# kernel launches so far, counted as i16_recon's
+i16_frame.launches = 0

@@ -41,3 +41,14 @@ def const(array, device) -> torch.Tensor:
     not write to the returned tensor."""
     a = np.ascontiguousarray(array)
     return _const(a.tobytes(), a.dtype.str, a.shape, torch.device(device))
+
+
+def upload(plane, device) -> torch.Tensor:
+    """A uint8 host plane on `device`: through a pinned host buffer and a
+    non-blocking copy when the device is a card, so that the host goes on
+    queueing work."""
+    plane = np.asarray(plane, dtype=np.uint8)
+    host = torch.empty(plane.shape, dtype=torch.uint8,
+                       pin_memory=device.type == "cuda")
+    host.numpy()[...] = plane
+    return host.to(device, non_blocking=True)

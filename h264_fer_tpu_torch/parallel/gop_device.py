@@ -18,12 +18,12 @@ import torch
 
 from ..bitstream import nal as nal_mod
 from ..bitstream.bitio import BitWriter
-from ..bitstream.params import I_SLICE, P_SLICE, PPS, SPS, SliceHeader
+from ..bitstream.params import I_SLICE, P_SLICE, PPS, SPS, SliceHeader, parameter_sets
 from ..codec.gop import device_gop_ippp
 from ..codec.iframe import device_i16_frame, device_mixed_frame
 from ..ops import transform
 from ..ops.cavlc_bulk import words_to_bytes
-from ..ops.device import DEFAULT_DEVICE, resolve_device
+from ..ops.device import DEFAULT_DEVICE, resolve_device, upload
 
 
 def _one_device(device, devices) -> torch.device:
@@ -32,14 +32,6 @@ def _one_device(device, devices) -> torch.device:
             raise NotImplementedError("multi-device encoding is not ported yet")
         device = devices[0]
     return resolve_device(device)
-
-
-def _upload(plane, device) -> torch.Tensor:
-    plane = np.asarray(plane, dtype=np.uint8)
-    host = torch.empty(plane.shape, dtype=torch.uint8,
-                       pin_memory=device.type == "cuda")
-    host.numpy()[...] = plane
-    return host.to(device, non_blocking=True)
 
 
 def read_payloads(payloads):
@@ -58,21 +50,15 @@ class _Stream:
 
     sps: SPS
     pps: PPS
+    deblock = False
 
     def headers(self) -> bytes:
-        w = BitWriter()
-        self.sps.write(w)
-        w.rbsp_trailing_bits()
-        out = nal_mod.write_nal_unit(1, nal_mod.NAL_SPS, w.getvalue())
-        w = BitWriter()
-        self.pps.write(w)
-        w.rbsp_trailing_bits()
-        return out + nal_mod.write_nal_unit(1, nal_mod.NAL_PPS, w.getvalue())
+        return parameter_sets(self.sps, self.pps)
 
     def _idr_nal(self, words: np.ndarray, nbits: int, idr_pic_id: int) -> bytes:
         shd = SliceHeader(slice_type=I_SLICE, frame_num=0, idr_pic_id=idr_pic_id,
                           pic_order_cnt_lsb=0, slice_qp_delta=-14,
-                          disable_deblocking_filter_idc=1)
+                          disable_deblocking_filter_idc=0 if self.deblock else 1)
         w = BitWriter()
         shd.write(w, self.sps, self.pps, nal_mod.NAL_IDR, 1)
         w.append_bits(words_to_bytes(words, nbits), nbits)
@@ -84,7 +70,10 @@ class GopIntraEncoder(_Stream):
     """All-intra sequence encoder on one device (CUDA by default).
 
     mode: "i16" (every MB Intra16x16) or "mixed" (the exact
-    I4x4-vs-I16 bit-cost choice per MB, device_mixed_frame)."""
+    I4x4-vs-I16 bit-cost choice per MB, device_mixed_frame). deblock: signal
+    the in-loop filter in the PPS and every slice header, as the JAX
+    GopIntraEncoder does; the payloads do not depend on it and no output
+    reads the filtered planes, so the filter itself does not run."""
 
     def __init__(self, width: int, height: int, qp: int, mode: str = "i16",
                  device=DEFAULT_DEVICE, deblock: bool = False,
@@ -93,9 +82,8 @@ class GopIntraEncoder(_Stream):
             raise ValueError(f"frame {width}x{height} is not a whole number of MBs")
         if mode not in ("i16", "mixed"):
             raise ValueError(f"mode={mode!r}: 'i16' or 'mixed'")
-        if deblock:
-            raise NotImplementedError("deblocking is not ported yet")
         self.device = _one_device(device, devices)
+        self.deblock = bool(deblock)
         self._frame = device_mixed_frame if mode == "mixed" else device_i16_frame
         self.w, self.h, self.qp = width, height, qp
         self.wmb, self.hmb = width // 16, height // 16
@@ -103,14 +91,14 @@ class GopIntraEncoder(_Stream):
         self.sps = SPS(pic_width_in_mbs=self.wmb,
                        pic_height_in_map_units=self.hmb)
         self.pps = PPS(pic_init_qp=14 + qp,
-                       deblocking_filter_control_present_flag=0)
+                       deblocking_filter_control_present_flag=int(self.deblock))
 
     def _queue(self, frames):
         """Queue every frame's device program; returns the payloads (on the
         device, nothing read back)."""
         outs = []
         for f in frames:
-            y, cb, cr = (_upload(p, self.device) for p in f)
+            y, cb, cr = (upload(p, self.device) for p in f)
             out = self._frame(y, cb, cr, self.qp, self.qpc)
             outs.append({"words": out["words"], "nbits": out["nbits"]})
         return outs
@@ -136,13 +124,17 @@ class GopIpppEncoder(_Stream):
     The sequence splits into IDR-delimited GOPs of gop_len frames (or, with
     scene_cut_source, also at every source-frame SAD cut); each GOP is one
     device_gop_ippp program: the IDR, then the chain of P frames. The stream
-    is that of the serial Encoder(tpu_iframe=True, tpu_pframe=True,
-    intra_every=gop_len) with deblock=False.
+    is that of the serial Encoder(intra_every=gop_len, window_size,
+    maxdiff, lossy_prefilter) with deblock=False. window_size: the full
+    search width (a search of +-window_size // 2 full pel); maxdiff: the
+    tolerated error, -1 for the adaptive per-MB MAXDIFF; lossy_prefilter:
+    the MAXDIFF source prefilter, which runs below QP 36 only.
     """
 
     def __init__(self, width: int, height: int, qp: int, gop_len: int,
-                 device=DEFAULT_DEVICE, devices=None,
-                 scene_cut_source: bool = False) -> None:
+                 window_size: int = 16, maxdiff: int = -1,
+                 lossy_prefilter: bool = True, device=DEFAULT_DEVICE,
+                 devices=None, scene_cut_source: bool = False) -> None:
         if width % 16 or height % 16:
             raise ValueError(f"frame {width}x{height} is not a whole number of MBs")
         if gop_len < 2:
@@ -153,12 +145,9 @@ class GopIpppEncoder(_Stream):
         self.wmb, self.hmb = width // 16, height // 16
         self.nmb = self.wmb * self.hmb
         self.qpc = transform.chroma_qp(qp, 0)
-        # the reference's defaults: window_size=16 (a search of +-8 full
-        # pel), the adaptive MAXDIFF (maxdiff=-1) and lossy_prefilter=True,
-        # under which the MAXDIFF source prefilter runs on the SAD tier only
-        self.window = 8
-        self.maxdiff = -1
-        self.prefilter = qp < 36
+        self.window = window_size // 2
+        self.maxdiff = maxdiff
+        self.prefilter = bool(lossy_prefilter and qp < 36)
         self.sps = SPS(pic_width_in_mbs=self.wmb,
                        pic_height_in_map_units=self.hmb)
         self.pps = PPS(pic_init_qp=14 + qp)
@@ -215,7 +204,7 @@ class GopIpppEncoder(_Stream):
         payloads = []
         start = 0
         for n in lens:
-            ys, cbs, crs = ([_upload(f[k], self.device) for f in frames[start: start + n]]
+            ys, cbs, crs = ([upload(f[k], self.device) for f in frames[start: start + n]]
                             for k in range(3))
             payloads += device_gop_ippp(ys, cbs, crs, self.hdr_bits[: n - 1],
                                         self.window, self.qp, self.qpc,

@@ -17,6 +17,8 @@ from h264_fer_tpu.ops.cavlc_jax import words_to_bytes as jax_words_to_bytes
 from h264_fer_tpu.parallel.gop_device import GopIntraEncoder as JaxGopIntraEncoder
 from h264_fer_tpu.vio.y4m import Y4MReader
 from h264_fer_tpu_torch.bitstream import nal
+from h264_fer_tpu_torch.bitstream.bitio import BitReader
+from h264_fer_tpu_torch.bitstream.params import SliceHeader
 from h264_fer_tpu_torch.codec.iframe import device_i16_frame
 from h264_fer_tpu_torch.ops.cavlc_bulk import words_to_bytes
 from h264_fer_tpu_torch.ops.transform import chroma_qp
@@ -81,9 +83,17 @@ def test_gop_encoder_idr_base_and_limits(clip):
     assert enc.headers() == ref.headers()
     assert (enc.encode_sequence(clip[:2], idr_base=5)
             == ref.encode_sequence(clip[:2], idr_base=5))
-    for kwargs in ({"deblock": True}, {"devices": ["cpu", "cpu"]}):
-        with pytest.raises(NotImplementedError):
-            GopIntraEncoder(W, H, 28, device="cpu", **kwargs)
+    # deblock=True signals the filter in the PPS and every slice header (its
+    # stream against JAX's: tests/test_torch_encoder.py)
+    enc = GopIntraEncoder(W, H, 28, device="cpu", deblock=True)
+    assert enc.headers() == JaxGopIntraEncoder(W, H, 28, devices=jax.devices()[:1],
+                                               deblock=True).headers()
+    units = list(nal.iter_nal_units(enc.encode_sequence(clip[:2])))[2:]
+    assert [SliceHeader.parse(BitReader(u.rbsp), enc.sps, enc.pps, u.nal_unit_type,
+                              u.nal_ref_idc).disable_deblocking_filter_idc
+            for u in units] == [0, 0]
+    with pytest.raises(NotImplementedError):
+        GopIntraEncoder(W, H, 28, device="cpu", devices=["cpu", "cpu"])
     with pytest.raises(ValueError):
         GopIntraEncoder(W, H, 28, mode="i4x4", device="cpu")
 

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from h264_fer_tpu_torch import entry
+from h264_fer_tpu_torch.codec.encoder import Encoder, EncoderConfig
 from h264_fer_tpu_torch.parallel.gop_device import GopIntraEncoder, GopIpppEncoder
 
 torch.set_num_threads(1)
@@ -40,6 +41,31 @@ def test_entry_on_cpu_leaves_jax_out_of_sys_modules():
     assert out.stdout.strip() == "clean"
 
 
+def test_session_encoder_and_cli_leave_jax_out_of_sys_modules(tmp_path, fixtures_dir):
+    """The session Encoder and the CLI (encode, psnr) run on the CPU without
+    importing JAX or the JAX package."""
+    src, dst = fixtures_dir / "clip_qcif_10f.y4m", tmp_path / "out.264"
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from h264_fer_tpu_torch.cli import main\n"
+        "from h264_fer_tpu_torch.codec.encoder import Encoder, EncoderConfig\n"
+        f"assert main(['encode', {str(src)!r}, {str(dst)!r}, '--end-frame', '2',"
+        " '--deblock', '--device', 'cpu']) == 0\n"
+        f"assert main(['psnr', {str(src)!r}, {str(src)!r}]) == 0\n"
+        "enc = Encoder(32, 32, EncoderConfig(deblock=True), device='cpu')\n"
+        "z = np.zeros((32, 32), np.uint8)\n"
+        "assert enc.encode_sequence([(z, z[::2, ::2], z[::2, ::2])] * 2)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'h264_fer_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "clean"
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax(path):
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -65,3 +91,7 @@ def test_default_device_raises_without_cuda():
         GopIntraEncoder(176, 144, 28, mode="mixed")
     with pytest.raises(RuntimeError, match="CUDA"):
         GopIpppEncoder(176, 144, 28, gop_len=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Encoder(176, 144, EncoderConfig(deblock=True))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Encoder(176, 144, EncoderConfig(), iframe="mixed")

@@ -6,8 +6,9 @@ import torch
 
 from h264_fer_tpu.codec import decoder as jax_decoder
 from h264_fer_tpu.ops import cavlc_tables as jax_cavlc_tables
+from h264_fer_tpu.ops import deblock as jax_deblock
 from h264_fer_tpu.ops import tables as jax_tables
-from h264_fer_tpu_torch.ops import cavlc_tables, tables
+from h264_fer_tpu_torch.ops import cavlc_tables, deblock, tables
 
 torch.set_num_threads(1)
 
@@ -18,6 +19,7 @@ TABLES = ["ZIGZAG_YX", "ZIGZAG_FLAT", "INV_ZIGZAG_FLAT", "LEVEL_SCALE",
 CAVLC_TABLES = ["COEFF_TOKEN_LEN", "COEFF_TOKEN_BITS", "TOTAL_ZEROS_LEN",
                 "TOTAL_ZEROS_BITS", "TOTAL_ZEROS_CDC_LEN",
                 "TOTAL_ZEROS_CDC_BITS", "RUN_BEFORE_LEN", "RUN_BEFORE_BITS"]
+DEBLOCK_TABLES = ["ALPHA", "BETA", "TC0"]
 
 
 @pytest.mark.parametrize("name", TABLES)
@@ -30,6 +32,13 @@ def test_spec_table_copy(name):
 @pytest.mark.parametrize("name", CAVLC_TABLES)
 def test_cavlc_table_copy(name):
     ours, ref = getattr(cavlc_tables, name), getattr(jax_cavlc_tables, name)
+    assert ours.dtype == ref.dtype
+    np.testing.assert_array_equal(ours, ref)
+
+
+@pytest.mark.parametrize("name", DEBLOCK_TABLES)
+def test_deblock_table_copy(name):
+    ours, ref = getattr(deblock, name), getattr(jax_deblock, name)
     assert ours.dtype == ref.dtype
     np.testing.assert_array_equal(ours, ref)
 

@@ -1,9 +1,11 @@
-"""The plain PyTorch K1 wavefront plus levels equals the JAX package's
-production I16 wavefront, pallas_i16_frame_fast, run in interpret mode on
-the CPU (as tests/test_pallas_wavefront.py runs it), exactly.
+"""The plain PyTorch K1 wavefront plus levels (K1t's plain twin) equals the
+JAX package's I16 wavefronts, pallas_i16_frame_fast and pallas_i16_frame,
+run in interpret mode on the CPU (as tests/test_pallas_wavefront.py runs
+them), exactly.
 
-The CUDA kernel itself is held against the plain version on the card by
-chip_smoke.py; here the wrapper must route CPU tensors to the plain code."""
+The CUDA kernels themselves are held against the plain versions on the card
+by chip_smoke.py; here the wrappers must route CPU tensors to the plain
+code."""
 
 import numpy as np
 import pytest
@@ -13,10 +15,11 @@ import jax.numpy as jnp
 
 from h264_fer_tpu.codec.tpu_intra import intra_mode_decision
 from h264_fer_tpu.kernels.wavefront import wavefront_i16_frame
-from h264_fer_tpu.kernels.wavefront_pallas import pallas_i16_frame_fast
+from h264_fer_tpu.kernels.wavefront_pallas import pallas_i16_frame, pallas_i16_frame_fast
 from h264_fer_tpu.ops.intra import INTRA16_TO_CHROMA_MODE
 from h264_fer_tpu.ops.transform import chroma_qp
-from h264_fer_tpu_torch.kernels.wavefront_i16 import i16_frame, i16_recon, i16_recon_plain
+from h264_fer_tpu_torch.kernels.wavefront_i16 import (i16_frame, i16_frame_plain, i16_recon,
+                                                      i16_recon_plain)
 
 torch.set_num_threads(1)
 
@@ -57,6 +60,25 @@ def test_plain_k1_and_levels_match_pallas_fast(wh, qp):
     _compare(ref, got, f"{w}x{h} qp{qp}")
 
 
+@pytest.mark.parametrize("wh", [(176, 144), (80, 176)])
+@pytest.mark.parametrize("qp", [10, 40])
+def test_plain_k1t_matches_pallas_i16_frame(wh, qp):
+    """K1t's plain twin gives the tuple of pallas_i16_frame, the Pallas
+    kernel that writes the levels itself, run in interpret mode as
+    tests/test_pallas_wavefront.py runs it."""
+    w, h = wh
+    planes = _planes(np.random.default_rng(7), w, h)
+    y32, cb32, cr32 = (jnp.asarray(p, jnp.int32) for p in planes)
+    m16 = intra_mode_decision(y32, wmb=w // 16, hmb=h // 16, qp=qp)["mode16"]
+    cm = jnp.asarray(INTRA16_TO_CHROMA_MODE)[m16]
+    ref = pallas_i16_frame(y32, cb32, cr32, m16, cm, wmb=w // 16, hmb=h // 16,
+                           qp=qp, qpc=chroma_qp(qp))
+    t = [torch.from_numpy(p) for p in planes]
+    got = i16_frame_plain(*t, torch.from_numpy(np.array(m16, np.int32)),
+                          torch.from_numpy(np.array(cm, np.int32)), qp, chroma_qp(qp))
+    _compare(ref, got, f"K1t {w}x{h} qp{qp}")
+
+
 @pytest.mark.parametrize("qp", [0, 27, 51])
 def test_plain_k1_any_modes(qp):
     """Modes not chosen by the decision (V/H/Plane on frame edges, where
@@ -77,9 +99,13 @@ def test_wrapper_routes_cpu_to_plain_without_launch():
     planes = [torch.from_numpy(p) for p in _planes(np.random.default_rng(5), 48, 32)]
     m16 = torch.tensor([2, 1, 1, 0, 3, 0], dtype=torch.int32)
     cm = torch.tensor([0, 1, 1, 2, 3, 2], dtype=torch.int32)
-    before = i16_recon.launches
+    before = i16_recon.launches, i16_frame.launches
     got = i16_recon(*planes, m16, cm, 30, chroma_qp(30))
     want = i16_recon_plain(*planes, m16, cm, 30, chroma_qp(30))
-    assert i16_recon.launches == before
     for g, r in zip(got, want):
         assert g.dtype == torch.uint8 and torch.equal(g, r)
+    got = i16_frame(*planes, m16, cm, 30, chroma_qp(30))
+    want = i16_frame_plain(*planes, m16, cm, 30, chroma_qp(30))
+    assert (i16_recon.launches, i16_frame.launches) == before
+    for g, r in zip(got, want):
+        assert torch.equal(g, r)
