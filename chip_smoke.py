@@ -23,12 +23,15 @@ Phases (any failure exits non-zero and prints no result line):
      QCIF stream from the card must equal the CPU path's (the path the CPU
      tests hold against the JAX reference). Prints e2e fps, device frame
      fps and the per-stage device times;
-  4. hold K2 (integer search), K3 (qpel refine), K4 (P decision wavefront)
-     and K5 (MC) against their plain twins on the card, bit-exact: at
-     1920x1088 for QP 28, 40 and 46 (the three metric tiers) on the maps
-     and MVs of a content pair, then on QCIF grids with random previous
-     MVs beyond the search limit, random MC MVs at the limit, and flat
-     content where every score ties; time kernel and plain at QP 28;
+  4. hold K2 (integer search), K3 (qpel refine), K4 (P decision wavefront,
+     one launch per frame) and K5 (MC) against their plain twins on the
+     card, bit-exact: at 1920x1088 for QP 28, 40 and 46 (the three metric
+     tiers) on the maps and MVs of a content pair, then on QCIF grids with
+     random previous MVs beyond the search limit, random MC MVs at the
+     limit (K4 also with its grid forced to 1 and to 3 blocks), and flat
+     content where every score ties, and on a tall 64x208 and a one-MB-wide
+     16x144 content pair; time kernel and plain at QP 28, holding every
+     timed K4 call to the plain output;
   5. drive the IPPP main path: GopIpppEncoder(1920, 1088, 28, gop_len=8)
      encodes 16 frames with the launch counts set to 0 just before; the
      stream of the first GOP's first 4 frames (the IDR and 3 P frames) must
@@ -36,21 +39,23 @@ Phases (any failure exits non-zero and prints no result line):
      K1 and all four plain P twins), and the whole
      stream parse back into SPS, PPS and per GOP an IDR and 7 P slice
      headers; a QCIF IPPP stream from the card must equal the CPU path's.
-     Prints e2e fps, device ms per P frame for each stage and K4's counted
-     launches;
+     Prints e2e fps, device ms per P frame for each stage and the counted
+     launches (one K4 per P frame);
   6. hold K4x4 (Intra_4x4 recon), K7 (chroma wavefront) and K6 (mixed
      arbitration wavefront) against their plain twins on the card,
      bit-exact on every output: at 1920x1088 for QP 8, 28 and 46 in the
      decided modes of a content frame (printing the I4x4 MB count of each K6
      check; at QP 28 it must lie strictly between 0 and the MB count), on
-     QCIF and 80x176 grids with random Intra4x4 modes in every block, and on
-     a tall 64x208 grid (hmb > wmb) where both classes win. K4x4 lies on no
-     encode path, as its Pallas original: its path is one i4x4_luma call on
-     the 1080p frame at QP 28, with its count set to 0 just before. Times
-     kernels and plain twins at QP 28;
+     QCIF, 80x176 and one-MB-wide 16x176 grids with random Intra4x4 modes
+     in every block (on QCIF K6 also with its grid forced to 1 and to 3
+     blocks), and on a tall 64x208 grid (hmb > wmb) where both classes win.
+     K4x4 lies on no encode path, as its Pallas original: its path is one
+     i4x4_luma call on the 1080p frame at QP 28, with its count set to 0
+     just before. Times kernels and plain twins at QP 28, holding every
+     timed K4x4 and K6 call to the plain output;
   7. drive the mixed all-intra path: GopIntraEncoder(1920, 1088, 28,
      mode="mixed") encodes 8 frames with the launch counts set to 0 just
-     before (254 K6 and 187 K7 launches per frame, no K1 or K1t); the first
+     before (one K6 and 187 K7 launches per frame, no K1 or K1t); the first
      frame's stream must equal, byte for byte, the stream of the plain
      chain on the card, and the whole stream parse back; a QCIF mixed stream
      from the card must equal the CPU path's. Prints e2e fps, device ms of
@@ -65,14 +70,13 @@ Phases (any failure exits non-zero and prints no result line):
   9. drive the session path: Encoder(1920, 1088, EncoderConfig(qp=28,
      intra_every=8, deblock=True)) encodes 16 frames with the launch counts
      set to 0 just before (187 K1t launches per IDR, 254 K8 launches per
-     frame, the P kernels as in phase 5); the first 3 frames' stream must
-     equal, byte for byte, the plain chain's (the same encoder with every
-     kernel swapped for its plain twin), and the stream parse back with the
-     filter signalled in the PPS and every slice header; QCIF session
-     streams from the card, with i16 IDRs and with mixed IDRs, must equal
-     the CPU path's. Prints e2e fps, K8's
-     ms and launches per frame, the session's stage times and the profiled
-     busy share;
+     frame, one launch of each P kernel per P frame); the first 3 frames'
+     stream must equal, byte for byte, the plain chain's (the same encoder
+     with every kernel swapped for its plain twin), and the stream parse
+     back with the filter signalled in the PPS and every slice header; QCIF
+     session streams from the card, with i16 IDRs and with mixed IDRs, must
+     equal the CPU path's. Prints e2e fps, K8's ms and launches per frame,
+     the session's stage times and the profiled busy share;
   10. print the kernels line and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -129,18 +133,25 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
+def cuda_ms(torch, fn, reps: int, check=None) -> float:
     """Mean device time of fn() in ms over `reps` calls after one warm-up,
-    timed with CUDA events."""
-    fn()
+    timed with CUDA events. With `check`, every call's output (the warm-up
+    too) is kept and passed to check() after the timing, so that a race
+    shows as a mismatch in any repetition."""
+    outs = [fn()]
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
     for _ in range(reps):
-        fn()
+        out = fn()
+        if check is not None:
+            outs.append(out)
     end.record()
     torch.cuda.synchronize()
+    if check is not None:
+        for out in outs:
+            check(out)
     return start.elapsed_time(end) / reps
 
 
@@ -577,13 +588,16 @@ def p_work(torch, args, outs) -> dict:
 
 
 def check_p_kernels(torch, label, ref, src, prev_mv, qp, mc_mv=None,
-                    time_it=False):
+                    time_it=False, blocks=()):
     """K2-K5 kernel vs plain twin on one frame pair, each kernel fed the
     plain chain's inputs. ref / src: (y, cb, cr) uint8 planes on the card;
     prev_mv: the previous frame's MVs (nmb, 4, 2); mc_mv: MVs for K5 (the
-    plain decision's when None). Returns {kernel: (max_abs_err, ms,
-    plain_ms, bound_ms, bound_by)} (times None unless time_it) and the
-    plain decision."""
+    plain decision's when None); blocks: grid sizes to force on K4 in
+    further checks. Returns {kernel: (max_abs_err, ms, plain_ms, bound_ms,
+    bound_by)} (times None unless time_it; every timed K4 call is held to
+    the plain output too) and the plain decision."""
+    from h264_fer_tpu_torch.kernels.wavefront_p import pframe_decide
+
     kern = p_kernels(plain=False)
     plain, args, outs = p_frame_stages(torch, p_kernels(plain=True), src,
                                        (*ref, prev_mv), qp, mc_mv)
@@ -591,12 +605,22 @@ def check_p_kernels(torch, label, ref, src, prev_mv, qp, mc_mv=None,
     out = {}
     for name in P_KERNELS:
         a = args[name]
+        want = kernel_outputs(outs[name])
         got = kernel_outputs(kern[name](*a))
         torch.cuda.synchronize()
-        err = max_err(torch, got, kernel_outputs(outs[name]))
+        err = max_err(torch, got, want)
+        if name == "wavefront_p":
+            for b in blocks:
+                err_b = max_err(torch, kernel_outputs(pframe_decide(*a, blocks=b)), want)
+                print(f"{name} {label} qp{qp} grid of {b} blocks: max_abs_err {err_b}",
+                      flush=True)
+                err = max(err, err_b)
         ms = plain_ms = None
         if time_it:
-            ms = cuda_ms(torch, lambda: kern[name](*a), 20)
+            def check(o, name=name, want=want):
+                if name == "wavefront_p" and max_err(torch, kernel_outputs(o), want):
+                    raise AssertionError(f"K4 != plain in a timed call at {label} qp{qp}")
+            ms = cuda_ms(torch, lambda: kern[name](*a), 20, check)
             plain_ms = cuda_ms(torch, lambda: plain[name](*a), 1)
         bound_ms, bound_by = bound(*work[name])
         print(f"{name} {label} qp{qp}: max_abs_err {err} (tolerance 0)"
@@ -612,22 +636,31 @@ def check_p_kernels(torch, label, ref, src, prev_mv, qp, mc_mv=None,
 def check_p_small_grids(torch, dev):
     """K2-K5 on QCIF: random previous MVs up to beyond the search limit (so
     q2 lanes are both valid and masked, and c2 is clamped), random MC MVs
-    over the whole ±lim range, and flat content where every score ties."""
+    over the whole ±lim range (with K4's grid forced to 1 and 3 blocks too),
+    and flat content where every score ties; then a tall (64x208) and a
+    one-MB-wide (16x144) content pair."""
     rng = np.random.default_rng(SEED)
     lim = 4 * (WINDOW + 2) - 4
-    w, h = 176, 144
-    nmb = (w // 16) * (h // 16)
-    pair = [tuple(torch.from_numpy(p).to(dev) for p in f) for f in content(2, w, h)]
+
+    def pair(w, h):
+        return [tuple(torch.from_numpy(p).to(dev) for p in f) for f in content(2, w, h)]
+
+    def rand_mv(lo, hi, nmb):
+        return torch.from_numpy(rng.integers(lo, hi, (nmb, 4, 2)).astype(np.int32)).to(dev)
+
+    qcif = pair(176, 144)
     flat = tuple(torch.full(p.shape, 128, dtype=torch.uint8, device=dev)
-                 for p in pair[0])
+                 for p in qcif[0])
     for qp in P_QPS:
-        prev = torch.from_numpy(rng.integers(-lim - 4, lim + 5, (nmb, 4, 2))
-                                .astype(np.int32)).to(dev)
-        mc_mv = torch.from_numpy(rng.integers(-lim, lim + 1, (nmb, 4, 2))
-                                 .astype(np.int32)).to(dev)
-        check_p_kernels(torch, "176x144 random MVs", pair[0], pair[1], prev, qp,
-                        mc_mv=mc_mv)
+        prev = rand_mv(-lim - 4, lim + 5, 99)
+        check_p_kernels(torch, "176x144 random MVs", qcif[0], qcif[1], prev, qp,
+                        mc_mv=rand_mv(-lim, lim + 1, 99),
+                        blocks=(1, 3) if qp == QP else ())
         check_p_kernels(torch, "176x144 flat (ties)", flat, flat, prev, qp)
+    for w, h in ((64, 208), (16, 144)):
+        f0, f1 = pair(w, h)
+        nmb = (w // 16) * (h // 16)
+        check_p_kernels(torch, f"{w}x{h}", f0, f1, rand_mv(-lim - 4, lim + 5, nmb), QP)
 
 
 def plain_i16_payload(torch, dev, enc, frame):
@@ -783,13 +816,16 @@ def mixed_payload(dec, cm, cdc, cac, mx):
         wmb=wmb, hmb=hmb)
 
 
-def check_mixed_kernels(torch, label, frame, qp, mode4=None, time_it=False):
+def check_mixed_kernels(torch, label, frame, qp, mode4=None, time_it=False,
+                        blocks=()):
     """K7, K4x4 and K6 kernel vs plain twin on one frame (y, cb, cr) on the
     card, each fed the plain chain's inputs: the decided modes, or Intra4x4
-    modes mode4 in their place. Returns ({kernel: (max_abs_err, ms,
-    plain_ms, bound_ms, bound_by)} (times None unless time_it), the I4x4 MB
-    count of K6, K4x4's launches in its own path run when time_it, and the
-    plain chain's slice payload of the frame)."""
+    modes mode4 in their place; blocks: grid sizes to force on K6 in
+    further checks. Returns ({kernel: (max_abs_err, ms, plain_ms, bound_ms,
+    bound_by)} (times None unless time_it; every timed K4x4 and K6 call is
+    held to the plain output too), the I4x4 MB count of K6, K4x4's launches
+    in its own path run when time_it, and the plain chain's slice payload
+    of the frame)."""
     from h264_fer_tpu_torch.kernels.wavefront_i4x4 import i4x4_luma, i4x4_luma_plain
     from h264_fer_tpu_torch.kernels.wavefront_i16 import chroma_recon, chroma_recon_plain
     from h264_fer_tpu_torch.kernels.wavefront_mixed import (KEYS, TABLES, mixed_luma,
@@ -813,10 +849,17 @@ def check_mixed_kernels(torch, label, frame, qp, mode4=None, time_it=False):
     want4, plain4_ms = timed_once(torch, lambda: i4x4_luma_plain(y, m4, qp))
     want6, plain6_ms = timed_once(torch, lambda: mixed_luma_plain(*args))
     want7, plain7_ms = timed_once(torch, lambda: chroma_recon_plain(cb, cr, cm, qpc))
+    def err6(out):
+        return max_err(torch, [out[k] for k in KEYS], [want6[k] for k in KEYS])
+
     errs = {"wavefront_chroma": max_err(torch, got7, want7),
             "wavefront_i4x4": max_err(torch, got4, want4),
-            "wavefront_mixed": max_err(torch, [got6[k] for k in KEYS],
-                                       [want6[k] for k in KEYS])}
+            "wavefront_mixed": err6(got6)}
+    for b in blocks:
+        err_b = err6(mixed_luma(*args, blocks=b))
+        print(f"wavefront_mixed {label} qp{qp} grid of {b} blocks: max_abs_err {err_b}",
+              flush=True)
+        errs["wavefront_mixed"] = max(errs["wavefront_mixed"], err_b)
     n4 = int(got6["choice4"].sum())
     nmb = got6["choice4"].numel()
     m16n, cmn, m4n = (t.cpu().numpy() for t in (args[1], cm, m4))
@@ -830,11 +873,19 @@ def check_mixed_kernels(torch, label, frame, qp, mode4=None, time_it=False):
                             + cavlc_size_ops(*lv) + nmb * (16 * 8 + 100))}
     times = {}
     if time_it:
+        def check4(out):
+            if max_err(torch, out, want4):
+                raise AssertionError(f"K4x4 != plain in a timed call at {label} qp{qp}")
+
+        def check6(out):
+            if err6(out):
+                raise AssertionError(f"K6 != plain in a timed call at {label} qp{qp}")
+
         times = {"wavefront_chroma": (cuda_ms(torch, lambda: chroma_recon(cb, cr, cm, qpc), 20),
                                       plain7_ms),
-                 "wavefront_i4x4": (cuda_ms(torch, lambda: i4x4_luma(y, m4, qp), 20),
+                 "wavefront_i4x4": (cuda_ms(torch, lambda: i4x4_luma(y, m4, qp), 20, check4),
                                     plain4_ms),
-                 "wavefront_mixed": (cuda_ms(torch, lambda: mixed_luma(*args), 10),
+                 "wavefront_mixed": (cuda_ms(torch, lambda: mixed_luma(*args), 10, check6),
                                      plain6_ms)}
     out = {}
     for name in MIXED_KERNELS:
@@ -1187,8 +1238,7 @@ def main() -> int:
     p_launches = {fn.__name__: fn.launches for fn in counted}
     n_gops, n_p = N_IPPP // GOP_LEN, N_IPPP - N_IPPP // GOP_LEN
     want = {"i16_frame": n_gops * ndiag, "integer_score_map": n_p,
-            "qpel_refine_maps": n_p, "pframe_decide": n_p * (W // 16 + 2 * (H // 16) - 2),
-            "mc_bulk": n_p}
+            "qpel_refine_maps": n_p, "pframe_decide": n_p, "mc_bulk": n_p}
     if p_launches != want:
         raise AssertionError(f"IPPP launches {p_launches}, expected {want}")
     lens = [GOP_LEN] * n_gops
@@ -1227,11 +1277,14 @@ def main() -> int:
 
     # ---- 6. K4x4, K7 and K6 kernels vs plain twins ----------------------------
     nwave = W // 16 + 2 * (H // 16 - 1)
-    for label, w, h in small:  # random Intra4x4 modes in every block
+    # random Intra4x4 modes in every block; K6's grid forced to 1 and 3
+    # blocks on QCIF
+    for label, w, h in small + [("16x176", 16, 176)]:
         f = tuple(torch.from_numpy(p).to(dev) for p in content(1, w, h)[0])
         m4 = torch.from_numpy(rng.integers(0, 9, ((w // 16) * (h // 16), 16))
                               .astype(np.int32)).to(dev)
-        check_mixed_kernels(torch, f"{label} random modes", f, 30, mode4=m4)
+        check_mixed_kernels(torch, f"{label} random modes", f, 30, mode4=m4,
+                            blocks=(1, 3) if w == 176 else ())
     _, n4, _, _ = check_mixed_kernels(torch, "64x208", tuple(
         torch.from_numpy(p).to(dev) for p in tall_frame()), 30)
     if not 0 < n4 < 52:
@@ -1262,7 +1315,7 @@ def main() -> int:
     stream = enc.encode_sequence(frames)
     e2e_s = [time.perf_counter() - t0]
     m_launches = {fn.__name__: fn.launches for fn in counted}
-    want = {"mixed_luma": N_FRAMES * nwave, "chroma_recon": N_FRAMES * ndiag,
+    want = {"mixed_luma": N_FRAMES, "chroma_recon": N_FRAMES * ndiag,
             "i16_recon": 0, "i16_frame": 0}
     if m_launches != want:
         raise AssertionError(f"mixed launches {m_launches}, expected {want}")
@@ -1339,7 +1392,7 @@ def main() -> int:
     n_p = N_SESSION - n_idr
     want = {"i16_frame": n_idr * ndiag, "i16_recon": 0, "deblock_frame": N_SESSION * nwave,
             "integer_score_map": n_p, "qpel_refine_maps": n_p,
-            "pframe_decide": n_p * nwave, "mc_bulk": n_p}
+            "pframe_decide": n_p, "mc_bulk": n_p}
     if s_launches != want or n_idr != N_SESSION // SESSION_INTRA_EVERY:
         raise AssertionError(f"session launches {s_launches} with {n_idr} IDRs, "
                              f"expected {want}")

@@ -1,0 +1,90 @@
+"""Time the wavefront kernels of another checkout and of this one on one
+card, in turns (other, this, this, other):
+
+    python3 -m h264_fer_tpu_torch.kernels.compare_kernels OTHER_CHECKOUT
+
+run from the root of this checkout, OTHER_CHECKOUT being, for example, the
+parent commit unpacked with `git archive`. Each turn is a process of its
+own started in one checkout's root (the two share module names); it builds
+that checkout's kernels, times K4, K6, K4x4, K1t and K7 with CUDA events at
+1920x1088, QP 28, on chip_smoke.py's inputs, and reports a checksum of each
+kernel's outputs, so that the turns also show both checkouts compute the
+same function. Prints one line per turn and one per kernel.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+
+TURN = r'''
+import json, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from h264_fer_tpu_torch.kernels.wavefront_p import pframe_decide
+from h264_fer_tpu_torch.kernels.wavefront_mixed import mixed_luma
+from h264_fer_tpu_torch.kernels.wavefront_i4x4 import i4x4_luma
+from h264_fer_tpu_torch.kernels.wavefront_i16 import chroma_recon, i16_frame
+from h264_fer_tpu_torch.ops.transform import chroma_qp
+dev = torch.device("cuda")
+pair = [tuple(torch.from_numpy(p).to(dev) for p in f) for f in cs.content(3, cs.W, cs.H)]
+zero = torch.zeros(((cs.W // 16) * (cs.H // 16), 4, 2), dtype=torch.int32, device=dev)
+_, _, o0 = cs.p_frame_stages(torch, cs.p_kernels(plain=False), pair[1], (*pair[0], zero), cs.QP)
+_, args, _ = cs.p_frame_stages(torch, cs.p_kernels(plain=False), pair[2],
+                               (*pair[1], o0["wavefront_p"]["mv"]), cs.QP)
+frame = tuple(torch.from_numpy(p).to(dev) for p in cs.content(1, cs.W, cs.H)[0])
+dec, cm, _, m = cs.mixed_inputs(torch, frame, cs.QP)
+y, cb, cr = frame
+qpc = chroma_qp(cs.QP)
+m16 = dec["mode16"].to(torch.int32)
+runs = {
+    "K4": (lambda: pframe_decide(*args["wavefront_p"]), 20),
+    "K6": (lambda: mixed_luma(*m), 10),
+    "K4x4": (lambda: i4x4_luma(y, m[2], cs.QP), 20),
+    "K1t": (lambda: i16_frame(y, cb, cr, m16, cm, cs.QP, qpc), 20),
+    "K7": (lambda: chroma_recon(cb, cr, cm, qpc), 20),
+}
+out = {}
+for name, (fn, reps) in runs.items():
+    res = fn()
+    ts = list(res.values()) if isinstance(res, dict) else list(res)
+    digest = sum(int(t.to(torch.int64).sum()) * (i + 1) for i, t in enumerate(ts))
+    out[name] = (cs.cuda_ms(torch, fn, reps), digest)
+print("RESULT " + json.dumps(out), flush=True)
+'''
+
+
+def turn(root: str) -> dict:
+    """{kernel: (ms, checksum)} of the checkout at `root`."""
+    proc = subprocess.run([sys.executable, "-c", TURN], cwd=root, capture_output=True,
+                          text=True)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
+    if proc.returncode or not lines:
+        raise RuntimeError(f"turn in {root} failed (exit {proc.returncode}):\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return json.loads(lines[0][len("RESULT "):])
+
+
+def main(argv) -> int:
+    if len(argv) != 1:
+        print(__doc__, file=sys.stderr)
+        return 2
+    other = argv[0]
+    results = []
+    for label, root in (("other", other), ("this", "."), ("this", "."), ("other", other)):
+        res = turn(root)
+        results.append((label, res))
+        print(label, {k: round(v[0], 4) for k, v in res.items()}, flush=True)
+    for name in results[0][1]:
+        ms = {lab: [round(r[name][0], 4) for lb, r in results if lb == lab]
+              for lab in ("other", "this")}
+        same = len({r[name][1] for _, r in results}) == 1
+        print(f"{name}: other {ms['other']} ms, this {ms['this']} ms; "
+              f"outputs equal across checkouts: {same}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,0 +1,226 @@
+"""Phase profile of the one-launch wavefronts K4 and K6 on the card:
+
+    python3 -m h264_fer_tpu_torch.kernels.profile_dataflow
+
+run from the root of the checkout (it takes its inputs from chip_smoke.py:
+1920x1088, QP 28). It copies csrc/ into h264_fer_tpu_torch/_build/, adds
+clock64 stamps (thread 0 of each block, summed over the MBs) between the
+phases of each MB and globaltimer stamps per MB (wait start, wait end,
+publish), builds the copies with nvcc apart from the package's libraries,
+checks their outputs against the real kernels, and prints per kernel: the
+mean cycles per MB of each phase, the flag hop (wait end after the last
+neighbour's publish) and the time per knight diagonal of the critical
+path. The stamps cost time of their own: the phase split, not the total,
+is what it measures.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from . import build, dataflow
+
+PROF_DIR = build.BUILD_DIR / "profile"
+
+HEAD = r'''
+__device__ unsigned long long g_prof[32];
+__device__ unsigned long long g_ts[3][8160];
+__device__ __forceinline__ unsigned long long gtime() {
+  unsigned long long t; asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t)); return t; }
+#define PROF(k) if (threadIdx.x == 0) { long long _n = clock64(); \
+  atomicAdd(&g_prof[k], (unsigned long long)(_n - _pt)); _pt = _n; }
+#define TS(i) if (threadIdx.x == 0) g_ts[i][mb] = gtime();
+extern "C" int prof_read(unsigned long long* p, unsigned long long* ts) {
+  cudaDeviceSynchronize();
+  cudaMemcpyFromSymbol(p, g_prof, sizeof(g_prof));
+  return (int)cudaMemcpyFromSymbol(ts, g_ts, sizeof(g_ts)); }
+extern "C" int prof_reset() {
+  static unsigned long long z[32 + 3 * 8160];
+  cudaMemcpyToSymbol(g_prof, z, sizeof(g_prof));
+  return (int)cudaMemcpyToSymbol(g_ts, z, sizeof(g_ts)); }
+'''
+
+# (text in the source, text that replaces it); each must occur once
+K4_STAMPS = [
+    ("  for (;;) {\n", "  for (;;) {\n    long long _pt = clock64();\n"),
+    ("    if (mb < 0) return;\n", "    if (mb < 0) return;\n    PROF(0)\n"),
+    ("    cp_async_wait_all();\n", "    cp_async_wait_all();\n    PROF(1) TS(0)\n"),
+    ("    dataflow_wait(df, r, c, f.wmb);\n",
+     "    PROF(2)\n    dataflow_wait(df, r, c, f.wmb);\n    PROF(3) TS(1)\n"),
+    ("    __syncwarp();\n    const State* nbs = s_nb;\n",
+     "    __syncwarp();\n    PROF(4)\n    const State* nbs = s_nb;\n"),
+    ("      predict(own, nbs, 4, q, &mx, &my);\n",
+     "      predict(own, nbs, 4, q, &mx, &my);\n      PROF(5)\n"),
+    ("      warp_argmin(&best, &bk);\n", "      PROF(6)\n      warp_argmin(&best, &bk);\n      PROF(7)\n"),
+    ("    // ---- mb_type merge", "    PROF(8)\n    // ---- mb_type merge"),
+    ("    dataflow_publish(df, mb);\n", "    dataflow_publish(df, mb);\n    PROF(9) TS(2)\n"),
+    ("    f.skip[mb] = is_skip;\n",
+     "    f.skip[mb] = is_skip;\n    PROF(10) atomicAdd(&g_prof[31], 1ull);\n"),
+]
+K4_PHASES = {0: "ticket", 1: "source and centres land", 2: "candidate tables",
+             3: "wait", 4: "neighbour state", 5: "4 predictors (+ window loads)",
+             6: "4 candidate loops", 7: "4 argmin reductions", 8: "unify",
+             9: "merge, state, publish", 10: "mvd and outputs"}
+
+K6_STAMPS = [
+    ("  for (;;) {\n", "  for (;;) {\n    long long _pt = clock64();\n"),
+    ("    if (mb < 0) return;\n", "    if (mb < 0) return;\n    PROF(0)\n"),
+    ("    cp_async_wait_all();\n", "    cp_async_wait_all();\n    PROF(1) TS(0)\n"),
+    ("    dataflow_wait(df, r, c, f.wmb);\n", "    dataflow_wait(df, r, c, f.wmb);\n    PROF(2) TS(1)\n"),
+    ("    if (t == 99) i4_t = top_ok && f.choice4[mb_t];\n    __syncthreads();\n",
+     "    if (t == 99) i4_t = top_ok && f.choice4[mb_t];\n    __syncthreads();\n    PROF(3)\n"
+     "    long long _c = clock64();\n"),
+    ("      i4x4_mb(s_src, m4, nb, f.qp, f.tab, lv_4, sc, lane);\n",
+     "      i4x4_mb(s_src, m4, nb, f.qp, f.tab, lv_4, sc, lane);\n"
+     "      if (t == 256) atomicAdd(&g_prof[21], (unsigned long long)(clock64() - _c));\n"),
+    ("                          16, f.qp, f.tab, s16, lv_dc, lv_ac, t, 1);\n",
+     "                          16, f.qp, f.tab, s16, lv_dc, lv_ac, t, 1);\n"
+     "      if (t == 0) atomicAdd(&g_prof[20], (unsigned long long)(clock64() - _c));\n"),
+    ("    __syncthreads();\n\n    // ---- the choice",
+     "    if (t == 256) atomicAdd(&g_prof[22], (unsigned long long)(clock64() - _c));\n"
+     "    __syncthreads();\n    PROF(4)\n\n    // ---- the choice"),
+    ("    dataflow_publish(df, mb);\n", "    dataflow_publish(df, mb);\n    PROF(9) TS(2)\n"),
+    ("      f.rem_modes[16 * mb + t] = s_rm[t];\n    }\n",
+     "      f.rem_modes[16 * mb + t] = s_rm[t];\n    }\n"
+     "    PROF(10) if (t == 0) atomicAdd(&g_prof[31], 1ull);\n"),
+]
+K6_PHASES = {0: "ticket", 1: "prefetch", 2: "wait", 3: "neighbour state",
+             4: "candidates and their sizes", 9: "choice, state, publish",
+             10: "outputs", 20: "I16 candidate (thread 0)",
+             21: "I4x4 candidate (thread 256)", 22: "I4x4 and its sizes (thread 256)"}
+
+
+def instrumented(name: str, stamps) -> ctypes.CDLL:
+    """csrc/<name>.cu with `stamps` applied, built into PROF_DIR."""
+    shutil.rmtree(PROF_DIR, ignore_errors=True)
+    shutil.copytree(build.CSRC, PROF_DIR)
+    src = PROF_DIR / f"{name}.cu"
+    text = src.read_text()
+    for old, new in stamps:
+        if text.count(old) != 1:
+            raise RuntimeError(f"{name}.cu: stamp anchor {old!r} found {text.count(old)} times")
+        text = text.replace(old, new)
+    text = text.replace('#include "mb_dataflow.cuh"\n', '#include "mb_dataflow.cuh"\n' + HEAD, 1)
+    src.write_text(text)
+    lib = PROF_DIR / f"lib{name}-profile.so"
+    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"build of the profiled {name} failed:\n{proc.stdout}{proc.stderr}")
+    return ctypes.CDLL(str(lib))
+
+
+def call(lib, symbol: str, args) -> None:
+    """The C entry point with `args` as build.launch passes them."""
+    ints = [isinstance(a, (int, np.integer)) for a in args]
+    fn = getattr(lib, symbol)
+    fn.argtypes = [ctypes.c_int if n else ctypes.c_void_p for n in ints] + [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    ptrs = [int(a) if n else a.ctypes.data if isinstance(a, np.ndarray) else a.data_ptr()
+            for a, n in zip(args, ints)]
+    launched = ctypes.c_int(0)
+    err = fn(*ptrs, torch.cuda.current_stream().cuda_stream, ctypes.byref(launched))
+    if err:
+        raise RuntimeError(f"{symbol}: CUDA error {err}")
+
+
+def report(lib, label: str, wmb: int, hmb: int, phases: dict, run) -> None:
+    run()
+    lib.prof_reset()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    acc = np.zeros(32, np.uint64)
+    ts = np.zeros((3, 8160), np.uint64)
+    lib.prof_read(acc.ctypes.data, ts.ctypes.data)
+    n = max(int(acc[31]), 1)
+    print(f"{label}: {start.elapsed_time(end):.4f} ms with stamps, {n} MBs; "
+          "mean cycles per MB (thread 0 unless named):")
+    for i, phase in phases.items():
+        print(f"  {phase:34s} {acc[i] / n:10.1f}")
+    nmb = wmb * hmb
+    wait_start, wait_end, pub = (ts[i, :nmb].astype(np.int64) for i in range(3))
+    hops = []
+    for mb in range(nmb):
+        r, c = divmod(mb, wmb)
+        deps = [(r + dr) * wmb + c + dc for dr, dc in ((0, -1), (-1, 0), (-1, 1), (-1, -1))
+                if r + dr >= 0 and 0 <= c + dc < wmb]
+        last = max((pub[d] for d in deps), default=-1)
+        if last > wait_start[mb]:
+            hops.append(wait_end[mb] - last)
+    hops = np.array(hops)
+    d = np.array([mb % wmb + 2 * (mb // wmb) for mb in range(nmb)])
+    step = np.diff([pub[d == k].max() for k in range(d.max() + 1)])
+    print(f"  flag hop ns: median {np.median(hops):.0f}, p90 {np.percentile(hops, 90):.0f} "
+          f"({hops.size} MBs waited); wait end to publish ns: median "
+          f"{np.median(pub - wait_end):.0f}; per knight diagonal ns: median "
+          f"{np.median(step):.0f}", flush=True)
+
+
+def main() -> int:
+    import chip_smoke as cs  # the checkout's root is on sys.path under -m
+    from .wavefront_i16 import qtab
+    from .wavefront_i4x4 import PRED4_TABLE
+    from .wavefront_mixed import KEYS, TABLES, mixed_luma
+    from ..ops.device import const
+
+    print(cs.card(), flush=True)
+    dev = torch.device("cuda")
+    pair = [tuple(torch.from_numpy(p).to(dev) for p in f) for f in cs.content(3, cs.W, cs.H)]
+    zero = torch.zeros(((cs.W // 16) * (cs.H // 16), 4, 2), dtype=torch.int32, device=dev)
+    kern = cs.p_kernels(plain=False)
+    _, _, o0 = cs.p_frame_stages(torch, kern, pair[1], (*pair[0], zero), cs.QP)
+    _, args, outs = cs.p_frame_stages(torch, kern, pair[2],
+                                      (*pair[1], o0["wavefront_p"]["mv"]), cs.QP)
+    a = args["wavefront_p"]
+    wmb, hmb, window, ext, metric, lam = a[9:]
+    nmb = wmb * hmb
+    lib4 = instrumented("wavefront_p", K4_STAMPS)
+
+    def k4():
+        o = [torch.empty(nmb, dtype=torch.bool, device=dev),
+             torch.empty(nmb, dtype=torch.int32, device=dev),
+             torch.empty((nmb, 4, 2), dtype=torch.int32, device=dev),
+             torch.empty((nmb, 4, 2), dtype=torch.int32, device=dev),
+             torch.empty(nmb, dtype=torch.int32, device=dev)]
+        order, sched = dataflow.schedule(wmb, hmb, dev)
+        call(lib4, "wavefront_p_frame", (*a[:9], *o, order, sched, 16 * wmb, hmb, window,
+                                         ext, metric, lam, 0))
+        return dict(zip(("skip", "mb_type", "mv", "mvd"), o))
+
+    got = k4()
+    if not all(torch.equal(got[k], outs["wavefront_p"][k]) for k in got):
+        raise AssertionError("profiled K4 != K4")
+    report(lib4, f"K4 {cs.W}x{cs.H} qp{cs.QP}", wmb, hmb, K4_PHASES, k4)
+
+    frame = tuple(torch.from_numpy(p).to(dev) for p in cs.content(1, cs.W, cs.H)[0])
+    _, _, _, m = cs.mixed_inputs(torch, frame, cs.QP)
+    want = mixed_luma(*m)
+    lib6 = instrumented("wavefront_mixed", K6_STAMPS)
+
+    def k6():
+        out = {k: torch.empty_like(want[k]) for k in KEYS}
+        order, sched = dataflow.schedule(wmb, hmb, dev)
+        call(lib6, "wavefront_mixed_frame",
+             (*m[:6], const(TABLES, dev), const(PRED4_TABLE, dev), *(out[k] for k in KEYS),
+              order, sched, wmb, hmb, cs.QP, qtab(cs.QP), 0))
+        return out
+
+    got = k6()
+    if not all(torch.equal(got[k], want[k]) for k in KEYS):
+        raise AssertionError("profiled K6 != K6")
+    report(lib6, f"K6 {cs.W}x{cs.H} qp{cs.QP}", wmb, hmb, K6_PHASES, k6)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import intra, transform
+from ..ops.device import const
 from ..ops.tables import INTRA4X4_SCAN_ORDER_XY
 from ..ops.tiles import from_mbs, to_mbs
 from . import build
@@ -27,6 +28,9 @@ from .wavefront_i16 import qtab
 
 I32 = torch.int32
 _BXY = [(int(x), int(y)) for x, y in INTRA4X4_SCAN_ORDER_XY]
+# the Intra4x4 prediction of every (mode, sample), packed for the CUDA body
+# (csrc/intra4x4.cuh); K4x4 and K6 pass it to their kernels
+PRED4_TABLE = intra.packed_mode_table()
 
 
 def knight_waves(hmb: int, wmb: int, dev):
@@ -134,10 +138,13 @@ def i4x4_luma(y, modes, qp: int):
     hmb, wmb = h // 16, w // 16
     build.check_tensor("y", y, (h, w), torch.uint8, y.device)
     build.check_tensor("modes", modes, (hmb * wmb, 16), I32, y.device)
+    if y.data_ptr() % 8:
+        raise ValueError("y: the kernel reads it in 8-byte words")
     rec = torch.empty_like(y)
     levels = torch.empty((hmb * wmb, 16, 16), dtype=I32, device=y.device)
     build.launch(i4x4_luma, "wavefront_i4x4", "wavefront_i4x4_frame",
-                 (y, modes, rec, levels, wmb, hmb, qp, qtab(qp)), y.device)
+                 (y, modes, const(PRED4_TABLE, y.device), rec, levels, wmb, hmb, qp,
+                  qtab(qp)), y.device)
     return rec, levels
 
 

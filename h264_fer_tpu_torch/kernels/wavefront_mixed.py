@@ -4,9 +4,11 @@ Intra_16x16 choice per MB by coded bit size.
 `mixed_luma` is the wrapper of the CUDA kernel csrc/wavefront_mixed.cu,
 the device form of the XLA loop wavefront_mixed_luma_impl
 (h264_fer_tpu/kernels/wavefront_mixed.py:54, fori_loop at :411), which no
-Pallas kernel replaced. On a CUDA tensor it launches the kernel or raises;
-on a CPU tensor it runs `mixed_luma_plain`, that loop without its band=
-branch in plain PyTorch.
+Pallas kernel replaced. On a CUDA tensor it launches the kernel (one
+launch per frame: a persistent grid that takes the MBs in knight order and
+starts each as soon as its neighbours are done, kernels/dataflow.py) or
+raises; on a CPU tensor it runs `mixed_luma_plain`, that loop without its
+band= branch in plain PyTorch.
 
 The reference decides per MB by the exact bit cost of the fully coded MB
 (intra.cpp:1088-1107 with coded_mb_size, rbsp_encoding.cpp:330-488), a
@@ -29,8 +31,8 @@ from ..ops.cavlc_tables import COEFF_TOKEN_LEN, RUN_BEFORE_LEN, TOTAL_ZEROS_LEN
 from ..ops.device import const
 from ..ops.tables import CBP_TO_CODENUM_INTRA, LUMA_NBR
 from ..ops.tiles import from_mbs, to_mbs
-from . import build
-from .wavefront_i4x4 import i4x4_mb_code, knight_waves, mb_neighbours
+from . import build, dataflow
+from .wavefront_i4x4 import PRED4_TABLE, i4x4_mb_code, knight_waves, mb_neighbours
 from .wavefront_i16 import _i16_luma_code, qtab
 
 I32 = torch.int32
@@ -173,11 +175,14 @@ def mixed_luma_plain(y, mode16, mode4, cmode, cbp_c, chroma_bits, qp: int):
             "choice4": choice, **out, "cbp_luma": cbpl, "tc_luma": tcl}
 
 
-def mixed_luma(y, mode16, mode4, cmode, cbp_c, chroma_bits, qp: int):
+def mixed_luma(y, mode16, mode4, cmode, cbp_c, chroma_bits, qp: int, *,
+               blocks=None):
     """K6: mixed_luma_plain's function. CUDA tensors (y uint8, the rest
-    int32, contiguous) go to the kernel (one launch per knight wave,
-    2 * (hmb - 1) + wmb), CPU tensors to the plain version."""
+    int32, contiguous) go to the kernel (one launch per frame), CPU tensors
+    to the plain version. blocks: the kernel's grid size (None: as many
+    blocks as fit on the card at once); any size gives the same result."""
     args = (y, mode16, mode4, cmode, cbp_c, chroma_bits)
+    grid = dataflow.check_blocks(blocks)
     if y.device.type == "cpu":
         return mixed_luma_plain(*args, qp)
     if y.device.type != "cuda":
@@ -194,6 +199,8 @@ def mixed_luma(y, mode16, mode4, cmode, cbp_c, chroma_bits, qp: int):
             ("cbp_c", cbp_c, (nmb,), I32),
             ("chroma_bits", chroma_bits, (nmb,), I32)):
         build.check_tensor(name, t, shape, dtype, dev)
+    if y.data_ptr() % 16:
+        raise ValueError("y: the kernel copies it in 16-byte chunks")
     out = {"recon_y": torch.empty_like(y),
            "choice4": torch.empty(nmb, dtype=torch.bool, device=dev),
            "i16dc": torch.empty((nmb, 16), dtype=I32, device=dev),
@@ -203,12 +210,14 @@ def mixed_luma(y, mode16, mode4, cmode, cbp_c, chroma_bits, qp: int):
            "rem_modes": torch.empty((nmb, 16), dtype=I32, device=dev),
            "cbp_luma": torch.empty(nmb, dtype=I32, device=dev),
            "tc_luma": torch.empty((nmb, 16), dtype=I32, device=dev)}
+    order, sched = dataflow.schedule(wmb, hmb, dev)
     build.launch(mixed_luma, "wavefront_mixed", "wavefront_mixed_frame",
-                 (*args, const(TABLES, dev), *(out[k] for k in KEYS), wmb, hmb,
-                  qp, qtab(qp)), dev)
+                 (*args, const(TABLES, dev), const(PRED4_TABLE, dev),
+                  *(out[k] for k in KEYS), order,
+                  sched, wmb, hmb, qp, qtab(qp), grid), dev)
     return out
 
 
-# kernel launches so far, as counted by the C launch loop (one per
-# accepted knight-wave launch)
+# kernel launches so far, as counted by the C entry point (one per accepted
+# launch, one per frame)
 mixed_luma.launches = 0

@@ -4,8 +4,10 @@ unify, mb_type merge and mvd, MB by MB in knight order.
 `pframe_decide` is the wrapper of the CUDA kernel csrc/wavefront_p.cu, which
 replaces the Pallas kernel _decide_kernel
 (h264_fer_tpu/kernels/wavefront_p_pallas.py:60, via pframe_decide_pallas_impl
-at :387). On a CUDA tensor it launches the kernel (one launch per knight
-diagonal d = c + 2r) or raises; on a CPU tensor it runs
+at :387). On a CUDA tensor it launches the kernel (one launch per frame:
+a persistent grid that takes the MBs in knight order d = c + 2r and starts
+each as soon as its neighbours are done, kernels/dataflow.py) or raises;
+on a CPU tensor it runs
 `pframe_decide_plain`, the non-banded XLA contract twin
 kernels/wavefront_p.pframe_decide_impl (wavefront_p.py:177-423) in plain
 PyTorch: a Python loop over the diagonals with vector ops over the MBs of
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 from ..ops.device import const
-from . import build
+from . import build, dataflow
 from .me_int import me_metric
 
 I32 = torch.int32
@@ -292,11 +294,14 @@ def pframe_decide_plain(src_y, planes, int_map, c1mv, q1map, c2mv, q2map,
 
 def pframe_decide(src_y, planes, int_map, c1mv, q1map, c2mv, q2map, q2ok,
                   maxdiff, wmb: int, hmb: int, window: int, ext: int,
-                  metric_id: int, lam: int):
+                  metric_id: int, lam: int, *, blocks=None):
     """K4: pframe_decide_plain's function. CUDA tensors (src_y and planes
     uint8, the maps int32, q2ok bool, all contiguous) go to the kernel, CPU
-    tensors to the plain version."""
+    tensors to the plain version. blocks: the kernel's grid size (None: as
+    many blocks as fit on the card at once); any size gives the same
+    result."""
     args = (src_y, planes, int_map, c1mv, q1map, c2mv, q2map, q2ok, maxdiff)
+    grid = dataflow.check_blocks(blocks)
     if src_y.device.type == "cpu":
         return pframe_decide_plain(*args, wmb, hmb, window, ext, metric_id, lam)
     if src_y.device.type != "cuda":
@@ -316,19 +321,21 @@ def pframe_decide(src_y, planes, int_map, c1mv, q1map, c2mv, q2map, q2ok,
             ("q2ok", q2ok, (nmb, 4), torch.bool),
             ("maxdiff", maxdiff, (nmb,), I32)):
         build.check_tensor(name, t, shape, dtype, dev)
-    if src_y.data_ptr() % 4:
-        raise ValueError("src_y: the kernel reads it in 4-byte words")
+    for name, t in (("src_y", src_y), ("c1mv", c1mv), ("c2mv", c2mv)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel copies it in 16-byte chunks")
     skip = torch.empty(nmb, dtype=torch.bool, device=dev)
     mb_type = torch.empty(nmb, dtype=I32, device=dev)
     mv = torch.empty((nmb, 4, 2), dtype=I32, device=dev)
     mvd = torch.empty((nmb, 4, 2), dtype=I32, device=dev)
     state_t = torch.empty(nmb, dtype=I32, device=dev)
+    order, sched = dataflow.schedule(wmb, hmb, dev)
     build.launch(pframe_decide, "wavefront_p", "wavefront_p_frame",
-                 (*args, skip, mb_type, mv, mvd, state_t, w, hmb, window, ext,
-                  metric_id, lam), dev)
+                 (*args, skip, mb_type, mv, mvd, state_t, order, sched, w, hmb,
+                  window, ext, metric_id, lam, grid), dev)
     return {"skip": skip, "mb_type": mb_type, "mv": mv, "mvd": mvd}
 
 
-# kernel launches so far, as counted by the C launch loop (one per accepted
-# diagonal launch)
+# kernel launches so far, as counted by the C entry point (one per accepted
+# launch, one per frame)
 pframe_decide.launches = 0

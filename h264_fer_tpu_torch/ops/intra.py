@@ -191,6 +191,19 @@ def _mode_tables():
 _IDX4, _W4, _C4, _SH4 = _mode_tables()
 
 
+def packed_mode_table() -> np.ndarray:
+    """_mode_tables as one int32 per (mode, sample 4y + x), 9 x 16, for the
+    CUDA Intra_4x4 body (csrc/intra4x4.cuh, pred4_packed): the three
+    sample indices of p in bits 0-3, 4-7, 8-11, their weights in bits
+    12-13, 14-15, 16-17, the rounding constant in 18-19 and the shift in
+    20-21. Zero for DC."""
+    i, w = _IDX4.astype(np.int64), _W4.astype(np.int64)
+    packed = (i[..., 0] | i[..., 1] << 4 | i[..., 2] << 8 | w[..., 0] << 12
+              | w[..., 1] << 14 | w[..., 2] << 16 | _C4.astype(np.int64) << 18
+              | _SH4.astype(np.int64) << 20)
+    return packed.reshape(-1).astype(np.int32)
+
+
 def predict_4x4_by_mode(p, mode):
     """Predict each 4x4 block in its own mode: p (n, 13), mode (n,) int →
     (n, 4, 4); equal to predict_4x4_all_modes gathered at `mode`, without
