@@ -8,16 +8,19 @@ Phases (any failure exits non-zero and prints no result line):
      the eight sources in h264_fer_tpu_torch/kernels/csrc (one nvcc per
      source, all started at once, sm_90a) and print each build's time and
      ptxas report;
-  2. hold the K1 wavefront kernel and K1t (K1 writing its levels) against
-     their plain PyTorch versions on the card: bit-exact recon (and K1t's
-     four level arrays) at 1920x1088 for QP 8, 28 and 46 on structured
-     content made from a seed, plus two small grids (wide and tall) and
-     random modes, and K1t's recon equal to K1's; time them with CUDA
-     events. K1 lies on no encode path since K1t replaced it: its path is
-     one i16_recon call at 1080p, counted;
+  2. hold the K1 kernel and K1t (K1 writing its levels), one dataflow
+     launch per frame, against their plain PyTorch versions on the card:
+     bit-exact recon (and K1t's four level arrays) at 1920x1088 for QP 8,
+     28 and 46 on structured content made from a seed, on two small grids
+     (wide and tall), on QCIF and 64x208 with the grid forced to 1 and to 3
+     blocks, on a one-MB-wide 16x144 and a one-MB-tall 176x16 frame, and on
+     random modes, with K1t's recon equal to K1's; time them with CUDA
+     events, holding every timed call to the plain output. K1 lies on no
+     encode path since K1t replaced it: its path is one i16_recon call at
+     1080p, counted (one launch);
   3. drive the all-intra path: GopIntraEncoder encodes 8 frames at
      1920x1088, QP 28, on the card with the launch counts set to 0 just
-     before (187 K1t launches per frame, no K1); the stream must equal,
+     before (one K1t launch per frame, no K1); the stream must equal,
      byte for byte, the stream of the plain chain (mode decision, plain K1t,
      entropy) on the card, and parse back into SPS, PPS and 8 IDR slices; a
      QCIF stream from the card must equal the CPU path's (the path the CPU
@@ -40,7 +43,7 @@ Phases (any failure exits non-zero and prints no result line):
      stream parse back into SPS, PPS and per GOP an IDR and 7 P slice
      headers; a QCIF IPPP stream from the card must equal the CPU path's.
      Prints e2e fps, device ms per P frame for each stage and the counted
-     launches (one K4 per P frame);
+     launches (one K1t per IDR, one K4 per P frame);
   6. hold K4x4 (Intra_4x4 recon), K7 (chroma wavefront) and K6 (mixed
      arbitration wavefront) against their plain twins on the card,
      bit-exact on every output: at 1920x1088 for QP 8, 28 and 46 in the
@@ -60,17 +63,19 @@ Phases (any failure exits non-zero and prints no result line):
      chain on the card, and the whole stream parse back; a QCIF mixed stream
      from the card must equal the CPU path's. Prints e2e fps, device ms of
      each stage of one frame and the profiled busy share;
-  8. hold K8 (the in-loop filter) against its plain twin on the card,
-     bit-exact: at 1920x1088 on an I frame's state at QP 16, 28 and 46 and
-     on a P frame's state at QP 28, 36 and 46 (the session encoder's, after
-     an IDR), then on QCIF and 64x208 with random state (every bS 0-4);
-     time kernel and plain at QP 28 on the P state, where the bound counts
-     the filter's operations only on the lines that pass its alpha / beta
-     test;
+  8. hold K8 (the in-loop filter, one dataflow launch per frame) against
+     its plain twin on the card, bit-exact: at 1920x1088 on an I frame's
+     state at QP 16, 28 and 46 and on a P frame's state at QP 28, 36 and 46
+     (the session encoder's, after an IDR), then with random state (every
+     bS 0-4) on QCIF and 64x208, each also with the grid forced to 1 and to
+     3 blocks, and on a one-MB-wide 16x144 and a one-MB-tall 176x16 frame;
+     time kernel and plain at QP 28 on the P state, holding every timed
+     call to the plain output, where the bound counts the filter's
+     operations only on the lines that pass its alpha / beta test;
   9. drive the session path: Encoder(1920, 1088, EncoderConfig(qp=28,
      intra_every=8, deblock=True)) encodes 16 frames with the launch counts
-     set to 0 just before (187 K1t launches per IDR, 254 K8 launches per
-     frame, one launch of each P kernel per P frame); the first 3 frames'
+     set to 0 just before (one K1t launch per IDR, one K8 launch per frame,
+     one launch of each P kernel per P frame); the first 3 frames'
      stream must equal, byte for byte, the plain chain's (the same encoder
      with every kernel swapped for its plain twin), and the stream parse
      back with the filter signalled in the PPS and every slice header; QCIF
@@ -137,8 +142,14 @@ def cuda_ms(torch, fn, reps: int, check=None) -> float:
     """Mean device time of fn() in ms over `reps` calls after one warm-up,
     timed with CUDA events. With `check`, every call's output (the warm-up
     too) is kept and passed to check() after the timing, so that a race
-    shows as a mismatch in any repetition."""
+    shows as a mismatch in any repetition; an untimed round of `reps` calls,
+    kept and checked the same way, first grows the allocator's cache to
+    hold them, so that no device allocation for the kept outputs lands in
+    the timed round."""
     outs = [fn()]
+    if check is not None:
+        for out in [fn() for _ in range(reps)]:
+            check(out)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -230,14 +241,19 @@ def k1_bound(w: int, h: int, qp: int, qpc: int, m16, cm):
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
-def check_k1(torch, dev, name, frame, qp, modes=None):
-    """K1 kernel vs plain on one frame, in the decided modes or in the given
-    (mode16, chroma mode) arrays; returns (max_abs_err, ms, plain_ms,
-    bound_ms, bound_by)."""
+def same_as(torch, want, label):
+    """A check for cuda_ms: the output equals `want`, tensor by tensor."""
+    def check(got):
+        if max_err(torch, got, want) != 0:
+            raise AssertionError(f"{label}: a timed call != plain")
+    return check
+
+
+def i16_inputs(torch, dev, frame, qp, modes):
+    """Card planes and (mode16, chroma mode) of one frame: the decided modes,
+    or the given arrays."""
     from h264_fer_tpu_torch.codec.intra_decision import intra16_mode_decision
-    from h264_fer_tpu_torch.kernels.wavefront_i16 import i16_recon, i16_recon_plain
     from h264_fer_tpu_torch.ops.intra import INTRA16_TO_CHROMA_MODE
-    from h264_fer_tpu_torch.ops.transform import chroma_qp
 
     y, cb, cr = (torch.from_numpy(p).to(dev) for p in frame)
     if modes is None:
@@ -245,55 +261,62 @@ def check_k1(torch, dev, name, frame, qp, modes=None):
         cm = torch.from_numpy(INTRA16_TO_CHROMA_MODE).to(dev)[m16.long()]
     else:
         m16, cm = (torch.from_numpy(m).to(dev) for m in modes)
+    return y, cb, cr, m16, cm
+
+
+def check_k1(torch, dev, name, frame, qp, modes=None, blocks=None):
+    """K1 kernel vs plain on one frame, in the decided modes or in the given
+    (mode16, chroma mode) arrays, with the grid forced to `blocks` blocks
+    if given; returns (max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
+    from h264_fer_tpu_torch.kernels.wavefront_i16 import i16_recon, i16_recon_plain
+    from h264_fer_tpu_torch.ops.transform import chroma_qp
+
+    y, cb, cr, m16, cm = i16_inputs(torch, dev, frame, qp, modes)
     qpc = chroma_qp(qp)
-    got = i16_recon(y, cb, cr, m16, cm, qp, qpc)
+    label = f"K1 {name} qp{qp}" + (f" {blocks} blocks" if blocks else "")
+    got = i16_recon(y, cb, cr, m16, cm, qp, qpc, blocks=blocks)
     want = i16_recon_plain(y, cb, cr, m16, cm, qp, qpc)
-    torch.cuda.synchronize()
-    err = max(int((g.int() - r.int()).abs().max()) for g, r in zip(got, want))
-    ms = cuda_ms(torch, lambda: i16_recon(y, cb, cr, m16, cm, qp, qpc), 20)
+    err = max_err(torch, got, want)
+    ms = cuda_ms(torch, lambda: i16_recon(y, cb, cr, m16, cm, qp, qpc, blocks=blocks), 20,
+                 check=same_as(torch, want, label))
     plain_ms = cuda_ms(torch, lambda: i16_recon_plain(y, cb, cr, m16, cm, qp, qpc), 2)
-    print(f"K1 {name} qp{qp}: max_abs_err {err} (tolerance 0), kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.2f} ms per frame", flush=True)
+    print(f"{label}: max_abs_err {err} (tolerance 0, every timed call too), kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.2f} ms per frame", flush=True)
     if err != 0:
-        raise AssertionError(f"K1 kernel != plain at {name} qp{qp}")
+        raise AssertionError(f"{label}: kernel != plain")
     h, w = y.shape
     bound = k1_bound(w, h, qp, qpc, m16.cpu().numpy(), cm.cpu().numpy())
     return err, ms, plain_ms, *bound
 
 
-def check_k1t(torch, dev, name, frame, qp, modes=None):
+def check_k1t(torch, dev, name, frame, qp, modes=None, blocks=None):
     """K1t kernel vs plain twin on one frame (recon and the four level
     arrays), and its recon vs K1's, in the decided modes or in the given
-    (mode16, chroma mode) arrays; returns (max_abs_err, ms, plain_ms,
-    bound_ms, bound_by)."""
-    from h264_fer_tpu_torch.codec.intra_decision import intra16_mode_decision
+    (mode16, chroma mode) arrays, with the grid forced to `blocks` blocks
+    if given; returns (max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
     from h264_fer_tpu_torch.kernels.wavefront_i16 import (i16_frame, i16_frame_plain,
                                                           i16_recon)
-    from h264_fer_tpu_torch.ops.intra import INTRA16_TO_CHROMA_MODE
     from h264_fer_tpu_torch.ops.transform import chroma_qp
 
-    y, cb, cr = (torch.from_numpy(p).to(dev) for p in frame)
-    if modes is None:
-        m16 = intra16_mode_decision(y.to(torch.int32), qp)[0].to(torch.int32)
-        cm = torch.from_numpy(INTRA16_TO_CHROMA_MODE).to(dev)[m16.long()]
-    else:
-        m16, cm = (torch.from_numpy(m).to(dev) for m in modes)
+    y, cb, cr, m16, cm = i16_inputs(torch, dev, frame, qp, modes)
     qpc = chroma_qp(qp)
     args = (y, cb, cr, m16, cm, qp, qpc)
-    got = i16_frame(*args)
+    label = f"K1t {name} qp{qp}" + (f" {blocks} blocks" if blocks else "")
+    got = i16_frame(*args, blocks=blocks)
     want, plain_ms = timed_once(torch, lambda: i16_frame_plain(*args))
     err = max_err(torch, got, want)
     k1_err = max_err(torch, [got[0], got[3], got[4]], i16_recon(*args))
-    ms = cuda_ms(torch, lambda: i16_frame(*args), 20)
+    ms = cuda_ms(torch, lambda: i16_frame(*args, blocks=blocks), 20,
+                 check=same_as(torch, want, label))
     h, w = y.shape
     nmb = (w // 16) * (h // 16)
     bound_ms, bound_by = bound(nbytes(y, cb, cr, m16, cm, *got),
                                k1_ops(qp, qpc, m16.cpu().numpy(), cm.cpu().numpy()))
-    print(f"K1t {name} qp{qp}: max_abs_err {err} (tolerance 0; recon vs K1 {k1_err}), "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms per frame, bound {bound_ms:.4f} ms "
-          f"({bound_by}; {nmb} MBs)", flush=True)
+    print(f"{label}: max_abs_err {err} (tolerance 0, every timed call too; recon vs K1 "
+          f"{k1_err}), kernel {ms:.4f} ms, plain {plain_ms:.2f} ms per frame, bound "
+          f"{bound_ms:.4f} ms ({bound_by}; {nmb} MBs)", flush=True)
     if err != 0 or k1_err != 0:
-        raise AssertionError(f"K1t kernel != plain or != K1 at {name} qp{qp}")
+        raise AssertionError(f"{label}: kernel != plain or != K1")
     return err, ms, plain_ms, bound_ms, bound_by
 
 
@@ -980,29 +1003,33 @@ def k8_ops(bs_v, bs_h, luma_lines: int, chroma_lines: int) -> float:
             + luma_lines * 36 + chroma_lines * 12)
 
 
-def check_k8(torch, label, state, qp, time_it=False):
+def check_k8(torch, label, state, qp, time_it=False, blocks=None):
     """K8 kernel vs plain twin on one frame's state (y, cb, cr uint8,
-    mb_intra, nz_luma, mv) on the card. Returns (max_abs_err, ms, plain_ms,
-    bound_ms, bound_by) (ms and the bound None unless time_it) and the
-    number of samples the filter changed."""
+    mb_intra, nz_luma, mv) on the card, with the grid forced to `blocks`
+    blocks if given. Returns (max_abs_err, ms, plain_ms, bound_ms, bound_by)
+    (ms and the bound None unless time_it; every timed call is held to the
+    plain output) and the number of samples the filter changed."""
     from h264_fer_tpu_torch.kernels.deblock import bs_maps, deblock_frame, deblock_frame_plain
     from h264_fer_tpu_torch.ops.transform import chroma_qp
 
     qpc = chroma_qp(qp)
-    got = deblock_frame(*state, qp, qpc)
+    label = label + (f" {blocks} blocks" if blocks else "")
+    got = deblock_frame(*state, qp, qpc, blocks=blocks)
     want, plain_ms = timed_once(torch, lambda: deblock_frame_plain(*state, qp, qpc))
     err = max_err(torch, got, want)
     changed = sum(int((g != p).sum()) for g, p in zip(got, state[:3]))
     ms = bound_ms = bound_by = None
     timing = ""
     if time_it:
-        ms = cuda_ms(torch, lambda: deblock_frame(*state, qp, qpc), 20)
+        ms = cuda_ms(torch, lambda: deblock_frame(*state, qp, qpc, blocks=blocks), 20,
+                     check=same_as(torch, want, f"K8 {label} qp{qp}"))
         h, w = state[0].shape
         bs_v, bs_h = bs_maps(*state[3:], w // 16, h // 16)
         lines = k8_filtered_lines(state, qp, qpc)
         bound_ms, bound_by = bound(nbytes(*state, *got), k8_ops(bs_v, bs_h, *lines))
-        timing = (f", kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-                  f"{lines[0]} luma + {lines[1]} chroma lines filtered)")
+        timing = (f", kernel {ms:.4f} ms (every timed call == plain), bound "
+                  f"{bound_ms:.4f} ms ({bound_by}; {lines[0]} luma + {lines[1]} chroma "
+                  "lines filtered)")
     print(f"K8 {label} qp{qp}: max_abs_err {err} (tolerance 0), {changed} samples "
           f"filtered, plain {plain_ms:.1f} ms" + timing, flush=True)
     if err != 0:
@@ -1129,9 +1156,13 @@ def main() -> int:
 
     # ---- 2. K1 and K1t kernels vs plain ------------------------------------
     small = [("176x144", 176, 144), ("80x176", 80, 176)]
-    for label, w, h in small:
+    for label, w, h in small + [("16x144", 16, 144), ("176x16", 176, 16)]:
         for check in (check_k1, check_k1t):
             check(torch, dev, label, content(1, w, h)[0], QP)
+    for label, w, h in (("176x144", 176, 144), ("64x208", 64, 208)):
+        for blocks in (1, 3):  # the persistent grid forced small
+            for check in (check_k1, check_k1t):
+                check(torch, dev, label, content(1, w, h)[0], QP, blocks=blocks)
     # every mode at every MB, the frame edges included, where the -1
     # neighbours of V, H and Plane enter the prediction
     rng = np.random.default_rng(SEED)
@@ -1161,12 +1192,12 @@ def main() -> int:
     t0 = time.perf_counter()
     stream = enc.encode_sequence(frames)
     e2e_s = [time.perf_counter() - t0]
-    launches = i16_frame.launches  # counted by the kernel's C launch loop
+    launches = i16_frame.launches  # counted by the kernel's C entry point
     ndiag = W // 16 + H // 16 - 1
-    if (launches, i16_recon.launches) != (N_FRAMES * ndiag, 0):
+    if (launches, i16_recon.launches) != (N_FRAMES, 0):
         raise AssertionError(f"K1t launched {launches} times, K1 {i16_recon.launches}, "
-                             f"expected {N_FRAMES * ndiag} and 0")
-    if k1_launches != ndiag:
+                             f"expected {N_FRAMES} and 0")
+    if k1_launches != 1:
         raise AssertionError(f"K1 launched {k1_launches} times in one call")
     if stream != plain_chain_stream(torch, dev, enc, frames):
         raise AssertionError("kernel-path stream != plain-chain stream")
@@ -1237,7 +1268,7 @@ def main() -> int:
     e2e_s = [time.perf_counter() - t0]
     p_launches = {fn.__name__: fn.launches for fn in counted}
     n_gops, n_p = N_IPPP // GOP_LEN, N_IPPP - N_IPPP // GOP_LEN
-    want = {"i16_frame": n_gops * ndiag, "integer_score_map": n_p,
+    want = {"i16_frame": n_gops, "integer_score_map": n_p,
             "qpel_refine_maps": n_p, "pframe_decide": n_p, "mc_bulk": n_p}
     if p_launches != want:
         raise AssertionError(f"IPPP launches {p_launches}, expected {want}")
@@ -1370,8 +1401,14 @@ def main() -> int:
             if qp == QP and not changed:
                 raise AssertionError(f"K8 filtered no sample of the P frame at QP {QP}")
     for label, w, h, qp in (("176x144 random state", 176, 144, 30),
-                            ("64x208 random state", 64, 208, 38)):
-        k8[label, qp], _ = check_k8(torch, label, random_state(torch, dev, w, h, w + qp), qp)
+                            ("64x208 random state", 64, 208, 38),
+                            ("16x144 random state", 16, 144, 34),
+                            ("176x16 random state", 176, 16, 34)):
+        state = random_state(torch, dev, w, h, w + qp)
+        k8[label, qp], _ = check_k8(torch, label, state, qp)
+        if h > 16 and w > 16:  # the persistent grid forced small
+            for blocks in (1, 3):
+                k8[label, qp, blocks], _ = check_k8(torch, label, state, qp, blocks=blocks)
     print(f"K8 checks done on {name}", flush=True)
 
     # ---- 9. session path ---------------------------------------------------
@@ -1390,7 +1427,7 @@ def main() -> int:
     s_launches = {fn.__name__: fn.launches for fn in counted}
     n_idr = sum(st["idr"] for st in enc.stats)
     n_p = N_SESSION - n_idr
-    want = {"i16_frame": n_idr * ndiag, "i16_recon": 0, "deblock_frame": N_SESSION * nwave,
+    want = {"i16_frame": n_idr, "i16_recon": 0, "deblock_frame": N_SESSION,
             "integer_score_map": n_p, "qpel_refine_maps": n_p,
             "pframe_decide": n_p, "mc_bulk": n_p}
     if s_launches != want or n_idr != N_SESSION // SESSION_INTRA_EVERY:
@@ -1417,7 +1454,7 @@ def main() -> int:
     print(f"session path: {N_SESSION} frames {W}x{H} QP{QP} intra_every "
           f"{SESSION_INTRA_EVERY} deblock, {n_idr} IDR + {n_p} P, {len(stream)} bytes, "
           f"first {N_PLAIN_SESSION} frames == plain chain, parses; launches {s_launches} "
-          f"({s_launches['deblock_frame'] // N_SESSION} K8 per frame); e2e fps median "
+          f"({s_launches['deblock_frame'] / N_SESSION:g} K8 per frame); e2e fps median "
           f"{fps[len(fps) // 2]:.2f} (runs {', '.join(f'{v:.2f}' for v in fps)}) on {name}",
           flush=True)
     e = Encoder(W, H, cfg, device=dev)

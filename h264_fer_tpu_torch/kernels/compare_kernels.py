@@ -6,10 +6,11 @@ card, in turns (other, this, this, other):
 run from the root of this checkout, OTHER_CHECKOUT being, for example, the
 parent commit unpacked with `git archive`. Each turn is a process of its
 own started in one checkout's root (the two share module names); it builds
-that checkout's kernels, times K4, K6, K4x4, K1t and K7 with CUDA events at
-1920x1088, QP 28, on chip_smoke.py's inputs, and reports a checksum of each
-kernel's outputs, so that the turns also show both checkouts compute the
-same function. Prints one line per turn and one per kernel.
+that checkout's kernels, times K4, K6, K4x4, K1t, K1, K7 and K8 (on the
+session encoder's P-frame state) with CUDA events at 1920x1088, QP 28, on
+chip_smoke.py's inputs, and reports a checksum of each kernel's outputs,
+so that the turns also show both checkouts compute the same function.
+Prints one line per turn and one per kernel.
 """
 
 from __future__ import annotations
@@ -26,7 +27,9 @@ import chip_smoke as cs
 from h264_fer_tpu_torch.kernels.wavefront_p import pframe_decide
 from h264_fer_tpu_torch.kernels.wavefront_mixed import mixed_luma
 from h264_fer_tpu_torch.kernels.wavefront_i4x4 import i4x4_luma
-from h264_fer_tpu_torch.kernels.wavefront_i16 import chroma_recon, i16_frame
+from h264_fer_tpu_torch.kernels.wavefront_i16 import chroma_recon, i16_frame, i16_recon
+from h264_fer_tpu_torch.kernels.deblock import deblock_frame
+from h264_fer_tpu_torch.codec.encoder import Encoder, EncoderConfig
 from h264_fer_tpu_torch.ops.transform import chroma_qp
 dev = torch.device("cuda")
 pair = [tuple(torch.from_numpy(p).to(dev) for p in f) for f in cs.content(3, cs.W, cs.H)]
@@ -39,12 +42,18 @@ dec, cm, _, m = cs.mixed_inputs(torch, frame, cs.QP)
 y, cb, cr = frame
 qpc = chroma_qp(cs.QP)
 m16 = dec["mode16"].to(torch.int32)
+enc = Encoder(cs.W, cs.H, EncoderConfig(qp=cs.QP), device=dev)
+for f in cs.content(2, cs.W, cs.H):
+    enc.encode_frame(*f)
+state = cs.encoder_state(enc)  # the P frame's state before the filter
 runs = {
     "K4": (lambda: pframe_decide(*args["wavefront_p"]), 20),
     "K6": (lambda: mixed_luma(*m), 10),
     "K4x4": (lambda: i4x4_luma(y, m[2], cs.QP), 20),
     "K1t": (lambda: i16_frame(y, cb, cr, m16, cm, cs.QP, qpc), 20),
+    "K1": (lambda: i16_recon(y, cb, cr, m16, cm, cs.QP, qpc), 20),
     "K7": (lambda: chroma_recon(cb, cr, cm, qpc), 20),
+    "K8": (lambda: deblock_frame(*state, cs.QP, qpc), 20),
 }
 out = {}
 for name, (fn, reps) in runs.items():

@@ -4,7 +4,8 @@
 // the device forms of kernels/wavefront_i16._i16_luma_code and _chroma_code.
 //
 // One thread per sample: 256 for the luma, 128 for the chroma (64 of Cb, then
-// 64 of Cr). Each function synchronises its own threads with a named barrier
+// 64 of Cr). The source MB is read through a pointer and a row stride, so a
+// caller may stage it in shared memory first (K1, K1t, K6). Each function synchronises its own threads with a named barrier
 // (group_sync), so that K1 can run the two on separate warps of one block at
 // once. The MB's working arrays live in shared memory.
 
@@ -135,21 +136,22 @@ struct ChromaScratch {
 
 // Reconstruct the Cb and Cr of MB (r, c) in chroma mode `mode`; the 128
 // threads t = 0..127 that use barrier `bar` call it, thread t owning sample
-// ((t >> 3) & 7, t & 7) of plane t >> 6. Reads the neighbours from, and
-// writes the MB to, the uint8 recon planes (Wc samples wide), whose earlier
-// MBs are final. Where cdc / cac are not null (pointing at this MB's entry
+// ((t >> 3) & 7, t & 7) of plane t >> 6. cbs / crs: the MB's top-left Cb /
+// Cr source sample (row stride ss), in the source planes or in shared
+// memory. Reads the neighbours from, and writes the MB to, the uint8 recon
+// planes (Wc samples wide), whose earlier MBs are final. Where cdc / cac are not null (pointing at this MB's entry
 // of the (2, nmb, 4) / (2, nmb, 4, 15) level arrays), writes the quantised
 // levels: cdc[plane][raster index] of the 2x2 DC block, cac[plane][raster
 // block][zig-zag index - 1].
-__device__ void chroma_mb(const uint8_t* __restrict__ cbsrc,
-                          const uint8_t* __restrict__ crsrc, uint8_t* cbrec,
+__device__ void chroma_mb(const uint8_t* __restrict__ cbs,
+                          const uint8_t* __restrict__ crs, int ss, uint8_t* cbrec,
                           uint8_t* crrec, int Wc, int r, int c, int mode,
                           int qpc, const QpTab& tab, ChromaScratch& s,
                           int32_t* cdc, int32_t* cac, int nmb, int t, int bar) {
   const bool top_ok = r > 0, left_ok = c > 0, corner_ok = top_ok && left_ok;
   const int cx0 = c * 8, cy0 = r * 8;
   const int p = t >> 6, cy = (t >> 3) & 7, cx = t & 7;
-  const uint8_t* csrc = p ? crsrc : cbsrc;
+  const uint8_t* csrc = p ? crs : cbs;
   uint8_t* crec = p ? crrec : cbrec;
 
   // neighbours from the finished planes; -1 where unavailable
@@ -211,7 +213,7 @@ __device__ void chroma_mb(const uint8_t* __restrict__ cbsrc,
       pred = clip255((s.par[p][4] + s.par[p][5] * (cx - 3) + s.par[p][6] * (cy - 3) + 16) >> 5);
   }
   {
-    const int diff = (int)csrc[(cy0 + cy) * Wc + cx0 + cx] - pred;
+    const int diff = (int)csrc[cy * ss + cx] - pred;
     s.a[t] = diff == 0 ? 0 : diff * 64 - 32;
   }
   group_sync(bar, 128);

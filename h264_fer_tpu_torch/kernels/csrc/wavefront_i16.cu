@@ -1,6 +1,6 @@
-// Intra_16x16 reconstruction wavefront over MB anti-diagonals (K1), the
-// same writing its levels (K1t), and its chroma half alone (K7), for
-// sm_90a.
+// Intra_16x16 reconstruction of a frame as one launch (K1), the same
+// writing its levels (K1t), and its chroma half alone over MB anti-diagonals
+// (K7), for sm_90a.
 //
 // K1 replaces the Pallas kernel _i16_recon_kernel_body
 // (h264_fer_tpu/kernels/wavefront_pallas.py:890, called by
@@ -11,7 +11,7 @@
 // the clipped reconstruction. The same for Cb and Cr (8x8, 2x2 DC, chroma
 // mode given per MB). K1 writes no levels. K1t
 // (wavefront_i16_frame_levels) replaces _i16_kernel_body
-// (wavefront_pallas.py:173, via pallas_i16_frame at :437): the same launches
+// (wavefront_pallas.py:173, via pallas_i16_frame at :437): the same kernel
 // and per-MB code, which also write each MB's levels as they leave the
 // quantiser, so no pass rebuilds them from the reconstruction. K7
 // (wavefront_chroma_frame) is K1's chroma half alone: the mixed I frame's
@@ -22,24 +22,30 @@
 // (~32-36 per pixel in the function's butterfly form, ~6 us at the card's
 // int32 rate; chip_smoke.k1_ops counts them). The floor is the
 // dependency chain: MB (r, c) needs (r-1, c), (r, c-1) and (r-1, c-1), so
-// the hmb+wmb-1 anti-diagonals (187 at 1080p) run one after another and a
-// diagonal holds at most hmb (68) MBs, far fewer blocks than the card can
-// run at once.
+// hmb + wmb - 1 MBs (187 at 1080p) lie on a chain and at most hmb (68) are
+// ready at once, far fewer than the card can run. The first design paid a
+// launch (~4.4 us) per anti-diagonal.
 //
-// Design: one launch per diagonal d = r + c, one thread block per MB of the
-// diagonal. K1's block has 384 threads: warps 0..7 code the luma, one
-// thread per sample, while warps 8..11 code both chroma planes, each group
-// on its own named barrier (the per-MB functions of csrc/intra16.cuh, which
-// K6 and K7 share). The MB's working arrays live in shared memory.
-// Neighbours are read straight from the row-major uint8 output planes,
-// which the earlier launches have finished; stream order makes them
-// visible. No skewed layout. A persistent kernel with per-MB ready flags,
-// or a CUDA graph over the launches, is later work.
+// Design of K1 and K1t: one launch per frame on csrc/mb_dataflow.cuh. A
+// persistent grid takes the MBs by ticket in diagonal order (d = r + c,
+// then r) and waits on the I16 wait set, left, top and top-left: no
+// Intra_16x16 or chroma prediction reads a top-right sample, so the chain
+// stays 187 MBs (the four-neighbour set would stretch it to 254). Before
+// the wait the block stages the source MB (16x16 luma, two 8x8 chroma) in
+// shared memory with cp.async and reads the MB's two modes; after it, the
+// top row, left column and corner from the recon planes, written in this
+// launch and so read with plain loads (never __ldg). The block has 384
+// threads: warps 0..7 code the luma, one thread per sample, on named
+// barrier 1, while warps 8..11 code both chroma planes on barrier 2 (the
+// per-MB functions of csrc/intra16.cuh, which K6 and K7 share); all 384
+// meet at the scheduler's __syncthreads. K7 keeps one launch per
+// anti-diagonal, one 128-thread block per MB of the diagonal.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "intra16.cuh"
+#include "mb_dataflow.cuh"
 
 namespace {
 
@@ -49,40 +55,68 @@ struct Levels {
   int32_t *dc, *ac, *cdc, *cac;
 };
 
-__global__ void __launch_bounds__(384)
-i16_diag_kernel(const uint8_t* __restrict__ ysrc,
-                const uint8_t* __restrict__ cbsrc,
-                const uint8_t* __restrict__ crsrc,
-                const int32_t* __restrict__ modes,
-                const int32_t* __restrict__ cmodes, uint8_t* yrec,
-                uint8_t* cbrec, uint8_t* crrec, Levels lv, int wmb, int nmb,
-                int d, int r0, int qp, int qpc, QpTab luma, QpTab chroma) {
-  const int r = r0 + blockIdx.x, c = d - r;
-  const int mb = r * wmb + c, W = wmb * 16;
-  const int x0 = c * 16, y0 = r * 16;
-  const bool top_ok = r > 0, left_ok = c > 0;
-  const int t = threadIdx.x;
-  __shared__ int top[16], left[16], corner;
+struct Frame {
+  const uint8_t *ysrc, *cbsrc, *crsrc;  // (H, W), (H/2, W/2)
+  const int32_t *modes, *cmodes;        // (nmb,)
+  uint8_t *yrec, *cbrec, *crrec;        // written in the launch: no __ldg
+  Levels lv;
+  int wmb, nmb, qp, qpc;
+  QpTab luma, chroma;
+};
+
+constexpr int kThreads = 384;
+
+__global__ void __launch_bounds__(kThreads)
+i16_kernel(Frame f, Dataflow df) {
+  __shared__ __align__(16) uint8_t s_src[256];     // the source MB's luma
+  __shared__ __align__(16) uint8_t s_csrc[2][64];  // and its Cb, Cr
+  __shared__ int top[16], left[16], corner, s_mode, s_cmode, s_mb;
   __shared__ I16Scratch ls;
   __shared__ ChromaScratch cs;
-  if (t < 256) {
-    if (t < 16) {
-      top[t] = top_ok ? yrec[(y0 - 1) * W + x0 + t] : -1;
-    } else if (t < 32) {
-      left[t - 16] = left_ok ? yrec[(y0 + t - 16) * W + x0 - 1] : -1;
-    } else if (t == 32) {
-      corner = top_ok && left_ok ? yrec[(y0 - 1) * W + x0 - 1] : -1;
+  const int t = threadIdx.x;
+  const int W = f.wmb * 16, Wc = f.wmb * 8;
+
+  for (;;) {
+    const int mb = dataflow_next(df, &s_mb);
+    if (mb < 0) return;
+    const int r = mb / f.wmb, c = mb - r * f.wmb;
+    const int x0 = c * 16, y0 = r * 16;
+    const bool top_ok = r > 0, left_ok = c > 0;
+
+    // ---- before the wait: the source MB and its modes (read-only) --------
+    if (t >= 32 && t < 48) {  // warp 1: a luma row of 16 each
+      const int i = t - 32;
+      cp_async16(s_src + 16 * i, f.ysrc + (size_t)(y0 + i) * W + x0);
+    } else if (t >= 256 && t < 272) {  // warp 8: a chroma row of 8 each
+      const int p = (t - 256) >> 3, i = (t - 256) & 7;
+      cp_async8(&s_csrc[p][8 * i], (p ? f.crsrc : f.cbsrc) + (size_t)(8 * r + i) * Wc + 8 * c);
+    } else if (t == 64) {
+      s_mode = __ldg(f.modes + mb);
+      s_cmode = __ldg(f.cmodes + mb);
     }
-    group_sync(1, 256);
-    const int v = i16_luma_mb(top, left, corner, left_ok, top_ok, modes[mb],
-                              ysrc + y0 * W + x0, W, qp, luma, ls,
-                              lv.dc ? lv.dc + mb * 16 : nullptr,
-                              lv.ac ? lv.ac + mb * 240 : nullptr, t, 1);
-    yrec[(y0 + (t >> 4)) * W + x0 + (t & 15)] = (uint8_t)v;
-  } else {
-    chroma_mb(cbsrc, crsrc, cbrec, crrec, wmb * 8, r, c, cmodes[mb], qpc, chroma,
-              cs, lv.cdc ? lv.cdc + mb * 4 : nullptr,
-              lv.cac ? lv.cac + mb * 60 : nullptr, nmb, t - 256, 2);
+    cp_async_wait_all();
+    dataflow_wait<kIntraSet>(df, r, c, f.wmb);  // left, top, top-left
+
+    // ---- after the wait: code the MB --------------------------------------
+    if (t < 256) {
+      if (t < 16) {
+        top[t] = top_ok ? f.yrec[(size_t)(y0 - 1) * W + x0 + t] : -1;
+      } else if (t < 32) {
+        left[t - 16] = left_ok ? f.yrec[(size_t)(y0 + t - 16) * W + x0 - 1] : -1;
+      } else if (t == 32) {
+        corner = top_ok && left_ok ? f.yrec[(size_t)(y0 - 1) * W + x0 - 1] : -1;
+      }
+      group_sync(1, 256);
+      const int v = i16_luma_mb(top, left, corner, left_ok, top_ok, s_mode, s_src, 16,
+                                f.qp, f.luma, ls, f.lv.dc ? f.lv.dc + mb * 16 : nullptr,
+                                f.lv.ac ? f.lv.ac + mb * 240 : nullptr, t, 1);
+      f.yrec[(size_t)(y0 + (t >> 4)) * W + x0 + (t & 15)] = (uint8_t)v;
+    } else {
+      chroma_mb(s_csrc[0], s_csrc[1], 8, f.cbrec, f.crrec, Wc, r, c, s_cmode, f.qpc,
+                f.chroma, cs, f.lv.cdc ? f.lv.cdc + mb * 4 : nullptr,
+                f.lv.cac ? f.lv.cac + mb * 60 : nullptr, f.nmb, t - 256, 2);
+    }
+    dataflow_publish(df, mb);
   }
 }
 
@@ -94,8 +128,9 @@ chroma_diag_kernel(const uint8_t* __restrict__ cbsrc,
                    QpTab chroma) {
   const int r = r0 + blockIdx.x, c = d - r;
   __shared__ ChromaScratch cs;
-  chroma_mb(cbsrc, crsrc, cbrec, crrec, wmb * 8, r, c, cmodes[r * wmb + c], qpc,
-            chroma, cs, nullptr, nullptr, 0, threadIdx.x, 1);
+  const size_t o = (size_t)(8 * r) * (wmb * 8) + 8 * c;  // the MB's top-left sample
+  chroma_mb(cbsrc + o, crsrc + o, wmb * 8, cbrec, crrec, wmb * 8, r, c,
+            cmodes[r * wmb + c], qpc, chroma, cs, nullptr, nullptr, 0, threadIdx.x, 1);
 }
 
 // qtab: 6 ints of one QP, LEVEL_QUANTIZE then LEVEL_SCALE, in QpTab order
@@ -125,33 +160,45 @@ int launch_diagonals(int wmb, int hmb, Launch launch, int* launched) {
   return 0;
 }
 
+// K1 and K1t: one launch of i16_kernel, *launched 1 when accepted.
 int launch_i16(const uint8_t* ysrc, const uint8_t* cbsrc, const uint8_t* crsrc,
                const int32_t* modes, const int32_t* cmodes, uint8_t* yrec,
-               uint8_t* cbrec, uint8_t* crrec, Levels lv, int wmb, int hmb,
-               int qp, int qpc, const int* qtab, cudaStream_t stream,
-               int* launched) {
-  const QpTab luma = make_tab(qtab), chroma = make_tab(qtab + 6);
-  return launch_diagonals(wmb, hmb, [&](int d, int r0, int n) {
-    i16_diag_kernel<<<n, 384, 0, stream>>>(ysrc, cbsrc, crsrc, modes, cmodes,
-                                           yrec, cbrec, crrec, lv, wmb,
-                                           wmb * hmb, d, r0, qp, qpc, luma,
-                                           chroma);
-  }, launched);
+               uint8_t* cbrec, uint8_t* crrec, Levels lv, const int32_t* order,
+               int32_t* sched, int wmb, int hmb, int qp, int qpc, const int* qtab,
+               int blocks, cudaStream_t stream, int* launched) {
+  *launched = 0;
+  const int nmb = wmb * hmb;
+  const Frame f{ysrc, cbsrc, crsrc, modes, cmodes, yrec, cbrec, crrec, lv,
+                wmb, nmb, qp, qpc, make_tab(qtab), make_tab(qtab + 6)};
+  const Dataflow df{order, sched, nmb};
+  const int grid = dataflow_grid(i16_kernel, kThreads, 0, nmb, blocks);
+  if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
+  i16_kernel<<<grid, kThreads, 0, stream>>>(f, df);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  *launched = 1;
+  return 0;
 }
 
 }  // namespace
 
-// K1: reconstructs a whole all-I16 frame (luma and chroma). qtab: 12 ints,
-// LEVEL_QUANTIZE / LEVEL_SCALE of qp (6), then of qpc (6).
+// K1: reconstructs a whole all-I16 frame (luma and chroma) in one launch
+// on `stream`: a persistent grid of `blocks` blocks (0: as many as fit on
+// the card; at most nmb) taking the MBs in the diagonal order `order`
+// (nmb,) through the dataflow scratch `sched` (nmb + 1 int32, zeroed).
+// ysrc must be 16-byte and cbsrc / crsrc 8-byte aligned. qtab: 12 ints,
+// LEVEL_QUANTIZE / LEVEL_SCALE of qp (6), then of qpc (6). *launched gets
+// 1 when the launch was accepted. Returns its CUDA error (0 when accepted).
 extern "C" int wavefront_i16_frame(const uint8_t* ysrc, const uint8_t* cbsrc,
                                    const uint8_t* crsrc, const int32_t* modes,
                                    const int32_t* cmodes, uint8_t* yrec,
-                                   uint8_t* cbrec, uint8_t* crrec, int wmb,
+                                   uint8_t* cbrec, uint8_t* crrec,
+                                   const int32_t* order, int32_t* sched, int wmb,
                                    int hmb, int qp, int qpc, const int* qtab,
-                                   cudaStream_t stream, int* launched) {
+                                   int blocks, cudaStream_t stream, int* launched) {
   return launch_i16(ysrc, cbsrc, crsrc, modes, cmodes, yrec, cbrec, crrec,
-                    Levels{nullptr, nullptr, nullptr, nullptr}, wmb, hmb, qp,
-                    qpc, qtab, stream, launched);
+                    Levels{nullptr, nullptr, nullptr, nullptr}, order, sched, wmb,
+                    hmb, qp, qpc, qtab, blocks, stream, launched);
 }
 
 // K1t: K1 that also writes every MB's levels as they leave the quantiser
@@ -162,11 +209,11 @@ extern "C" int wavefront_i16_frame_levels(
     const uint8_t* ysrc, const uint8_t* cbsrc, const uint8_t* crsrc,
     const int32_t* modes, const int32_t* cmodes, uint8_t* yrec, uint8_t* cbrec,
     uint8_t* crrec, int32_t* i16dc, int32_t* ac, int32_t* cdc, int32_t* cac,
-    int wmb, int hmb, int qp, int qpc, const int* qtab, cudaStream_t stream,
-    int* launched) {
+    const int32_t* order, int32_t* sched, int wmb, int hmb, int qp, int qpc,
+    const int* qtab, int blocks, cudaStream_t stream, int* launched) {
   return launch_i16(ysrc, cbsrc, crsrc, modes, cmodes, yrec, cbrec, crrec,
-                    Levels{i16dc, ac, cdc, cac}, wmb, hmb, qp, qpc, qtab,
-                    stream, launched);
+                    Levels{i16dc, ac, cdc, cac}, order, sched, wmb, hmb, qp, qpc,
+                    qtab, blocks, stream, launched);
 }
 
 // K7: reconstructs the intra chroma of a frame, the chroma half of K1 (the

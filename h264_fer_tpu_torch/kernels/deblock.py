@@ -3,12 +3,15 @@
 `deblock_frame` is the wrapper of the CUDA kernel csrc/deblock.cu, which
 replaces the XLA loop deblock_frame_device_impl
 (h264_fer_tpu/kernels/deblock_tpu.py:204, fori_loop at :289). On a CUDA
-tensor it launches the kernel (one launch per MB knight wave d = 2r + c)
-or raises; on a CPU tensor it runs `deblock_frame_plain`, the same loop in
-plain PyTorch: per wave, gather every MB's 20x20 luma and 12x12 Cb / Cr
-windows, filter the 4 vertical and then the 4 horizontal edges, scatter
-the windows back. Both equal the norm's per-MB raster order (8.7), which
-the JAX package's host filter codec/loopfilter.deblock_frame runs.
+tensor it launches the kernel (one launch per frame: a persistent grid
+takes the MBs in knight order and starts each as soon as its left, top,
+top-right and top-left neighbours are filtered, kernels/dataflow.py) or
+raises; on a CPU tensor it runs `deblock_frame_plain`, the same function
+in plain PyTorch, one step per knight wave d = 2r + c: gather every MB's
+20x20 luma and 12x12 Cb / Cr windows, filter the 4 vertical and then the
+4 horizontal edges, scatter the windows back. Both equal the norm's per-MB
+raster order (8.7), which the JAX package's host filter
+codec/loopfilter.deblock_frame runs.
 
 `bs_maps` is _bs_maps (deblock_tpu.py:45-102): every edge's bS from the
 syntax state before filtering.
@@ -23,7 +26,7 @@ import torch.nn.functional as F
 from ..ops.deblock import ALPHA, BETA, TC0
 from ..ops.device import const
 from ..ops.tables import RASTER_TO_LUMA_BLOCK
-from . import build
+from . import build, dataflow
 from .wavefront_i4x4 import knight_waves
 
 I32 = torch.int32
@@ -162,13 +165,15 @@ def deblock_frame_plain(y, cb, cr, mb_intra, nz_luma, mv, qp: int, qpc: int):
     return yp[4:, 4:].to(u8), cp[0, 4:, 4:].to(u8), cp[1, 4:, 4:].to(u8)
 
 
-def deblock_frame(y, cb, cr, mb_intra, nz_luma, mv, qp: int, qpc: int):
+def deblock_frame(y, cb, cr, mb_intra, nz_luma, mv, qp: int, qpc: int, *, blocks=None):
     """K8: filter a reconstructed frame. y (H, W), cb / cr (H/2, W/2) uint8;
     mb_intra (nmb,) bool, nz_luma (nmb, 16) bool (Z-scan blocks), mv
     (nmb, 4, 2) int32 quadrant MVs; qp / qpc the luma and chroma QP.
     Returns the filtered uint8 planes (the inputs themselves when nothing
     can change at these QPs). CUDA tensors go to the kernel, CPU tensors
-    to deblock_frame_plain."""
+    to deblock_frame_plain. blocks: the kernel's grid size (None: as many
+    blocks as fit on the card at once); any size gives the same result."""
+    grid = dataflow.check_blocks(blocks)
     if y.device.type == "cpu":
         return deblock_frame_plain(y, cb, cr, mb_intra, nz_luma, mv, qp, qpc)
     if y.device.type != "cuda":
@@ -189,12 +194,15 @@ def deblock_frame(y, cb, cr, mb_intra, nz_luma, mv, qp: int, qpc: int):
         return y, cb, cr
     tab = np.array([v for a, b, tc0 in (_edge_params(qp), _edge_params(qpc))
                     for v in (a, b, *tc0)], dtype=np.int32)
+    # the kernel filters in place and moves its rows in 16- and 8-byte words:
+    # fresh copies are aligned
     out = (y.clone(), cb.clone(), cr.clone())
+    order, sched = dataflow.schedule(dataflow.knight_order(wmb, hmb), dev)
     build.launch(deblock_frame, "deblock", "deblock_frame",
-                 (*out, mb_intra, nz_luma, mv, wmb, hmb, tab), dev)
+                 (*out, mb_intra, nz_luma, mv, order, sched, wmb, hmb, tab, grid), dev)
     return out
 
 
-# kernel launches so far, as counted by the C launch loop (one per
-# accepted knight-wave launch)
+# kernel launches so far, as counted by the C entry point (one per accepted
+# launch, one per filtered frame)
 deblock_frame.launches = 0

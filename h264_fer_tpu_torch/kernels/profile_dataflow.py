@@ -1,16 +1,19 @@
-"""Phase profile of the one-launch wavefronts K4 and K6 on the card:
+"""Phase profile of the one-launch wavefronts K4, K6, K8 and K1t on the
+card:
 
     python3 -m h264_fer_tpu_torch.kernels.profile_dataflow
 
 run from the root of the checkout (it takes its inputs from chip_smoke.py:
-1920x1088, QP 28). It copies csrc/ into h264_fer_tpu_torch/_build/, adds
-clock64 stamps (thread 0 of each block, summed over the MBs) between the
-phases of each MB and globaltimer stamps per MB (wait start, wait end,
-publish), builds the copies with nvcc apart from the package's libraries,
-checks their outputs against the real kernels, and prints per kernel: the
-mean cycles per MB of each phase, the flag hop (wait end after the last
-neighbour's publish) and the time per knight diagonal of the critical
-path. The stamps cost time of their own: the phase split, not the total,
+1920x1088, QP 28; K8 on the session encoder's P-frame state). It copies
+csrc/ into h264_fer_tpu_torch/_build/, adds clock64 stamps (thread 0 of
+each block unless named, summed over the MBs) between the phases of each
+MB and globaltimer stamps per MB (wait start, wait end, publish), builds
+the copies with nvcc apart from the package's libraries, checks their
+outputs against the real kernels, and prints per kernel: the mean cycles
+per MB of each phase, the flag hop (wait end after the last waited
+neighbour's publish) and the time per step of the critical path (a knight
+diagonal d = c + 2r for K4, K6 and K8, an anti-diagonal d = r + c for
+K1t). The stamps cost time of their own: the phase split, not the total,
 is what it measures.
 """
 
@@ -95,6 +98,46 @@ K6_PHASES = {0: "ticket", 1: "prefetch", 2: "wait", 3: "neighbour state",
              10: "outputs", 20: "I16 candidate (thread 0)",
              21: "I4x4 candidate (thread 256)", 22: "I4x4 and its sizes (thread 256)"}
 
+K8_STAMPS = [
+    ("  for (;;) {\n", "  for (;;) {\n    long long _pt = clock64();\n"),
+    ("    if (mb < 0) return;\n", "    if (mb < 0) return;\n    PROF(0)\n"),
+    ("    dataflow_wait(df, r, c, wmb);  // left, top, top-right, top-left\n",
+     "    PROF(1) TS(0)\n    dataflow_wait(df, r, c, wmb);  // left, top, top-right, top-left\n"
+     "    PROF(2) TS(1)\n"),
+    ("      // vertical edges left to right", "      PROF(3)\n      // vertical edges left to right"),
+    ("      // ---- write back what the filter can change",
+     "      PROF(4)\n      // ---- write back what the filter can change"),
+    ("    dataflow_publish(df, mb);\n  }\n}\n",
+     "    dataflow_publish(df, mb);\n    PROF(5) TS(2) if (threadIdx.x == 0) atomicAdd(&g_prof[31], 1ull);\n"
+     "  }\n}\n"),
+]
+K8_PHASES = {0: "ticket", 1: "own samples and bS", 2: "wait", 3: "luma strip loads",
+             4: "8 luma edge steps", 5: "write-back, chroma, publish"}
+
+K1T_STAMPS = [
+    ("  for (;;) {\n", "  for (;;) {\n    long long _pt = clock64();\n"),
+    ("    if (mb < 0) return;\n", "    if (mb < 0) return;\n    PROF(0)\n"),
+    ("    dataflow_wait<kIntraSet>(df, r, c, f.wmb);  // left, top, top-left\n",
+     "    PROF(1) TS(0)\n    dataflow_wait<kIntraSet>(df, r, c, f.wmb);  // left, top, top-left\n"
+     "    PROF(2) TS(1)\n    long long _c = clock64();\n"),
+    ("      group_sync(1, 256);\n      const int v = i16_luma_mb(",
+     "      group_sync(1, 256);\n      PROF(3)\n      const int v = i16_luma_mb("),
+    ("      f.yrec[(size_t)(y0 + (t >> 4)) * W + x0 + (t & 15)] = (uint8_t)v;\n",
+     "      f.yrec[(size_t)(y0 + (t >> 4)) * W + x0 + (t & 15)] = (uint8_t)v;\n      PROF(4)\n"),
+    ("                f.lv.cac ? f.lv.cac + mb * 60 : nullptr, f.nmb, t - 256, 2);\n",
+     "                f.lv.cac ? f.lv.cac + mb * 60 : nullptr, f.nmb, t - 256, 2);\n"
+     "      if (t == 256) atomicAdd(&g_prof[20], (unsigned long long)(clock64() - _c));\n"),
+    ("    dataflow_publish(df, mb);\n  }\n}\n",
+     "    dataflow_publish(df, mb);\n    PROF(5) TS(2) if (threadIdx.x == 0) atomicAdd(&g_prof[31], 1ull);\n"
+     "  }\n}\n"),
+]
+K1T_PHASES = {0: "ticket", 1: "source and modes land", 2: "wait", 3: "neighbour loads",
+              4: "luma code and store", 5: "wait for chroma, publish",
+              20: "chroma code and store (thread 256)"}
+
+FOUR = ((0, -1), (-1, 0), (-1, 1), (-1, -1))  # left, top, top-right, top-left
+I16_SET = ((0, -1), (-1, 0), (-1, -1))         # left, top, top-left
+
 
 def instrumented(name: str, stamps) -> ctypes.CDLL:
     """csrc/<name>.cu with `stamps` applied, built into PROF_DIR."""
@@ -130,7 +173,8 @@ def call(lib, symbol: str, args) -> None:
         raise RuntimeError(f"{symbol}: CUDA error {err}")
 
 
-def report(lib, label: str, wmb: int, hmb: int, phases: dict, run) -> None:
+def report(lib, label: str, wmb: int, hmb: int, phases: dict, run, neighbours=FOUR,
+           dr: int = 2) -> None:
     run()
     lib.prof_reset()
     torch.cuda.synchronize()
@@ -152,23 +196,26 @@ def report(lib, label: str, wmb: int, hmb: int, phases: dict, run) -> None:
     hops = []
     for mb in range(nmb):
         r, c = divmod(mb, wmb)
-        deps = [(r + dr) * wmb + c + dc for dr, dc in ((0, -1), (-1, 0), (-1, 1), (-1, -1))
-                if r + dr >= 0 and 0 <= c + dc < wmb]
+        deps = [(r + nr) * wmb + c + nc for nr, nc in neighbours
+                if r + nr >= 0 and 0 <= c + nc < wmb]
         last = max((pub[d] for d in deps), default=-1)
         if last > wait_start[mb]:
             hops.append(wait_end[mb] - last)
     hops = np.array(hops)
-    d = np.array([mb % wmb + 2 * (mb // wmb) for mb in range(nmb)])
+    d = np.array([mb % wmb + dr * (mb // wmb) for mb in range(nmb)])
     step = np.diff([pub[d == k].max() for k in range(d.max() + 1)])
     print(f"  flag hop ns: median {np.median(hops):.0f}, p90 {np.percentile(hops, 90):.0f} "
           f"({hops.size} MBs waited); wait end to publish ns: median "
-          f"{np.median(pub - wait_end):.0f}; per knight diagonal ns: median "
-          f"{np.median(step):.0f}", flush=True)
+          f"{np.median(pub - wait_end):.0f}; per {'knight' if dr == 2 else 'anti-'}diagonal "
+          f"ns: median {np.median(step):.0f}", flush=True)
 
 
 def main() -> int:
     import chip_smoke as cs  # the checkout's root is on sys.path under -m
-    from .wavefront_i16 import qtab
+    from ..codec.encoder import Encoder, EncoderConfig
+    from ..ops.transform import chroma_qp
+    from .deblock import _edge_params, deblock_frame
+    from .wavefront_i16 import i16_frame, qtab
     from .wavefront_i4x4 import PRED4_TABLE
     from .wavefront_mixed import KEYS, TABLES, mixed_luma
     from ..ops.device import const
@@ -192,7 +239,7 @@ def main() -> int:
              torch.empty((nmb, 4, 2), dtype=torch.int32, device=dev),
              torch.empty((nmb, 4, 2), dtype=torch.int32, device=dev),
              torch.empty(nmb, dtype=torch.int32, device=dev)]
-        order, sched = dataflow.schedule(wmb, hmb, dev)
+        order, sched = dataflow.schedule(dataflow.knight_order(wmb, hmb), dev)
         call(lib4, "wavefront_p_frame", (*a[:9], *o, order, sched, 16 * wmb, hmb, window,
                                          ext, metric, lam, 0))
         return dict(zip(("skip", "mb_type", "mv", "mvd"), o))
@@ -209,7 +256,7 @@ def main() -> int:
 
     def k6():
         out = {k: torch.empty_like(want[k]) for k in KEYS}
-        order, sched = dataflow.schedule(wmb, hmb, dev)
+        order, sched = dataflow.schedule(dataflow.knight_order(wmb, hmb), dev)
         call(lib6, "wavefront_mixed_frame",
              (*m[:6], const(TABLES, dev), const(PRED4_TABLE, dev), *(out[k] for k in KEYS),
               order, sched, wmb, hmb, cs.QP, qtab(cs.QP), 0))
@@ -219,6 +266,44 @@ def main() -> int:
     if not all(torch.equal(got[k], want[k]) for k in KEYS):
         raise AssertionError("profiled K6 != K6")
     report(lib6, f"K6 {cs.W}x{cs.H} qp{cs.QP}", wmb, hmb, K6_PHASES, k6)
+
+    enc = Encoder(cs.W, cs.H, EncoderConfig(qp=cs.QP), device=dev)
+    for f in cs.content(2, cs.W, cs.H):
+        enc.encode_frame(*f)
+    state = cs.encoder_state(enc)  # the P frame's, as chip_smoke's K8 timing
+    want = deblock_frame(*state, cs.QP, chroma_qp(cs.QP))
+    tab = np.array([v for a, b, tc0 in (_edge_params(cs.QP), _edge_params(chroma_qp(cs.QP)))
+                    for v in (a, b, *tc0)], dtype=np.int32)
+    lib8 = instrumented("deblock", K8_STAMPS)
+
+    def k8():
+        out = tuple(p.clone() for p in state[:3])
+        order, sched = dataflow.schedule(dataflow.knight_order(wmb, hmb), dev)
+        call(lib8, "deblock_frame", (*out, *state[3:], order, sched, wmb, hmb, tab, 0))
+        return out
+
+    if not all(torch.equal(g, w) for g, w in zip(k8(), want)):
+        raise AssertionError("profiled K8 != K8")
+    report(lib8, f"K8 {cs.W}x{cs.H} qp{cs.QP} P state", wmb, hmb, K8_PHASES, k8)
+
+    y, cb, cr = frame
+    # the I16 modes and chroma modes of mixed_inputs
+    m16, cm = (t.to(torch.int32).contiguous() for t in (m[1], m[3]))
+    want = i16_frame(y, cb, cr, m16, cm, cs.QP, chroma_qp(cs.QP))
+    lib1 = instrumented("wavefront_i16", K1T_STAMPS)
+
+    def k1t():
+        out = [torch.empty_like(t) for t in want]
+        order, sched = dataflow.schedule(dataflow.diagonal_order(wmb, hmb), dev)
+        call(lib1, "wavefront_i16_frame_levels",
+             (y, cb, cr, m16, cm, out[0], out[3], out[4], out[1], out[2], out[5], out[6],
+              order, sched, wmb, hmb, cs.QP, chroma_qp(cs.QP),
+              np.concatenate([qtab(cs.QP), qtab(chroma_qp(cs.QP))]), 0))
+        return out
+
+    if not all(torch.equal(g, w) for g, w in zip(k1t(), want)):
+        raise AssertionError("profiled K1t != K1t")
+    report(lib1, f"K1t {cs.W}x{cs.H} qp{cs.QP}", wmb, hmb, K1T_PHASES, k1t, I16_SET, 1)
     return 0
 
 

@@ -31,7 +31,8 @@ BINDING = r"""
 extern "C" int wavefront_i16_frame(const uint8_t*, const uint8_t*,
                                    const uint8_t*, const int32_t*,
                                    const int32_t*, uint8_t*, uint8_t*,
-                                   uint8_t*, int, int, int, int, const int*,
+                                   uint8_t*, const int32_t*, int32_t*, int,
+                                   int, int, int, const int*, int,
                                    cudaStream_t, int*);
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {

@@ -5,13 +5,15 @@ its levels (K1t), its chroma half (K7), and their levels.
 replaces the Pallas kernel _i16_recon_kernel_body
 (h264_fer_tpu/kernels/wavefront_pallas.py:890, via
 pallas_i16_frame_fast_impl at :1170). On a CUDA tensor it launches the
-kernel (one launch per MB anti-diagonal) or raises; on a CPU tensor it runs
-`i16_recon_plain`, the same function in plain PyTorch: a Python loop over
-the diagonals with vector ops over the MBs of each.
+kernel (one launch per frame: a persistent grid takes the MBs in
+anti-diagonal order and starts each as soon as its left, top and top-left
+neighbours are coded, kernels/dataflow.py) or raises; on a CPU tensor it
+runs `i16_recon_plain`, the same function in plain PyTorch: a Python loop
+over the diagonals with vector ops over the MBs of each.
 
 `i16_frame` (K1t) replaces the Pallas kernel _i16_kernel_body
 (wavefront_pallas.py:173, via pallas_i16_frame at :437) and returns its
-tuple: on a CUDA tensor one launch of K1's wavefront that also writes the
+tuple: on a CUDA tensor one launch of K1's kernel that also writes the
 levels (the C entry point wavefront_i16_frame_levels); on a CPU tensor
 `i16_frame_plain`, plain K1 then `i16_levels_from_recon`, which rebuilds
 the levels from the finished reconstruction in one batched pass, as
@@ -39,7 +41,7 @@ from ..ops import intra, transform
 from ..ops.device import const
 from ..ops.tables import INTRA4X4_SCAN_ORDER_XY, LEVEL_QUANTIZE, LEVEL_SCALE
 from ..ops.tiles import blocks_mb, chroma_blocks, chroma_mb, mb_blocks, neighbours, to_mbs
-from . import build
+from . import build, dataflow
 
 # Z-scan block → its column / row in the MB's 4x4 grid of blocks
 _ZX = (INTRA4X4_SCAN_ORDER_XY[:, 0] // 4).astype(np.int64)
@@ -167,25 +169,39 @@ def _check_planes(y, cb, cr, modes, cmodes):
     return wmb, hmb
 
 
-def i16_recon(y, cb, cr, modes, cmodes, qp: int, qpc: int):
+def _launch_i16(wrapper, symbol, y, cb, cr, modes, cmodes, levels, qp, qpc, blocks):
+    """One launch of the K1 / K1t kernel (C entry point `symbol`) on CUDA
+    tensors; returns the uint8 recon planes. levels: the four int32 level
+    arrays K1t writes, () for K1."""
+    wmb, hmb = _check_planes(y, cb, cr, modes, cmodes)
+    for name, t, align in (("y", y, 16), ("cb", cb, 8), ("cr", cr, 8)):
+        if t.data_ptr() % align:
+            raise ValueError(f"{name}: the kernel copies its rows in {align}-byte chunks")
+    ry, rcb, rcr = torch.empty_like(y), torch.empty_like(cb), torch.empty_like(cr)
+    order, sched = dataflow.schedule(dataflow.diagonal_order(wmb, hmb), y.device)
+    build.launch(wrapper, "wavefront_i16", symbol,
+                 (y, cb, cr, modes, cmodes, ry, rcb, rcr, *levels, order, sched, wmb,
+                  hmb, qp, qpc, np.concatenate([qtab(qp), qtab(qpc)]), blocks), y.device)
+    return ry, rcb, rcr
+
+
+def i16_recon(y, cb, cr, modes, cmodes, qp: int, qpc: int, *, blocks=None):
     """K1: reconstruct an all-I16 frame. y (H, W), cb/cr (H/2, W/2) uint8;
     modes/cmodes (nmb,) int32 Intra16x16 and chroma modes. Returns the
     uint8 recon planes. CUDA tensors go to the kernel, CPU tensors to
-    i16_recon_plain."""
+    i16_recon_plain. blocks: the kernel's grid size (None: as many blocks
+    as fit on the card at once); any size gives the same result."""
+    grid = dataflow.check_blocks(blocks)
     if y.device.type == "cpu":
         return i16_recon_plain(y, cb, cr, modes, cmodes, qp, qpc)
     if y.device.type != "cuda":
         raise ValueError(f"unsupported device {y.device}")
-    wmb, hmb = _check_planes(y, cb, cr, modes, cmodes)
-    ry, rcb, rcr = torch.empty_like(y), torch.empty_like(cb), torch.empty_like(cr)
-    build.launch(i16_recon, "wavefront_i16", "wavefront_i16_frame",
-                 (y, cb, cr, modes, cmodes, ry, rcb, rcr, wmb, hmb, qp, qpc,
-                  np.concatenate([qtab(qp), qtab(qpc)])), y.device)
-    return ry, rcb, rcr
+    return _launch_i16(i16_recon, "wavefront_i16_frame", y, cb, cr, modes, cmodes, (),
+                       qp, qpc, grid)
 
 
-# kernel launches so far, as counted by the C launch loop (one per
-# accepted anti-diagonal launch)
+# kernel launches so far, as counted by the C entry point (one per accepted
+# launch, one per frame)
 i16_recon.launches = 0
 
 
@@ -205,7 +221,8 @@ def chroma_recon(cb, cr, cmodes, qpc: int):
     return rcb, rcr
 
 
-# kernel launches so far, counted as i16_recon's
+# kernel launches so far, as counted by the C launch loop (one per
+# accepted anti-diagonal launch)
 chroma_recon.launches = 0
 
 
@@ -247,26 +264,25 @@ def i16_frame_plain(y, cb, cr, modes, cmodes, qp: int, qpc: int):
     return ry, i16dc, ac, rcb, rcr, cdc, cac
 
 
-def i16_frame(y, cb, cr, modes, cmodes, qp: int, qpc: int):
+def i16_frame(y, cb, cr, modes, cmodes, qp: int, qpc: int, *, blocks=None):
     """K1t: (recon_y, i16dc, ac, recon_cb, recon_cr, cdc, cac), the tuple of
     pallas_i16_frame (and of pallas_i16_frame_fast_impl), recon planes as
     uint8. CUDA tensors go to the kernel, which writes the levels as it
     reconstructs (the C entry point wavefront_i16_frame_levels); CPU
-    tensors to i16_frame_plain."""
+    tensors to i16_frame_plain. blocks: as i16_recon's."""
+    grid = dataflow.check_blocks(blocks)
     if y.device.type == "cpu":
         return i16_frame_plain(y, cb, cr, modes, cmodes, qp, qpc)
     if y.device.type != "cuda":
         raise ValueError(f"unsupported device {y.device}")
-    wmb, hmb = _check_planes(y, cb, cr, modes, cmodes)
-    nmb, dev, i32 = wmb * hmb, y.device, torch.int32
-    ry, rcb, rcr = torch.empty_like(y), torch.empty_like(cb), torch.empty_like(cr)
-    i16dc = torch.empty((nmb, 16), dtype=i32, device=dev)
-    ac = torch.empty((nmb, 16, 15), dtype=i32, device=dev)
-    cdc = torch.empty((2, nmb, 4), dtype=i32, device=dev)
-    cac = torch.empty((2, nmb, 4, 15), dtype=i32, device=dev)
-    build.launch(i16_frame, "wavefront_i16", "wavefront_i16_frame_levels",
-                 (y, cb, cr, modes, cmodes, ry, rcb, rcr, i16dc, ac, cdc, cac,
-                  wmb, hmb, qp, qpc, np.concatenate([qtab(qp), qtab(qpc)])), dev)
+    nmb, dev, i32 = modes.numel(), y.device, torch.int32
+    levels = (torch.empty((nmb, 16), dtype=i32, device=dev),
+              torch.empty((nmb, 16, 15), dtype=i32, device=dev),
+              torch.empty((2, nmb, 4), dtype=i32, device=dev),
+              torch.empty((2, nmb, 4, 15), dtype=i32, device=dev))
+    ry, rcb, rcr = _launch_i16(i16_frame, "wavefront_i16_frame_levels", y, cb, cr, modes,
+                               cmodes, levels, qp, qpc, grid)
+    i16dc, ac, cdc, cac = levels
     return ry, i16dc, ac, rcb, rcr, cdc, cac
 
 

@@ -210,7 +210,7 @@ def mixed_luma(y, mode16, mode4, cmode, cbp_c, chroma_bits, qp: int, *,
            "rem_modes": torch.empty((nmb, 16), dtype=I32, device=dev),
            "cbp_luma": torch.empty(nmb, dtype=I32, device=dev),
            "tc_luma": torch.empty((nmb, 16), dtype=I32, device=dev)}
-    order, sched = dataflow.schedule(wmb, hmb, dev)
+    order, sched = dataflow.schedule(dataflow.knight_order(wmb, hmb), dev)
     build.launch(mixed_luma, "wavefront_mixed", "wavefront_mixed_frame",
                  (*args, const(TABLES, dev), const(PRED4_TABLE, dev),
                   *(out[k] for k in KEYS), order,

@@ -329,7 +329,7 @@ def pframe_decide(src_y, planes, int_map, c1mv, q1map, c2mv, q2map, q2ok,
     mv = torch.empty((nmb, 4, 2), dtype=I32, device=dev)
     mvd = torch.empty((nmb, 4, 2), dtype=I32, device=dev)
     state_t = torch.empty(nmb, dtype=I32, device=dev)
-    order, sched = dataflow.schedule(wmb, hmb, dev)
+    order, sched = dataflow.schedule(dataflow.knight_order(wmb, hmb), dev)
     build.launch(pframe_decide, "wavefront_p", "wavefront_p_frame",
                  (*args, skip, mb_type, mv, mvd, state_t, order, sched, w, hmb,
                   window, ext, metric_id, lam, grid), dev)

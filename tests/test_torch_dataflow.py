@@ -1,38 +1,45 @@
-"""The one-launch dataflow schedule of K4 and K6 (kernels/dataflow.py,
-csrc/mb_dataflow.cuh) and the diagonal schedule of the Intra_4x4 MB body
-(csrc/intra4x4.cuh), on the CPU.
+"""The one-launch dataflow schedules (kernels/dataflow.py,
+csrc/mb_dataflow.cuh) of K4, K6, K8 and K1 / K1t, and the diagonal schedule
+of the Intra_4x4 MB body (csrc/intra4x4.cuh), on the CPU.
 
-The kernels hand out MBs by ticket in `knight_order` and make each wait for
-its left, top, top-right and top-left neighbours. Here: the order is a
-permutation in which every such neighbour comes first, it is the order of
-the waves the plain twins iterate over, a grid of any size finishes under
-it, and coding an MB's 4x4 blocks as the kernel does (10 steps t = i + 2j,
+K4, K6 and K8 hand out MBs by ticket in `knight_order` and make each wait
+for its left, top, top-right and top-left neighbours; K1 and K1t hand them
+out in `diagonal_order` and wait on left, top and top-left only. Here: each
+order is a permutation in which every waited neighbour comes first, it is
+the order of the waves the plain twins iterate over, and a grid of any size
+finishes under it. Coded MB by MB in random orders that respect the wait
+set, K8 (in a per-MB Python form of the kernel) and the plain K1 give the
+plain twins' planes; K8 run before its top-right neighbour does not, and
+no MB with an earlier ticket writes into the samples K8 loads before its
+wait. Coding an MB's 4x4 blocks as the kernel does (10 steps t = i + 2j,
 two blocks at once, each sample predicted from three cells through the
-packed Intra4x4 table) gives i4x4_mb_code's result. The kernels themselves are held
-against the plain twins on the card by chip_smoke.py."""
+packed Intra4x4 table) gives i4x4_mb_code's result. The kernels themselves
+are held against the plain twins on the card by chip_smoke.py."""
 
 import numpy as np
 import pytest
 import torch
 
-from h264_fer_tpu_torch.kernels import dataflow, wavefront_mixed, wavefront_p
+from h264_fer_tpu_torch.kernels import deblock, dataflow, wavefront_i16, wavefront_mixed, wavefront_p
 from h264_fer_tpu_torch.kernels.wavefront_i4x4 import i4x4_mb_code, knight_waves
 from h264_fer_tpu_torch.ops import intra, transform
+from h264_fer_tpu_torch.ops.transform import chroma_qp
 
 torch.set_num_threads(1)
 
 GRIDS = [(1, 1), (1, 9), (11, 1), (4, 13), (11, 9), (120, 68)]  # (wmb, hmb)
 NEIGHBOURS = ((0, -1), (-1, 0), (-1, 1), (-1, -1))  # left, top, top-right, top-left
+I16_NEIGHBOURS = ((0, -1), (-1, 0), (-1, -1))  # left, top, top-left
 
 
 def _ids(grid):
     return f"{grid[0]}x{grid[1]}"
 
 
-def _deps(wmb, hmb, mb):
+def _deps(wmb, hmb, mb, neighbours=NEIGHBOURS):
     """Raster indices of the existing neighbours MB mb waits on."""
     r, c = divmod(mb, wmb)
-    return [(r + dr) * wmb + c + dc for dr, dc in NEIGHBOURS
+    return [(r + dr) * wmb + c + dc for dr, dc in neighbours
             if r + dr >= 0 and 0 <= c + dc < wmb]
 
 
@@ -103,24 +110,82 @@ def test_order_is_the_plain_k4_waves(grid, monkeypatch):
     assert [mb for wave in waves for mb in wave] == dataflow.knight_order(wmb, hmb).tolist()
 
 
-@pytest.mark.parametrize("blocks", [1, 3, 61, None])
-@pytest.mark.parametrize("grid", [(11, 9), (120, 68)], ids=_ids)
-def test_any_grid_size_finishes(grid, blocks):
-    """The persistent grid as a game: `blocks` blocks (None: one per MB)
-    hold a ticket each, taking the next one in order when they finish; at
-    every turn one block whose MB has all its neighbours done, chosen at
-    random, finishes it. Some block can always move until every MB is
-    done: no deadlock."""
+@pytest.mark.parametrize("grid", GRIDS, ids=_ids)
+def test_diagonal_order_is_a_permutation(grid):
     wmb, hmb = grid
+    order = dataflow.diagonal_order(wmb, hmb)
+    assert order.dtype == np.int32 and order.shape == (wmb * hmb,)
+    np.testing.assert_array_equal(np.sort(order), np.arange(wmb * hmb))
+    assert not order.flags.writeable
+    ticket = np.empty_like(order)
+    ticket[order] = np.arange(order.size)
+    for mb in range(wmb * hmb):
+        for n in _deps(wmb, hmb, mb, I16_NEIGHBOURS):
+            assert ticket[n] < ticket[mb], (mb, n)
+
+
+@pytest.mark.parametrize("grid", GRIDS, ids=_ids)
+def test_diagonal_order_is_the_plain_k1_waves(grid, monkeypatch):
+    """The diagonals i16_recon_plain asks _diagonals for, concatenated (the
+    generator is recorded and the loop body skipped)."""
+    wmb, hmb = grid
+    waves = []
+    inner = wavefront_i16._diagonals
+
+    def recorded(*args):
+        waves.extend(mb.tolist() for _, _, mb in inner(*args))
+        return iter(())
+
+    monkeypatch.setattr(wavefront_i16, "_diagonals", recorded)
     nmb = wmb * hmb
-    order = dataflow.knight_order(wmb, hmb).tolist()
-    rng = np.random.default_rng(blocks)
-    waits = [len(_deps(wmb, hmb, mb)) for mb in range(nmb)]
+    y = torch.zeros((16 * hmb, 16 * wmb), dtype=torch.uint8)
+    c = torch.zeros((8 * hmb, 8 * wmb), dtype=torch.uint8)
+    zeros = torch.zeros(nmb, dtype=torch.int32)
+    wavefront_i16.i16_recon_plain(y, c, c, zeros, zeros, 28, 28)
+    assert [mb for wave in waves for mb in wave] == dataflow.diagonal_order(wmb, hmb).tolist()
+
+
+@pytest.mark.parametrize("grid", GRIDS, ids=_ids)
+def test_order_is_the_plain_k8_waves(grid, monkeypatch):
+    """The knight waves deblock_frame_plain iterates over, concatenated."""
+    wmb, hmb = grid
+    waves = []
+
+    def recorded(*args):
+        waves.extend(mb.tolist() for _, _, mb in knight_waves(*args))
+        return iter(())
+
+    monkeypatch.setattr(deblock, "knight_waves", recorded)
+    nmb = wmb * hmb
+    y = torch.zeros((16 * hmb, 16 * wmb), dtype=torch.uint8)
+    c = torch.zeros((8 * hmb, 8 * wmb), dtype=torch.uint8)
+    deblock.deblock_frame_plain(y, c, c, torch.ones(nmb, dtype=torch.bool),
+                                torch.zeros((nmb, 16), dtype=torch.bool),
+                                torch.zeros((nmb, 4, 2), dtype=torch.int32), 30, 30)
+    assert [mb for wave in waves for mb in wave] == dataflow.knight_order(wmb, hmb).tolist()
+
+
+def _play(wmb, hmb, order, blocks, neighbours, take=None, finish=None, seed=None):
+    """The persistent grid as a game: `blocks` blocks (None: one per MB)
+    hold a ticket each, taking the next one in `order` when they finish; at
+    every turn one block whose MB has all its neighbours done, chosen at
+    random, finishes it. Fails if no block can move before every MB is
+    done: a deadlock. take(mb) / finish(mb), where given, run when a block
+    takes MB mb's ticket (its work before the wait) and when it finishes
+    the MB (its work after the wait)."""
+    nmb = wmb * hmb
+    order = order.tolist()
+    rng = np.random.default_rng(blocks if seed is None else seed)
+    take = take or (lambda mb: None)
+    finish = finish or (lambda mb: None)
+    waits = [len(_deps(wmb, hmb, mb, neighbours)) for mb in range(nmb)]
     waiters = [[] for _ in range(nmb)]
     for mb in range(nmb):
-        for n in _deps(wmb, hmb, mb):
+        for n in _deps(wmb, hmb, mb, neighbours):
             waiters[n].append(mb)
     held = set(order[:nmb if blocks is None else blocks])
+    for mb in order[:len(held)]:
+        take(mb)
     nxt = len(held)
     ready = [mb for mb in held if waits[mb] == 0]
     done = 0
@@ -129,6 +194,7 @@ def test_any_grid_size_finishes(grid, blocks):
         k = int(rng.integers(len(ready)))
         ready[k], ready[-1] = ready[-1], ready[k]
         mb = ready.pop()
+        finish(mb)
         held.remove(mb)
         done += 1
         for w in waiters[mb]:
@@ -139,9 +205,27 @@ def test_any_grid_size_finishes(grid, blocks):
             new = order[nxt]
             nxt += 1
             held.add(new)
+            take(new)
             if waits[new] == 0:
                 ready.append(new)
     assert done == nmb
+
+
+@pytest.mark.parametrize("blocks", [1, 3, 61, None])
+@pytest.mark.parametrize("grid", [(11, 9), (120, 68)], ids=_ids)
+def test_any_grid_size_finishes(grid, blocks):
+    """The game of _play in knight order under the four-neighbour set (K4,
+    K6, K8): no deadlock."""
+    wmb, hmb = grid
+    _play(wmb, hmb, dataflow.knight_order(wmb, hmb), blocks, NEIGHBOURS)
+
+
+@pytest.mark.parametrize("blocks", [1, 3, 61, None])
+@pytest.mark.parametrize("grid", [(11, 9), (120, 68)], ids=_ids)
+def test_any_grid_size_finishes_in_diagonal_order(grid, blocks):
+    """The same game in diagonal order under the I16 wait set (K1, K1t)."""
+    wmb, hmb = grid
+    _play(wmb, hmb, dataflow.diagonal_order(wmb, hmb), blocks, I16_NEIGHBOURS)
 
 
 def test_blocks_argument():
@@ -162,6 +246,279 @@ def test_blocks_argument():
                                             one, one, one, 28)
     for key in wavefront_mixed.KEYS:
         assert torch.equal(got[key], want[key]), key
+
+
+def test_blocks_argument_k1_k1t_k8():
+    """K1, K1t and K8 refuse a bad grid size on any device; on CPU tensors
+    a valid one changes nothing: the plain twin runs."""
+    rng = np.random.default_rng(5)
+    y = torch.from_numpy(rng.integers(0, 256, (32, 48)).astype(np.uint8))
+    cb, cr = (torch.from_numpy(rng.integers(0, 256, (16, 24)).astype(np.uint8))
+              for _ in range(2))
+    modes = torch.from_numpy(rng.integers(0, 4, 6).astype(np.int32))
+    state = (torch.from_numpy(rng.random(6) < 0.5), torch.from_numpy(rng.random((6, 16)) < 0.5),
+             torch.from_numpy(rng.integers(-8, 9, (6, 4, 2)).astype(np.int32)))
+    calls = [(wavefront_i16.i16_recon, wavefront_i16.i16_recon_plain, (y, cb, cr, modes, modes, 28, 28)),
+             (wavefront_i16.i16_frame, wavefront_i16.i16_frame_plain, (y, cb, cr, modes, modes, 28, 28)),
+             (deblock.deblock_frame, deblock.deblock_frame_plain, (y, cb, cr, *state, 36, 34))]
+    for fn, plain, args in calls:
+        for bad in (0, -2, 2.0, "3"):
+            with pytest.raises(ValueError):
+                fn(*args, blocks=bad)
+        want = plain(*args)
+        for blocks in (1, 3, None):
+            got = fn(*args, blocks=blocks)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), fn.__name__
+
+
+def _mb_frame(rng, w, h):
+    """Planes of flat 8x8 patches with low noise, so that most edges pass
+    the alpha / beta test, as int64 arrays."""
+    base = rng.integers(40, 200, (h // 8, w // 8))
+    y = np.kron(base, np.ones((8, 8), np.int64)) + rng.integers(-6, 7, (h, w))
+    c = np.kron(base[::2, ::2], np.ones((8, 8), np.int64)) + rng.integers(-4, 5, (h // 2, w // 2))
+    return [np.clip(p, 0, 255) for p in (y, c, 255 - c)]
+
+
+def _inter_state(w, h, seed):
+    """Planes and random P-frame state with every bS 0-4."""
+    rng = np.random.default_rng(seed)
+    nmb = (w // 16) * (h // 16)
+    mv = rng.integers(-3, 4, (nmb, 1, 2)) * 2 + rng.integers(-2, 3, (nmb, 4, 2))
+    return (_mb_frame(rng, w, h), rng.random(nmb) < 0.15, rng.random((nmb, 16)) < 0.3,
+            mv.astype(np.int32))
+
+
+def _filter_line(w, i, st, bs, tab, chroma):
+    """The function of csrc/deblock.cu's filter_luma (chroma False) and
+    filter_chroma (True), one edge line of the flat window w in place: q0
+    at w[i], p_k at w[i - (k + 1) st], q_k at w[i + k st]."""
+    if bs == 0:
+        return
+    alpha, beta, tc0s = tab
+    p0, p1, p2, p3 = (w[i - k * st] for k in (1, 2, 3, 4))
+    q0, q1, q2, q3 = (w[i + k * st] for k in (0, 1, 2, 3))
+    if not (abs(p0 - q0) < alpha and abs(p1 - p0) < beta and abs(q1 - q0) < beta):
+        return
+    ap, aq = abs(p2 - p0) < beta, abs(q2 - q0) < beta
+    if bs < 4:
+        tc0 = tc0s[bs - 1]
+        tc = tc0 + 1 if chroma else tc0 + ap + aq
+        delta = min(max(((q0 - p0) * 4 + (p1 - q1) + 4) >> 3, -tc), tc)
+        w[i - st], w[i] = min(max(p0 + delta, 0), 255), min(max(q0 - delta, 0), 255)
+        if not chroma:
+            avg = (p0 + q0 + 1) >> 1
+            if ap:
+                w[i - 2 * st] = p1 + min(max((p2 + avg - p1 * 2) >> 1, -tc0), tc0)
+            if aq:
+                w[i + st] = q1 + min(max((q2 + avg - q1 * 2) >> 1, -tc0), tc0)
+        return
+    strong = not chroma and abs(p0 - q0) < (alpha >> 2) + 2
+    if strong and ap:
+        w[i - st] = (p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3
+        w[i - 2 * st] = (p2 + p1 + p0 + q0 + 2) >> 2
+        w[i - 3 * st] = (2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3
+    else:
+        w[i - st] = (2 * p1 + p0 + q1 + 2) >> 2
+    if strong and aq:
+        w[i] = (q2 + 2 * q1 + 2 * q0 + 2 * p0 + p1 + 4) >> 3
+        w[i + st] = (q2 + q1 + q0 + p0 + 2) >> 2
+        w[i + 2 * st] = (2 * q3 + 3 * q2 + q1 + q0 + p0 + 4) >> 3
+    else:
+        w[i] = (2 * q1 + q0 + p1 + 2) >> 2
+
+
+def _k8_writes(wmb, mb):
+    """The samples csrc/deblock.cu writes back for MB mb, as (plane, y, x):
+    its own MB, the top MB's bottom 3 luma rows and 1 chroma row, the left
+    MB's right 3 luma columns and 1 chroma column."""
+    r, c = divmod(mb, wmb)
+    out = set()
+    for p, n, k in ((0, 16, 3), (1, 8, 1), (2, 8, 1)):
+        y0, x0 = n * r, n * c
+        out |= {(p, y0 + i, x0 + j) for i in range(n) for j in range(n)}
+        if r > 0:
+            out |= {(p, y0 - 1 - i, x0 + j) for i in range(k) for j in range(n)}
+        if c > 0:
+            out |= {(p, y0 + i, x0 - 1 - j) for i in range(n) for j in range(k)}
+    return out
+
+
+def _own(wmb, mb):
+    """MB mb's own luma and chroma samples, as (plane, y, x)."""
+    r, c = divmod(mb, wmb)
+    return {(p, n * r + i, n * c + j) for p, n in ((0, 16), (1, 8), (2, 8))
+            for i in range(n) for j in range(n)}
+
+
+class _K8PerMb:
+    """csrc/deblock.cu one MB at a time, in Python, on int planes filtered in
+    place: take(mb) is the work before the wait (the MB's own samples, which
+    it keeps), finish(mb) the work after it (the strips its neighbours
+    write, the 8 edge steps, the write-back). Checks that the filter
+    changes no window sample the write-back leaves out."""
+
+    def __init__(self, planes, state, qp):
+        self.planes = [p.copy() for p in planes]
+        h, w = planes[0].shape
+        self.wmb = w // 16
+        bs_v, bs_h = deblock.bs_maps(*(torch.from_numpy(a) for a in state), w // 16, h // 16)
+        self.bs = np.stack([bs_v.numpy(), bs_h.numpy()], 1)  # (nmb, dir, edge, group)
+        self.tabs = [(a, b, [int(t) for t in tc0])
+                     for a, b, tc0 in (deblock._edge_params(qp), deblock._edge_params(chroma_qp(qp)))]
+        self.own = {}
+
+    def _window(self, p, mb, n):
+        """(y, x) of the (n + 4)^2 window of plane p around MB mb, row-major."""
+        r, c = divmod(mb, self.wmb)
+        return [(n * r - 4 + i, n * c - 4 + j) for i in range(n + 4) for j in range(n + 4)]
+
+    def take(self, mb):
+        r, c = divmod(mb, self.wmb)
+        self.own[mb] = [self.planes[p][n * r: n * r + n, n * c: n * c + n].copy()
+                        for p, n in ((0, 16), (1, 8), (2, 8))]
+
+    def finish(self, mb):
+        wins = []
+        for p, n in ((0, 16), (1, 8), (2, 8)):
+            pos = self._window(p, mb, n)
+            win = [int(self.planes[p][y, x]) if y >= 0 and x >= 0 else 0 for y, x in pos]
+            own = self.own.pop(mb)[p] if p == 2 else self.own[mb][p]
+            for i in range(n):  # the interior from what take() loaded
+                win[(4 + i) * (n + 4) + 4: (4 + i) * (n + 4) + 4 + n] = own[i].tolist()
+            wins.append((p, n, pos, win, list(win)))
+        bs = self.bs[mb]
+        for step in range(8):
+            d, e = divmod(step, 4)
+            for t in range(16):
+                i = (4 + 4 * e) * 20 + 4 + t if d else (4 + t) * 20 + 4 + 4 * e
+                _filter_line(wins[0][3], i, 20 if d else 1, int(bs[d, e, t >> 2]),
+                             self.tabs[0], False)
+            if e % 2 == 0:
+                for k in (1, 2):
+                    for j in range(8):
+                        i = (4 + 2 * e) * 12 + 4 + j if d else (4 + j) * 12 + 4 + 2 * e
+                        _filter_line(wins[k][3], i, 12 if d else 1, int(bs[d, e, j >> 1]),
+                                     self.tabs[1], True)
+        writes = _k8_writes(self.wmb, mb)
+        for p, n, pos, win, loaded in wins:
+            for (y, x), v, v0 in zip(pos, win, loaded):
+                if (p, y, x) in writes:
+                    self.planes[p][y, x] = v
+                else:
+                    assert v == v0, f"MB {mb} changed ({p}, {y}, {x}) outside its write-back"
+
+
+K8_CASES = [((176, 144), 30), ((64, 208), 38), ((16, 144), 34), ((176, 16), 34)]
+
+
+def _k8_ids(case):
+    return f"{case[0][0]}x{case[0][1]}_qp{case[1]}"
+
+
+def _k8_plain(planes, state, qp):
+    got = deblock.deblock_frame_plain(
+        *(torch.from_numpy(p.astype(np.uint8)) for p in planes),
+        *(torch.from_numpy(a) for a in state), qp, chroma_qp(qp))
+    return [g.numpy().astype(np.int64) for g in got]
+
+
+@pytest.mark.parametrize("case", K8_CASES, ids=_k8_ids)
+def test_k8_per_mb_in_any_order_the_wait_set_allows(case):
+    """K8 MB by MB, each loading its own samples when it takes its ticket
+    and the rest when its four neighbours are done, in the random orders
+    the persistent grid can run (3 blocks, 16 blocks, one per MB; knight
+    tickets), gives deblock_frame_plain's planes."""
+    (w, h), qp = case
+    planes, *state = _inter_state(w, h, w + h + qp)
+    want = _k8_plain(planes, state, qp)
+    assert any((p != q).any() for p, q in zip(planes, want))  # the filter is at work
+    wmb, hmb = w // 16, h // 16
+    for blocks in (3, 16, None):
+        k8 = _K8PerMb(planes, state, qp)
+        _play(wmb, hmb, dataflow.knight_order(wmb, hmb), blocks, NEIGHBOURS,
+              k8.take, k8.finish, seed=qp)
+        for p, q in zip(k8.planes, want):
+            np.testing.assert_array_equal(p, q)
+
+
+@pytest.mark.parametrize("case", K8_CASES[:2], ids=_k8_ids)
+def test_k8_before_its_top_right_neighbour_differs(case):
+    """The mutant that shows the top-right wait is needed: MBs run one by one
+    along each anti-diagonal from the bottom, so every MB (r, c) runs before
+    (r - 1, c + 1), whose left edge writes the p samples of its top edge."""
+    (w, h), qp = case
+    planes, *state = _inter_state(w, h, w + h + qp)
+    wmb, hmb = w // 16, h // 16
+    r, c = np.divmod(np.arange(wmb * hmb), wmb)
+    k8 = _K8PerMb(planes, state, qp)
+    for mb in np.lexsort((-r, r + c)):
+        k8.take(int(mb))
+        k8.finish(int(mb))
+    want = _k8_plain(planes, state, qp)
+    assert any((p != q).any() for p, q in zip(k8.planes, want))
+
+
+@pytest.mark.parametrize("grid", GRIDS[:5], ids=_ids)
+def test_k8_prefetch_rule(grid):
+    """What K8 loads before its wait, its own MB, no MB with an earlier
+    knight ticket writes, and every other MB that writes into it waits on
+    it: so the samples are final when the MB takes its ticket."""
+    wmb, hmb = grid
+    order = dataflow.knight_order(wmb, hmb)
+    ticket = np.empty_like(order)
+    ticket[order] = np.arange(order.size)
+    owner = {}
+    for mb in range(wmb * hmb):
+        for s in _own(wmb, mb):
+            owner[s] = mb
+    for n in range(wmb * hmb):
+        for m in {owner[s] for s in _k8_writes(wmb, n)} - {n}:
+            assert ticket[m] < ticket[n], (n, m)
+            assert m in _deps(wmb, hmb, n), (n, m)
+
+
+@pytest.mark.parametrize("wh", [(176, 144), (64, 208)], ids=["qcif", "64x208"])
+def test_k1_per_mb_in_any_order_the_i16_wait_set_allows(wh):
+    """The plain K1 coded MB by MB in orders that wait on left, top and
+    top-left only, never on top-right (the persistent grid's random orders
+    with 3 blocks and one per MB in diagonal tickets, and each diagonal from
+    the bottom, every MB before its top-right neighbour), equals
+    i16_recon_plain: the I16 wait set suffices."""
+    w, h = wh
+    rng = np.random.default_rng(w + h)
+    wmb, hmb = w // 16, h // 16
+    nmb = wmb * hmb
+    planes = [torch.from_numpy(p.astype(np.uint8)) for p in _mb_frame(rng, w, h)]
+    modes, cmodes = (torch.from_numpy(rng.integers(0, 4, nmb).astype(np.int32))
+                     for _ in range(2))
+    qp = 28
+    want = wavefront_i16.i16_recon_plain(*planes, modes, cmodes, qp, chroma_qp(qp))
+    ysrc = wavefront_i16.to_mbs(planes[0].to(torch.int32), 16)
+    csrc = torch.stack([wavefront_i16.to_mbs(p.to(torch.int32), 8) for p in planes[1:]])
+    r_, c_ = np.divmod(np.arange(nmb), wmb)
+    orders = [None, 3, np.lexsort((-r_, r_ + c_))]
+    for how in orders:
+        ypad = wavefront_i16._recon_planes(1, h, w, "cpu")
+        cpad = wavefront_i16._recon_planes(2, h // 2, w // 2, "cpu")
+
+        def code(mb):
+            r, c = (torch.tensor([v]) for v in divmod(mb, wmb))
+            m = torch.tensor([mb])
+            wavefront_i16._step(ypad, r, c, 16, lambda p: wavefront_i16._i16_luma_code(
+                ysrc[m], p[0], modes[m], qp)[0][None])
+            wavefront_i16._step(cpad, r, c, 8, lambda p: wavefront_i16._chroma_code(
+                csrc[:, m], p, cmodes[m], chroma_qp(qp))[0])
+
+        if isinstance(how, np.ndarray):
+            for mb in how:
+                code(int(mb))
+        else:
+            _play(wmb, hmb, dataflow.diagonal_order(wmb, hmb), how, I16_NEIGHBOURS,
+                  finish=code, seed=7)
+        got = (ypad[0, 1:, 1:], cpad[0, 1:, 1:], cpad[1, 1:, 1:])
+        for g, x in zip(got, want):
+            assert torch.equal(g.to(torch.uint8), x)
 
 
 def _i4x4_in_steps(src, modes, nb, qp):
