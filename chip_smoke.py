@@ -34,7 +34,7 @@ Phases (any failure exits non-zero and prints no result line):
      limit (K4 also with its grid forced to 1 and to 3 blocks), and flat
      content where every score ties, and on a tall 64x208 and a one-MB-wide
      16x144 content pair; time kernel and plain at QP 28, holding every
-     timed K4 call to the plain output;
+     timed call to the plain output;
   5. drive the IPPP main path: GopIpppEncoder(1920, 1088, 28, gop_len=8)
      encodes 16 frames with the launch counts set to 0 just before; the
      stream of the first GOP's first 4 frames (the IDR and 3 P frames) must
@@ -44,21 +44,25 @@ Phases (any failure exits non-zero and prints no result line):
      headers; a QCIF IPPP stream from the card must equal the CPU path's.
      Prints e2e fps, device ms per P frame for each stage and the counted
      launches (one K1t per IDR, one K4 per P frame);
-  6. hold K4x4 (Intra_4x4 recon), K7 (chroma wavefront) and K6 (mixed
-     arbitration wavefront) against their plain twins on the card,
-     bit-exact on every output: at 1920x1088 for QP 8, 28 and 46 in the
-     decided modes of a content frame (printing the I4x4 MB count of each K6
-     check; at QP 28 it must lie strictly between 0 and the MB count), on
-     QCIF, 80x176 and one-MB-wide 16x176 grids with random Intra4x4 modes
-     in every block (on QCIF K6 also with its grid forced to 1 and to 3
-     blocks), and on a tall 64x208 grid (hmb > wmb) where both classes win.
-     K4x4 lies on no encode path, as its Pallas original: its path is one
-     i4x4_luma call on the 1080p frame at QP 28, with its count set to 0
-     just before. Times kernels and plain twins at QP 28, holding every
-     timed K4x4 and K6 call to the plain output;
+  6. hold K4x4 (Intra_4x4 recon), K7 (chroma wavefront writing its
+     levels, one dataflow launch per frame) and K6 (mixed arbitration
+     wavefront) against their plain twins on the card, bit-exact on every
+     output (K7: recon planes and both level arrays from chroma_frame,
+     and the recon planes from chroma_recon): at 1920x1088 for QP
+     8, 28 and 46 in the decided modes of a content frame (printing the
+     I4x4 MB count of each K6 check; at QP 28 it must lie strictly between
+     0 and the MB count), on QCIF, 80x176, one-MB-wide 16x176 and
+     one-MB-tall 176x16 grids with random Intra4x4 modes in every block (on
+     QCIF K7 and K6 also with their grids forced to 1 and to 3 blocks), and
+     on a tall 64x208 grid (hmb > wmb) where both classes win (grids forced
+     likewise). K4x4 lies on no encode path, as its Pallas original: its
+     path is one i4x4_luma call on the 1080p frame at QP 28, with its count
+     set to 0 just before. Times kernels and plain twins at QP 28, holding
+     every timed call to the plain output;
   7. drive the mixed all-intra path: GopIntraEncoder(1920, 1088, 28,
      mode="mixed") encodes 8 frames with the launch counts set to 0 just
-     before (one K6 and 187 K7 launches per frame, no K1 or K1t); the first
+     before (one K6 and one K7 launch per frame, no K1 or K1t, and no
+     rebuild of the chroma levels from the recon); the first
      frame's stream must equal, byte for byte, the stream of the plain
      chain on the card, and the whole stream parse back; a QCIF mixed stream
      from the card must equal the CPU path's. Prints e2e fps, device ms of
@@ -94,6 +98,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 
@@ -579,7 +584,8 @@ def p_work(torch, args, outs) -> dict:
     """{kernel: (bytes, int32 operations)} that each of K2-K5's functions
     needs on these inputs: each input sample it reads counted once, each
     output once. Operations per sample difference 3 (subtract, abs or
-    multiply, add)."""
+    multiply, add); K3's in packed bytes, 2 per 4 samples (a per-byte
+    absolute difference, a 4-way dot product that sums it or its square)."""
     y, plane0, _, window, _ = args["me_int"]
     h, w = y.shape
     nb, nmb = (h // 8) * (w // 8), (h // 16) * (w // 16)
@@ -596,7 +602,7 @@ def p_work(torch, args, outs) -> dict:
         "me_int": (nbytes(y, plane0, outs["me_int"]), nb * S2 * 64 * 3),
         "me_qpel": (nbytes(y, c1, c2_blk, *outs["me_qpel"])
                     + qpel_reads(torch, y, planes, (c1, c2_blk), ext),
-                    2 * nb * 49 * 64 * 3),
+                    2 * nb * 49 * 16 * 2),
         # skip test 256 x (sub, abs, compare); 4 x 387 candidate costs of 8
         # (2 sub, 2 abs, add, mul, add, compare); a unify trial 4 x 256 x 3
         "wavefront_p": (nbytes(d[0], *d[2:9], *kernel_outputs(dec))
@@ -617,7 +623,7 @@ def check_p_kernels(torch, label, ref, src, prev_mv, qp, mc_mv=None,
     prev_mv: the previous frame's MVs (nmb, 4, 2); mc_mv: MVs for K5 (the
     plain decision's when None); blocks: grid sizes to force on K4 in
     further checks. Returns {kernel: (max_abs_err, ms, plain_ms, bound_ms,
-    bound_by)} (times None unless time_it; every timed K4 call is held to
+    bound_by)} (times None unless time_it; every timed call is held to
     the plain output too) and the plain decision."""
     from h264_fer_tpu_torch.kernels.wavefront_p import pframe_decide
 
@@ -641,8 +647,8 @@ def check_p_kernels(torch, label, ref, src, prev_mv, qp, mc_mv=None,
         ms = plain_ms = None
         if time_it:
             def check(o, name=name, want=want):
-                if name == "wavefront_p" and max_err(torch, kernel_outputs(o), want):
-                    raise AssertionError(f"K4 != plain in a timed call at {label} qp{qp}")
+                if max_err(torch, kernel_outputs(o), want):
+                    raise AssertionError(f"{name} != plain in a timed call at {label} qp{qp}")
             ms = cuda_ms(torch, lambda: kern[name](*a), 20, check)
             plain_ms = cuda_ms(torch, lambda: plain[name](*a), 1)
         bound_ms, bound_by = bound(*work[name])
@@ -798,22 +804,14 @@ def tall_frame():
             rng.integers(0, 256, (h // 2, w // 2)).astype(np.uint8))
 
 
-def plain_chroma(cb, cr, cmodes, qpc):
-    """Plain K7 and its levels: (rcb, rcr, cdc, cac)."""
-    from h264_fer_tpu_torch.kernels.wavefront_i16 import (chroma_levels_from_recon,
-                                                          chroma_recon_plain)
-
-    rcb, rcr = chroma_recon_plain(cb, cr, cmodes, qpc)
-    return (rcb, rcr, *chroma_levels_from_recon(cb, cr, rcb, rcr, cmodes, qpc))
-
-
-def mixed_inputs(torch, frame, qp, chroma=plain_chroma):
+def mixed_inputs(torch, frame, qp, chroma=None):
     """The mixed frame's stages up to K6 on one frame (y, cb, cr) on a
     device: returns (decision dict, chroma modes, chroma levels (cdc, cac),
-    K6's arguments). chroma: K7 and its levels as a callable (cb, cr,
-    cmodes, qpc) → (rcb, rcr, cdc, cac); the plain twin's by default."""
+    K6's arguments). chroma: K7 as a callable (cb, cr, cmodes, qpc) →
+    (rcb, rcr, cdc, cac); chroma_frame_plain by default."""
     from h264_fer_tpu_torch.codec.entropy import chroma_setup
     from h264_fer_tpu_torch.codec.intra_decision import intra_mode_decision
+    from h264_fer_tpu_torch.kernels.wavefront_i16 import chroma_frame_plain
     from h264_fer_tpu_torch.ops.intra import INTRA16_TO_CHROMA_MODE
     from h264_fer_tpu_torch.ops.transform import chroma_qp
 
@@ -821,7 +819,7 @@ def mixed_inputs(torch, frame, qp, chroma=plain_chroma):
     h, w = y.shape
     dec = intra_mode_decision(y.to(torch.int32), qp)
     cm = torch.from_numpy(INTRA16_TO_CHROMA_MODE).to(y.device)[dec["mode16"].long()]
-    _, _, cdc, cac = chroma(cb, cr, cm, chroma_qp(qp))
+    _, _, cdc, cac = (chroma or chroma_frame_plain)(cb, cr, cm, chroma_qp(qp))
     ch = chroma_setup(cdc, cac, w // 16, h // 16)
     return dec, cm, (cdc, cac), (y, dec["mode16"], dec["mode4"], cm,
                                  ch["cbp_chroma"], ch["bits"], qp)
@@ -841,16 +839,18 @@ def mixed_payload(dec, cm, cdc, cac, mx):
 
 def check_mixed_kernels(torch, label, frame, qp, mode4=None, time_it=False,
                         blocks=()):
-    """K7, K4x4 and K6 kernel vs plain twin on one frame (y, cb, cr) on the
-    card, each fed the plain chain's inputs: the decided modes, or Intra4x4
-    modes mode4 in their place; blocks: grid sizes to force on K6 in
-    further checks. Returns ({kernel: (max_abs_err, ms, plain_ms, bound_ms,
-    bound_by)} (times None unless time_it; every timed K4x4 and K6 call is
-    held to the plain output too), the I4x4 MB count of K6, K4x4's launches
-    in its own path run when time_it, and the plain chain's slice payload
-    of the frame)."""
+    """K7 (recon and levels), K4x4 and K6 kernel vs plain twin on one frame
+    (y, cb, cr) on the card, each fed the plain chain's inputs: the decided
+    modes, or Intra4x4 modes mode4 in their place; blocks: grid sizes to
+    force on K7 and K6 in further checks. K7 runs both ways, with its
+    levels (chroma_frame) and recon only (chroma_recon). Returns ({kernel:
+    (max_abs_err, ms, plain_ms, bound_ms, bound_by)} (times None unless
+    time_it; every timed call is held to the plain output too), the I4x4
+    MB count of K6, K4x4's launches in its own path run when time_it, and
+    the plain chain's slice payload of the frame)."""
     from h264_fer_tpu_torch.kernels.wavefront_i4x4 import i4x4_luma, i4x4_luma_plain
-    from h264_fer_tpu_torch.kernels.wavefront_i16 import chroma_recon, chroma_recon_plain
+    from h264_fer_tpu_torch.kernels.wavefront_i16 import (chroma_frame, chroma_frame_plain,
+                                                          chroma_recon)
     from h264_fer_tpu_torch.kernels.wavefront_mixed import (KEYS, TABLES, mixed_luma,
                                                             mixed_luma_plain)
     from h264_fer_tpu_torch.ops.transform import chroma_qp
@@ -868,21 +868,28 @@ def check_mixed_kernels(torch, label, frame, qp, mode4=None, time_it=False,
     if time_it:
         k4_launches = i4x4_luma.launches
     got6 = mixed_luma(*args)
-    got7 = chroma_recon(cb, cr, cm, qpc)
+    got7 = chroma_frame(cb, cr, cm, qpc)
+    got7r = chroma_recon(cb, cr, cm, qpc)
     want4, plain4_ms = timed_once(torch, lambda: i4x4_luma_plain(y, m4, qp))
     want6, plain6_ms = timed_once(torch, lambda: mixed_luma_plain(*args))
-    want7, plain7_ms = timed_once(torch, lambda: chroma_recon_plain(cb, cr, cm, qpc))
+    want7, plain7_ms = timed_once(torch, lambda: chroma_frame_plain(cb, cr, cm, qpc))
     def err6(out):
         return max_err(torch, [out[k] for k in KEYS], [want6[k] for k in KEYS])
 
-    errs = {"wavefront_chroma": max_err(torch, got7, want7),
+    errs = {"wavefront_chroma": max(max_err(torch, got7, want7),
+                                    max_err(torch, got7r, want7[:2])),
             "wavefront_i4x4": max_err(torch, got4, want4),
             "wavefront_mixed": err6(got6)}
     for b in blocks:
-        err_b = err6(mixed_luma(*args, blocks=b))
-        print(f"wavefront_mixed {label} qp{qp} grid of {b} blocks: max_abs_err {err_b}",
-              flush=True)
-        errs["wavefront_mixed"] = max(errs["wavefront_mixed"], err_b)
+        for name, err_b in (("wavefront_mixed", err6(mixed_luma(*args, blocks=b))),
+                            ("wavefront_chroma", max_err(torch, chroma_frame(
+                                cb, cr, cm, qpc, blocks=b), want7)),
+                            ("wavefront_chroma recon only", max_err(torch, chroma_recon(
+                                cb, cr, cm, qpc, blocks=b), want7[:2]))):
+            print(f"{name} {label} qp{qp} grid of {b} blocks: max_abs_err {err_b}",
+                  flush=True)
+            key = name.split()[0]
+            errs[key] = max(errs[key], err_b)
     n4 = int(got6["choice4"].sum())
     nmb = got6["choice4"].numel()
     m16n, cmn, m4n = (t.cpu().numpy() for t in (args[1], cm, m4))
@@ -904,7 +911,8 @@ def check_mixed_kernels(torch, label, frame, qp, mode4=None, time_it=False,
             if err6(out):
                 raise AssertionError(f"K6 != plain in a timed call at {label} qp{qp}")
 
-        times = {"wavefront_chroma": (cuda_ms(torch, lambda: chroma_recon(cb, cr, cm, qpc), 20),
+        times = {"wavefront_chroma": (cuda_ms(torch, lambda: chroma_frame(cb, cr, cm, qpc), 20,
+                                              same_as(torch, want7, f"K7 {label} qp{qp}")),
                                       plain7_ms),
                  "wavefront_i4x4": (cuda_ms(torch, lambda: i4x4_luma(y, m4, qp), 20, check4),
                                     plain4_ms),
@@ -939,16 +947,13 @@ def mixed_stage_times(torch, dev, frame):
     """Device ms of each stage of one 1080p mixed frame, CUDA events."""
     from h264_fer_tpu_torch.codec.entropy import chroma_setup, mixed_slice_entropy
     from h264_fer_tpu_torch.codec.intra_decision import intra_mode_decision
-    from h264_fer_tpu_torch.kernels.wavefront_i16 import (chroma_frame,
-                                                          chroma_levels_from_recon,
-                                                          chroma_recon)
+    from h264_fer_tpu_torch.kernels.wavefront_i16 import chroma_frame
     from h264_fer_tpu_torch.kernels.wavefront_mixed import mixed_luma
     from h264_fer_tpu_torch.ops.transform import chroma_qp
 
     qpc = chroma_qp(QP)
     y, cb, cr = (torch.from_numpy(p).to(dev) for p in frame)
     dec, cm, (cdc, cac), args = mixed_inputs(torch, (y, cb, cr), QP, chroma_frame)
-    rcb, rcr = chroma_recon(cb, cr, cm, qpc)
     mx = mixed_luma(*args)
     ent_args = (mx["choice4"], dec["mode16"], cm, *(mx[k] for k in (
         "i16dc", "i16ac", "lv4", "prev_flags", "rem_modes", "cbp_luma", "tc_luma")),
@@ -956,9 +961,7 @@ def mixed_stage_times(torch, dev, frame):
     yi = y.to(torch.int32)
     return {
         "mode_decision": cuda_ms(torch, lambda: intra_mode_decision(yi, QP), 5),
-        "k7_chroma": cuda_ms(torch, lambda: chroma_recon(cb, cr, cm, qpc), 5),
-        "chroma_levels": cuda_ms(torch, lambda: chroma_levels_from_recon(
-            cb, cr, rcb, rcr, cm, qpc), 5),
+        "k7_chroma_levels": cuda_ms(torch, lambda: chroma_frame(cb, cr, cm, qpc), 5),
         "chroma_setup": cuda_ms(torch, lambda: chroma_setup(cdc, cac, W // 16, H // 16), 5),
         "k6_mixed": cuda_ms(torch, lambda: mixed_luma(*args), 5),
         "entropy": cuda_ms(torch, lambda: mixed_slice_entropy(
@@ -1139,8 +1142,9 @@ def main() -> int:
     from h264_fer_tpu_torch.kernels.mc import mc_bulk
     from h264_fer_tpu_torch.kernels.me_int import integer_score_map
     from h264_fer_tpu_torch.kernels.me_qpel import qpel_refine_maps
+    from h264_fer_tpu_torch.kernels import wavefront_i16
     from h264_fer_tpu_torch.kernels.deblock import deblock_frame
-    from h264_fer_tpu_torch.kernels.wavefront_i16 import chroma_recon, i16_frame, i16_recon
+    from h264_fer_tpu_torch.kernels.wavefront_i16 import chroma_frame, i16_frame, i16_recon
     from h264_fer_tpu_torch.kernels.wavefront_mixed import mixed_luma
     from h264_fer_tpu_torch.kernels.wavefront_p import pframe_decide
     from h264_fer_tpu_torch.ops.transform import chroma_qp
@@ -1193,7 +1197,6 @@ def main() -> int:
     stream = enc.encode_sequence(frames)
     e2e_s = [time.perf_counter() - t0]
     launches = i16_frame.launches  # counted by the kernel's C entry point
-    ndiag = W // 16 + H // 16 - 1
     if (launches, i16_recon.launches) != (N_FRAMES, 0):
         raise AssertionError(f"K1t launched {launches} times, K1 {i16_recon.launches}, "
                              f"expected {N_FRAMES} and 0")
@@ -1308,16 +1311,16 @@ def main() -> int:
 
     # ---- 6. K4x4, K7 and K6 kernels vs plain twins ----------------------------
     nwave = W // 16 + 2 * (H // 16 - 1)
-    # random Intra4x4 modes in every block; K6's grid forced to 1 and 3
-    # blocks on QCIF
-    for label, w, h in small + [("16x176", 16, 176)]:
+    # random Intra4x4 modes in every block; K7's and K6's grids forced to 1
+    # and 3 blocks on QCIF (and on 64x208 below)
+    for label, w, h in small + [("16x176", 16, 176), ("176x16", 176, 16)]:
         f = tuple(torch.from_numpy(p).to(dev) for p in content(1, w, h)[0])
         m4 = torch.from_numpy(rng.integers(0, 9, ((w // 16) * (h // 16), 16))
                               .astype(np.int32)).to(dev)
         check_mixed_kernels(torch, f"{label} random modes", f, 30, mode4=m4,
-                            blocks=(1, 3) if w == 176 else ())
+                            blocks=(1, 3) if (w, h) == (176, 144) else ())
     _, n4, _, _ = check_mixed_kernels(torch, "64x208", tuple(
-        torch.from_numpy(p).to(dev) for p in tall_frame()), 30)
+        torch.from_numpy(p).to(dev) for p in tall_frame()), 30, blocks=(1, 3))
     if not 0 < n4 < 52:
         raise AssertionError(f"64x208: {n4} I4x4 MBs; both classes should win")
     frames = content(N_FRAMES, W, H)  # the mixed path's frames
@@ -1339,14 +1342,18 @@ def main() -> int:
     enc = GopIntraEncoder(W, H, QP, mode="mixed", device=dev)
     enc.encode_sequence(frames[:2])  # warm-up: allocator, library loads
     torch.cuda.synchronize()
-    counted = (mixed_luma, chroma_recon, i16_recon, i16_frame)
+    counted = (mixed_luma, chroma_frame, i16_recon, i16_frame)
     for fn in counted:
         fn.launches = 0
-    t0 = time.perf_counter()
-    stream = enc.encode_sequence(frames)
-    e2e_s = [time.perf_counter() - t0]
+    with mock.patch.object(wavefront_i16, "chroma_levels_from_recon",
+                           wraps=wavefront_i16.chroma_levels_from_recon) as rebuilt:
+        t0 = time.perf_counter()
+        stream = enc.encode_sequence(frames)
+        e2e_s = [time.perf_counter() - t0]
     m_launches = {fn.__name__: fn.launches for fn in counted}
-    want = {"mixed_luma": N_FRAMES, "chroma_recon": N_FRAMES * ndiag,
+    if rebuilt.call_count:
+        raise AssertionError("the mixed path rebuilt the chroma levels from the recon")
+    want = {"mixed_luma": N_FRAMES, "chroma_frame": N_FRAMES,
             "i16_recon": 0, "i16_frame": 0}
     if m_launches != want:
         raise AssertionError(f"mixed launches {m_launches}, expected {want}")
@@ -1499,7 +1506,7 @@ def main() -> int:
             ("wavefront_mixed", "h264_fer_tpu/kernels/wavefront_mixed.py:54",
              m_launches["mixed_luma"]),
             ("wavefront_chroma", "h264_fer_tpu/kernels/wavefront.py:222",
-             m_launches["chroma_recon"])):
+             m_launches["chroma_frame"])):
         rows.append((kname, replaces, n, max(mk[q][kname][0] for q in CHECK_QPS),
                      mk[QP][kname][1:]))
     sources = {"wavefront_chroma": "wavefront_i16", "wavefront_i16_levels": "wavefront_i16"}

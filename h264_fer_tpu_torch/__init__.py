@@ -13,7 +13,8 @@ CAVLC on the device → host slice header, payload, EPB.
 
 Mixed all-intra path: GopIntraEncoder(mode="mixed") → codec.iframe.device_mixed_frame
 → the full intra mode decision (Intra16x16 and Intra4x4 modes), K7 (the chroma
-wavefront, csrc/wavefront_i16.cu's wavefront_chroma_frame), chroma setup, K6
+wavefront writing its levels, csrc/wavefront_i16.cu's
+wavefront_chroma_frame_levels), chroma setup, K6
 (the exact I4x4-vs-I16 arbitration wavefront, csrc/wavefront_mixed.cu, whose
 Intra_4x4 MB coding csrc/intra4x4.cuh shares with K4x4,
 csrc/wavefront_i4x4.cu), mixed-slice CAVLC → the same host stitch.

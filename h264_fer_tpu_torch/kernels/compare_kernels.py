@@ -6,10 +6,12 @@ card, in turns (other, this, this, other):
 run from the root of this checkout, OTHER_CHECKOUT being, for example, the
 parent commit unpacked with `git archive`. Each turn is a process of its
 own started in one checkout's root (the two share module names); it builds
-that checkout's kernels, times K4, K6, K4x4, K1t, K1, K7 and K8 (on the
-session encoder's P-frame state) with CUDA events at 1920x1088, QP 28, on
-chip_smoke.py's inputs, and reports a checksum of each kernel's outputs,
-so that the turns also show both checkouts compute the same function.
+that checkout's kernels, times K3, K4, K6, K4x4, K1t, K1, K7 (through
+chroma_frame: recon and levels) and K8 (on the session encoder's P-frame
+state) with CUDA events at 1920x1088, QP 28, on chip_smoke.py's inputs
+(K3 and K4 on the chained P frame), and reports a checksum of each
+kernel's outputs, so that the turns also show both checkouts compute the
+same function.
 Prints one line per turn and one per kernel.
 """
 
@@ -27,7 +29,8 @@ import chip_smoke as cs
 from h264_fer_tpu_torch.kernels.wavefront_p import pframe_decide
 from h264_fer_tpu_torch.kernels.wavefront_mixed import mixed_luma
 from h264_fer_tpu_torch.kernels.wavefront_i4x4 import i4x4_luma
-from h264_fer_tpu_torch.kernels.wavefront_i16 import chroma_recon, i16_frame, i16_recon
+from h264_fer_tpu_torch.kernels.me_qpel import qpel_refine_maps
+from h264_fer_tpu_torch.kernels.wavefront_i16 import chroma_frame, i16_frame, i16_recon
 from h264_fer_tpu_torch.kernels.deblock import deblock_frame
 from h264_fer_tpu_torch.codec.encoder import Encoder, EncoderConfig
 from h264_fer_tpu_torch.ops.transform import chroma_qp
@@ -47,12 +50,13 @@ for f in cs.content(2, cs.W, cs.H):
     enc.encode_frame(*f)
 state = cs.encoder_state(enc)  # the P frame's state before the filter
 runs = {
+    "K3": (lambda: qpel_refine_maps(*args["me_qpel"]), 20),
     "K4": (lambda: pframe_decide(*args["wavefront_p"]), 20),
     "K6": (lambda: mixed_luma(*m), 10),
     "K4x4": (lambda: i4x4_luma(y, m[2], cs.QP), 20),
     "K1t": (lambda: i16_frame(y, cb, cr, m16, cm, cs.QP, qpc), 20),
     "K1": (lambda: i16_recon(y, cb, cr, m16, cm, cs.QP, qpc), 20),
-    "K7": (lambda: chroma_recon(cb, cr, cm, qpc), 20),
+    "K7": (lambda: chroma_frame(cb, cr, cm, qpc), 20),
     "K8": (lambda: deblock_frame(*state, cs.QP, qpc), 20),
 }
 out = {}

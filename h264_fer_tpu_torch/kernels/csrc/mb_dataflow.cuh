@@ -1,6 +1,6 @@
 // One-launch dataflow schedule of a frame's macroblocks, shared by the
 // persistent wavefronts K4 (csrc/wavefront_p.cu), K6
-// (csrc/wavefront_mixed.cu), K8 (csrc/deblock.cu) and K1 / K1t
+// (csrc/wavefront_mixed.cu), K8 (csrc/deblock.cu) and K1 / K1t and K7
 // (csrc/wavefront_i16.cu).
 //
 // Instead of one launch per dependency wave, one launch runs a persistent
@@ -22,7 +22,7 @@
 //     state. K8's top edge reads, as p samples, columns 16c+13..16c+15 of
 //     rows 16r-4..16r-1, which the top-right MB's left-edge filter writes
 //     and which the norm's raster order filters first.
-//   - K1 and K1t wait on left, top and top-left (kIntraSet) and take
+//   - K1, K1t and K7 wait on left, top and top-left (kIntraSet) and take
 //     tickets in diagonal order (d = r + c, then r): Intra_16x16 and
 //     chroma prediction read the top row, left column and corner, never a
 //     top-right sample, so the critical path is hmb + wmb - 1 MBs (187 at
@@ -59,7 +59,7 @@ namespace {
 // neighbour bits of a wait set: bit i is neighbour i of dataflow_wait
 constexpr unsigned kLeft = 1, kTop = 2, kTopRight = 4, kTopLeft = 8;
 constexpr unsigned kAllFour = kLeft | kTop | kTopRight | kTopLeft;  // K4, K6, K8
-constexpr unsigned kIntraSet = kLeft | kTop | kTopLeft;             // K1, K1t
+constexpr unsigned kIntraSet = kLeft | kTop | kTopLeft;             // K1, K1t, K7
 
 struct Dataflow {
   const int32_t* order;  // (nmb,) ticket → raster MB index

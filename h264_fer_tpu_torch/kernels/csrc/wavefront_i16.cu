@@ -1,6 +1,5 @@
 // Intra_16x16 reconstruction of a frame as one launch (K1), the same
-// writing its levels (K1t), and its chroma half alone over MB anti-diagonals
-// (K7), for sm_90a.
+// writing its levels (K1t), and its chroma half alone (K7), for sm_90a.
 //
 // K1 replaces the Pallas kernel _i16_recon_kernel_body
 // (h264_fer_tpu/kernels/wavefront_pallas.py:890, called by
@@ -14,32 +13,40 @@
 // (wavefront_pallas.py:173, via pallas_i16_frame at :437): the same kernel
 // and per-MB code, which also write each MB's levels as they leave the
 // quantiser, so no pass rebuilds them from the reconstruction. K7
-// (wavefront_chroma_frame) is K1's chroma half alone: the mixed I frame's
-// chroma, whose luma is K6's (csrc/wavefront_mixed.cu).
+// (wavefront_chroma_frame_levels; wavefront_chroma_frame without levels)
+// replaces the XLA loop wavefront_chroma_impl
+// (h264_fer_tpu/kernels/wavefront.py:222): K1's chroma half alone, the
+// mixed I frame's chroma (whose luma is K6's, csrc/wavefront_mixed.cu),
+// with its levels cdc (2, nmb, 4) and cac (2, nmb, 4, 15) written as they
+// leave the quantiser.
 //
-// What bounds it on an H100: neither bytes (about 6.3 MB of uint8 in and
-// out per 1920x1088 frame, ~2 us at 3.35 TB/s) nor integer operations
-// (~32-36 per pixel in the function's butterfly form, ~6 us at the card's
-// int32 rate; chip_smoke.k1_ops counts them). The floor is the
-// dependency chain: MB (r, c) needs (r-1, c), (r, c-1) and (r-1, c-1), so
-// hmb + wmb - 1 MBs (187 at 1080p) lie on a chain and at most hmb (68) are
-// ready at once, far fewer than the card can run. The first design paid a
-// launch (~4.4 us) per anti-diagonal.
+// What bounds them on an H100: neither bytes (about 6.3 MB of uint8 in and
+// out per 1920x1088 frame for K1, ~2 us at 3.35 TB/s; as much for K7, a
+// third of K1's samples plus 4.2 MB of int32 levels) nor integer
+// operations (~32-36 per pixel in the function's butterfly form, ~6 us at
+// the card's int32 rate for K1, ~2 us for K7; chip_smoke.k1_ops and
+// chroma_ops count them). The floor is the dependency chain: MB (r, c)
+// needs (r-1, c), (r, c-1) and (r-1, c-1), so hmb + wmb - 1 MBs (187 at
+// 1080p) lie on a chain and at most hmb (68) are ready at once, far fewer
+// than the card can run. A launch per anti-diagonal (~4.4 us each, 187 a
+// frame, enqueued no faster than the host issues them) would pay that
+// chain in launches.
 //
-// Design of K1 and K1t: one launch per frame on csrc/mb_dataflow.cuh. A
-// persistent grid takes the MBs by ticket in diagonal order (d = r + c,
+// Design of K1, K1t and K7: one launch per frame on csrc/mb_dataflow.cuh.
+// A persistent grid takes the MBs by ticket in diagonal order (d = r + c,
 // then r) and waits on the I16 wait set, left, top and top-left: no
 // Intra_16x16 or chroma prediction reads a top-right sample, so the chain
 // stays 187 MBs (the four-neighbour set would stretch it to 254). Before
 // the wait the block stages the source MB (16x16 luma, two 8x8 chroma) in
-// shared memory with cp.async and reads the MB's two modes; after it, the
-// top row, left column and corner from the recon planes, written in this
-// launch and so read with plain loads (never __ldg). The block has 384
+// shared memory with cp.async and reads the MB's modes; after it, the top
+// row, left column and corner from the recon planes, written in this
+// launch and so read with plain loads (never __ldg). K1's block has 384
 // threads: warps 0..7 code the luma, one thread per sample, on named
 // barrier 1, while warps 8..11 code both chroma planes on barrier 2 (the
-// per-MB functions of csrc/intra16.cuh, which K6 and K7 share); all 384
-// meet at the scheduler's __syncthreads. K7 keeps one launch per
-// anti-diagonal, one 128-thread block per MB of the diagonal.
+// per-MB functions of csrc/intra16.cuh, which K6 shares); all 384 meet at
+// the scheduler's __syncthreads. K7's block is that chroma half alone:
+// 128 threads, one per sample of Cb and Cr, so a step of its chain is one
+// flag hop plus one MB's chroma code.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -120,17 +127,49 @@ i16_kernel(Frame f, Dataflow df) {
   }
 }
 
-__global__ void __launch_bounds__(128)
-chroma_diag_kernel(const uint8_t* __restrict__ cbsrc,
-                   const uint8_t* __restrict__ crsrc,
-                   const int32_t* __restrict__ cmodes, uint8_t* cbrec,
-                   uint8_t* crrec, int wmb, int d, int r0, int qpc,
-                   QpTab chroma) {
-  const int r = r0 + blockIdx.x, c = d - r;
+// K7: the intra chroma of one frame (chroma_mb of csrc/intra16.cuh), MB by
+// MB on the dataflow schedule. The recon planes are written in the launch:
+// chroma_mb reads the neighbours from them with plain loads.
+struct ChromaFrame {
+  const uint8_t *cbsrc, *crsrc;  // (H/2, W/2)
+  const int32_t* cmodes;         // (nmb,)
+  uint8_t *cbrec, *crrec;        // written in the launch: no __ldg
+  int32_t *cdc, *cac;            // (2, nmb, 4), (2, nmb, 4, 15); null: no levels
+  int wmb, nmb, qpc;
+  QpTab chroma;
+};
+
+constexpr int kChromaThreads = 128;
+
+__global__ void __launch_bounds__(kChromaThreads)
+chroma_kernel(ChromaFrame f, Dataflow df) {
+  __shared__ __align__(16) uint8_t s_csrc[2][64];  // the source MB's Cb, Cr
+  __shared__ int s_cmode, s_mb;
   __shared__ ChromaScratch cs;
-  const size_t o = (size_t)(8 * r) * (wmb * 8) + 8 * c;  // the MB's top-left sample
-  chroma_mb(cbsrc + o, crsrc + o, wmb * 8, cbrec, crrec, wmb * 8, r, c,
-            cmodes[r * wmb + c], qpc, chroma, cs, nullptr, nullptr, 0, threadIdx.x, 1);
+  const int t = threadIdx.x;
+  const int Wc = f.wmb * 8;
+
+  for (;;) {
+    const int mb = dataflow_next(df, &s_mb);
+    if (mb < 0) return;
+    const int r = mb / f.wmb, c = mb - r * f.wmb;
+
+    // ---- before the wait: the source MB and its mode (read-only) ----------
+    if (t < 16) {  // a chroma row of 8 each
+      const int p = t >> 3, i = t & 7;
+      cp_async8(&s_csrc[p][8 * i], (p ? f.crsrc : f.cbsrc) + (size_t)(8 * r + i) * Wc + 8 * c);
+    } else if (t == 32) {
+      s_cmode = __ldg(f.cmodes + mb);
+    }
+    cp_async_wait_all();
+    dataflow_wait<kIntraSet>(df, r, c, f.wmb);  // left, top, top-left: chroma
+
+    // ---- after the wait: code the MB ----------------------------------------
+    chroma_mb(s_csrc[0], s_csrc[1], 8, f.cbrec, f.crrec, Wc, r, c, s_cmode, f.qpc,
+              f.chroma, cs, f.cdc ? f.cdc + mb * 4 : nullptr,
+              f.cac ? f.cac + mb * 60 : nullptr, f.nmb, t, 1);
+    dataflow_publish(df, mb);  // the MB's chroma is final
+  }
 }
 
 // qtab: 6 ints of one QP, LEVEL_QUANTIZE then LEVEL_SCALE, in QpTab order
@@ -141,23 +180,6 @@ QpTab make_tab(const int* qtab) {
     tab.ls[i] = qtab[3 + i];
   }
   return tab;
-}
-
-// One launch per anti-diagonal d = r + c, launch(d, r0, MBs on it), one
-// thread block per MB; *launched counts the accepted launches. Returns the
-// first CUDA error (0 when every launch was accepted).
-template <typename Launch>
-int launch_diagonals(int wmb, int hmb, Launch launch, int* launched) {
-  *launched = 0;
-  for (int d = 0; d < hmb + wmb - 1; ++d) {
-    const int r0 = d - wmb + 1 > 0 ? d - wmb + 1 : 0;
-    const int r1 = d < hmb - 1 ? d : hmb - 1;
-    launch(d, r0, r1 - r0 + 1);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    ++*launched;
-  }
-  return 0;
 }
 
 // K1 and K1t: one launch of i16_kernel, *launched 1 when accepted.
@@ -174,6 +196,26 @@ int launch_i16(const uint8_t* ysrc, const uint8_t* cbsrc, const uint8_t* crsrc,
   const int grid = dataflow_grid(i16_kernel, kThreads, 0, nmb, blocks);
   if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
   i16_kernel<<<grid, kThreads, 0, stream>>>(f, df);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  *launched = 1;
+  return 0;
+}
+
+// K7 with or without levels: one launch of chroma_kernel, *launched 1
+// when accepted.
+int launch_chroma(const uint8_t* cbsrc, const uint8_t* crsrc, const int32_t* cmodes,
+                  uint8_t* cbrec, uint8_t* crrec, int32_t* cdc, int32_t* cac,
+                  const int32_t* order, int32_t* sched, int wmb, int hmb, int qpc,
+                  const int* qtab, int blocks, cudaStream_t stream, int* launched) {
+  *launched = 0;
+  const int nmb = wmb * hmb;
+  const ChromaFrame f{cbsrc, crsrc, cmodes, cbrec, crrec, cdc, cac,
+                      wmb, nmb, qpc, make_tab(qtab)};
+  const Dataflow df{order, sched, nmb};
+  const int grid = dataflow_grid(chroma_kernel, kChromaThreads, 0, nmb, blocks);
+  if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
+  chroma_kernel<<<grid, kChromaThreads, 0, stream>>>(f, df);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   *launched = 1;
@@ -216,18 +258,29 @@ extern "C" int wavefront_i16_frame_levels(
                     qtab, blocks, stream, launched);
 }
 
-// K7: reconstructs the intra chroma of a frame, the chroma half of K1 (the
-// device form of the XLA loop wavefront_chroma_impl,
-// h264_fer_tpu/kernels/wavefront.py:222). qtab: 6 ints, LEVEL_QUANTIZE /
-// LEVEL_SCALE of qpc.
+// K7: reconstructs the intra chroma of a frame in one launch, the chroma
+// half of K1 (the device form of the XLA loop wavefront_chroma_impl,
+// h264_fer_tpu/kernels/wavefront.py:222), without its levels: the
+// arguments of wavefront_i16_frame for the chroma alone (cbsrc / crsrc
+// 8-byte aligned). qtab: 6 ints, LEVEL_QUANTIZE / LEVEL_SCALE of qpc.
 extern "C" int wavefront_chroma_frame(const uint8_t* cbsrc, const uint8_t* crsrc,
                                       const int32_t* cmodes, uint8_t* cbrec,
-                                      uint8_t* crrec, int wmb, int hmb, int qpc,
-                                      const int* qtab, cudaStream_t stream,
+                                      uint8_t* crrec, const int32_t* order,
+                                      int32_t* sched, int wmb, int hmb, int qpc,
+                                      const int* qtab, int blocks, cudaStream_t stream,
                                       int* launched) {
-  const QpTab chroma = make_tab(qtab);
-  return launch_diagonals(wmb, hmb, [&](int d, int r0, int n) {
-    chroma_diag_kernel<<<n, 128, 0, stream>>>(cbsrc, crsrc, cmodes, cbrec, crrec,
-                                              wmb, d, r0, qpc, chroma);
-  }, launched);
+  return launch_chroma(cbsrc, crsrc, cmodes, cbrec, crrec, nullptr, nullptr, order,
+                       sched, wmb, hmb, qpc, qtab, blocks, stream, launched);
+}
+
+// K7 writing every MB's chroma levels as they leave the quantiser, the
+// tuple of wavefront_chroma_impl: cdc (2, nmb, 4), cac (2, nmb, 4, 15)
+// int32.
+extern "C" int wavefront_chroma_frame_levels(
+    const uint8_t* cbsrc, const uint8_t* crsrc, const int32_t* cmodes, uint8_t* cbrec,
+    uint8_t* crrec, int32_t* cdc, int32_t* cac, const int32_t* order, int32_t* sched,
+    int wmb, int hmb, int qpc, const int* qtab, int blocks, cudaStream_t stream,
+    int* launched) {
+  return launch_chroma(cbsrc, crsrc, cmodes, cbrec, crrec, cdc, cac, order, sched, wmb,
+                       hmb, qpc, qtab, blocks, stream, launched);
 }

@@ -10,9 +10,9 @@ wait set, which is what makes a grid of any size finish:
   `knight_order`: K4's MV predictor and K6's Intra_4x4 prediction read the
   top-right MB's final state, and K8's top edge reads samples that the
   top-right MB's left edge filters first in the norm's raster order;
-- K1 / K1t (csrc/wavefront_i16.cu) wait on left, top and top-left and take
-  `diagonal_order`: Intra_16x16 and chroma prediction read no top-right
-  sample, so the diagonals d = r + c are the shortest chain.
+- K1 / K1t and K7 (csrc/wavefront_i16.cu) wait on left, top and top-left
+  and take `diagonal_order`: Intra_16x16 and chroma prediction read no
+  top-right sample, so the diagonals d = r + c are the shortest chain.
 """
 
 from __future__ import annotations

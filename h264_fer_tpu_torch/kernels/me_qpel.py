@@ -3,8 +3,10 @@
 `qpel_refine_maps` is the wrapper of the CUDA kernel csrc/me_qpel.cu, which
 replaces the Pallas kernel _refine_kernel (h264_fer_tpu/kernels/me_pallas.py:28,
 via qpel_refine_pallas_impl at :154): both 49-offset maps of a frame in one
-launch. On a CUDA tensor it launches the kernel or raises; on a CPU tensor
-it runs `qpel_refine_map_plain` once per centre, the XLA contract twin
+launch, one warp per (block, centre) scoring the 49 offsets from the 16
+phase tiles it stages in shared memory, in packed bytes. On a CUDA tensor
+it launches the kernel or raises; on a CPU tensor it runs
+`qpel_refine_map_plain` once per centre, the XLA contract twin
 codec/tpu_pframe.qpel_refine_map (tpu_pframe.py:156) in plain PyTorch.
 """
 
@@ -71,6 +73,12 @@ def qpel_refine_maps(src_y, planes, c1, c2, ext: int, metric_id: int):
                        torch.uint8, dev)
     build.check_tensor("c1", c1, (nb, 2), I32, dev)
     build.check_tensor("c2", c2, (nb, 2), I32, dev)
+    if min(h, w) + 2 * ext < 9:
+        raise ValueError(f"planes {w + 2 * ext}x{h + 2 * ext}: the kernel stages "
+                         "9x9 phase tiles")
+    for name, t in (("src_y", src_y), ("planes", planes)):
+        if t.data_ptr() % 4:
+            raise ValueError(f"{name}: the kernel reads it in aligned 4-byte words")
     vp, i = ctypes.c_void_p, ctypes.c_int
     fn = build.function("me_qpel", "me_qpel_refine",
                         [vp] * 6 + [i] * 4 + [vp])

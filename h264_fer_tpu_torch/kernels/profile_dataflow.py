@@ -1,5 +1,5 @@
-"""Phase profile of the one-launch wavefronts K4, K6, K8 and K1t on the
-card:
+"""Phase profile of the one-launch wavefronts K4, K6, K8, K1t and K7 on
+the card:
 
     python3 -m h264_fer_tpu_torch.kernels.profile_dataflow
 
@@ -13,7 +13,7 @@ outputs against the real kernels, and prints per kernel: the mean cycles
 per MB of each phase, the flag hop (wait end after the last waited
 neighbour's publish) and the time per step of the critical path (a knight
 diagonal d = c + 2r for K4, K6 and K8, an anti-diagonal d = r + c for
-K1t). The stamps cost time of their own: the phase split, not the total,
+K1t and K7, which share one instrumented build). The stamps cost time of their own: the phase split, not the total,
 is what it measures.
 """
 
@@ -115,8 +115,11 @@ K8_PHASES = {0: "ticket", 1: "own samples and bS", 2: "wait", 3: "luma strip loa
              4: "8 luma edge steps", 5: "write-back, chroma, publish"}
 
 K1T_STAMPS = [
-    ("  for (;;) {\n", "  for (;;) {\n    long long _pt = clock64();\n"),
-    ("    if (mb < 0) return;\n", "    if (mb < 0) return;\n    PROF(0)\n"),
+    ("  const int W = f.wmb * 16, Wc = f.wmb * 8;\n\n  for (;;) {\n"
+     "    const int mb = dataflow_next(df, &s_mb);\n    if (mb < 0) return;\n",
+     "  const int W = f.wmb * 16, Wc = f.wmb * 8;\n\n  for (;;) {\n"
+     "    long long _pt = clock64();\n"
+     "    const int mb = dataflow_next(df, &s_mb);\n    if (mb < 0) return;\n    PROF(0)\n"),
     ("    dataflow_wait<kIntraSet>(df, r, c, f.wmb);  // left, top, top-left\n",
      "    PROF(1) TS(0)\n    dataflow_wait<kIntraSet>(df, r, c, f.wmb);  // left, top, top-left\n"
      "    PROF(2) TS(1)\n    long long _c = clock64();\n"),
@@ -134,6 +137,25 @@ K1T_STAMPS = [
 K1T_PHASES = {0: "ticket", 1: "source and modes land", 2: "wait", 3: "neighbour loads",
               4: "luma code and store", 5: "wait for chroma, publish",
               20: "chroma code and store (thread 256)"}
+
+K7_STAMPS = [
+    ("  const int Wc = f.wmb * 8;\n\n  for (;;) {\n"
+     "    const int mb = dataflow_next(df, &s_mb);\n    if (mb < 0) return;\n",
+     "  const int Wc = f.wmb * 8;\n\n  for (;;) {\n    long long _pt = clock64();\n"
+     "    const int mb = dataflow_next(df, &s_mb);\n    if (mb < 0) return;\n    PROF(0)\n"),
+    ("    cp_async_wait_all();\n"
+     "    dataflow_wait<kIntraSet>(df, r, c, f.wmb);  // left, top, top-left: chroma\n",
+     "    cp_async_wait_all();\n    PROF(1) TS(0)\n"
+     "    dataflow_wait<kIntraSet>(df, r, c, f.wmb);  // left, top, top-left: chroma\n"
+     "    PROF(2) TS(1)\n"),
+    ("              f.cac ? f.cac + mb * 60 : nullptr, f.nmb, t, 1);\n",
+     "              f.cac ? f.cac + mb * 60 : nullptr, f.nmb, t, 1);\n    PROF(3)\n"),
+    ("    dataflow_publish(df, mb);  // the MB's chroma is final\n",
+     "    dataflow_publish(df, mb);  // the MB's chroma is final\n"
+     "    PROF(4) TS(2) if (threadIdx.x == 0) atomicAdd(&g_prof[31], 1ull);\n"),
+]
+K7_PHASES = {0: "ticket", 1: "source and mode land", 2: "wait",
+             3: "neighbour loads, chroma code, store", 4: "publish"}
 
 FOUR = ((0, -1), (-1, 0), (-1, 1), (-1, -1))  # left, top, top-right, top-left
 I16_SET = ((0, -1), (-1, 0), (-1, -1))         # left, top, top-left
@@ -215,7 +237,7 @@ def main() -> int:
     from ..codec.encoder import Encoder, EncoderConfig
     from ..ops.transform import chroma_qp
     from .deblock import _edge_params, deblock_frame
-    from .wavefront_i16 import i16_frame, qtab
+    from .wavefront_i16 import chroma_frame, i16_frame, qtab
     from .wavefront_i4x4 import PRED4_TABLE
     from .wavefront_mixed import KEYS, TABLES, mixed_luma
     from ..ops.device import const
@@ -290,7 +312,7 @@ def main() -> int:
     # the I16 modes and chroma modes of mixed_inputs
     m16, cm = (t.to(torch.int32).contiguous() for t in (m[1], m[3]))
     want = i16_frame(y, cb, cr, m16, cm, cs.QP, chroma_qp(cs.QP))
-    lib1 = instrumented("wavefront_i16", K1T_STAMPS)
+    lib1 = instrumented("wavefront_i16", K1T_STAMPS + K7_STAMPS)
 
     def k1t():
         out = [torch.empty_like(t) for t in want]
@@ -304,6 +326,20 @@ def main() -> int:
     if not all(torch.equal(g, w) for g, w in zip(k1t(), want)):
         raise AssertionError("profiled K1t != K1t")
     report(lib1, f"K1t {cs.W}x{cs.H} qp{cs.QP}", wmb, hmb, K1T_PHASES, k1t, I16_SET, 1)
+
+    qpc = chroma_qp(cs.QP)
+    want = chroma_frame(cb, cr, cm, qpc)
+
+    def k7():
+        out = [torch.empty_like(t) for t in want]
+        order, sched = dataflow.schedule(dataflow.diagonal_order(wmb, hmb), dev)
+        call(lib1, "wavefront_chroma_frame_levels",
+             (cb, cr, cm, *out, order, sched, wmb, hmb, qpc, qtab(qpc), 0))
+        return out
+
+    if not all(torch.equal(g, w) for g, w in zip(k7(), want)):
+        raise AssertionError("profiled K7 != K7")
+    report(lib1, f"K7 {cs.W}x{cs.H} qp{cs.QP}", wmb, hmb, K7_PHASES, k7, I16_SET, 1)
     return 0
 
 

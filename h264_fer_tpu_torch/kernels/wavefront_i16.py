@@ -19,13 +19,16 @@ levels (the C entry point wavefront_i16_frame_levels); on a CPU tensor
 the levels from the finished reconstruction in one batched pass, as
 i16_levels_from_recon_impl (wavefront_pallas.py:1089) does.
 
-`chroma_recon` (K7) launches K1's chroma half as a kernel of its own (the C
-entry point wavefront_chroma_frame; both run csrc/intra16.cuh's chroma_mb),
-one launch per MB anti-diagonal: the device form of the XLA loop
+`chroma_recon` and `chroma_frame` (K7) run K1's chroma half as a kernel of
+its own, one launch per frame on the same schedule (the C entry points
+wavefront_chroma_frame and wavefront_chroma_frame_levels; both kernels run
+csrc/intra16.cuh's chroma_mb): the device form of the XLA loop
 wavefront_chroma_impl (h264_fer_tpu/kernels/wavefront.py:222) that the
-mixed I frame runs, where the luma is K6's. Its plain twin is `chroma_recon_plain`, its levels come
-from `chroma_levels_from_recon`, and `chroma_frame` returns the tuple of
-wavefront_chroma_impl. K1 reconstructs chroma by the same rule (chroma
+mixed I frame runs, where the luma is K6's. `chroma_frame` returns that
+function's tuple, the levels written by the kernel as they leave the
+quantiser; `chroma_recon` the recon planes alone. Their plain twins are
+`chroma_frame_plain` (`chroma_recon_plain`, then `chroma_levels_from_recon`)
+and `chroma_recon_plain`. K1 reconstructs chroma by the same rule (chroma
 mode given per MB, chroma QP, 2x2 DC path).
 
 The plain wavefronts and the levels run the per-MB functions
@@ -152,8 +155,9 @@ def qtab(qp: int) -> np.ndarray:
 
 
 def _check_planes(y, cb, cr, modes, cmodes):
-    """Raise unless the planes and modes are what the kernel takes; returns
-    (wmb, hmb). y may be None (chroma only)."""
+    """Raise unless the planes and modes are what the kernel takes (and the
+    planes aligned as its row copies need); returns (wmb, hmb). y may be
+    None (chroma only)."""
     h, w = 2 * cb.shape[0], 2 * cb.shape[1]
     if h % 16 or w % 16:
         raise ValueError(f"frame {w}x{h} is not a whole number of MBs")
@@ -166,23 +170,37 @@ def _check_planes(y, cb, cr, modes, cmodes):
                    ("modes", modes, (hmb * wmb,), torch.int32)]
     for name, t, shape, dtype in checks:
         build.check_tensor(name, t, shape, dtype, cb.device)
+    for name, t, align in (("y", y, 16), ("cb", cb, 8), ("cr", cr, 8)):
+        if t is not None and t.data_ptr() % align:
+            raise ValueError(f"{name}: the kernel copies its rows in {align}-byte chunks")
     return wmb, hmb
 
 
-def _launch_i16(wrapper, symbol, y, cb, cr, modes, cmodes, levels, qp, qpc, blocks):
-    """One launch of the K1 / K1t kernel (C entry point `symbol`) on CUDA
-    tensors; returns the uint8 recon planes. levels: the four int32 level
-    arrays K1t writes, () for K1."""
+def _launch(wrapper, symbol, y, cb, cr, modes, cmodes, levels, qps, blocks):
+    """One launch of a kernel of csrc/wavefront_i16.cu (C entry point
+    `symbol`) on CUDA tensors; returns the uint8 recon planes. y and modes
+    None: K7 (chroma only); levels: the int32 level arrays the kernel
+    writes (() for none); qps (qp, qpc), or (qpc,) for K7."""
     wmb, hmb = _check_planes(y, cb, cr, modes, cmodes)
-    for name, t, align in (("y", y, 16), ("cb", cb, 8), ("cr", cr, 8)):
-        if t.data_ptr() % align:
-            raise ValueError(f"{name}: the kernel copies its rows in {align}-byte chunks")
-    ry, rcb, rcr = torch.empty_like(y), torch.empty_like(cb), torch.empty_like(cr)
-    order, sched = dataflow.schedule(dataflow.diagonal_order(wmb, hmb), y.device)
+    planes = tuple(t for t in (y, cb, cr) if t is not None)
+    rec = tuple(torch.empty_like(t) for t in planes)
+    dev = cb.device
+    order, sched = dataflow.schedule(dataflow.diagonal_order(wmb, hmb), dev)
     build.launch(wrapper, "wavefront_i16", symbol,
-                 (y, cb, cr, modes, cmodes, ry, rcb, rcr, *levels, order, sched, wmb,
-                  hmb, qp, qpc, np.concatenate([qtab(qp), qtab(qpc)]), blocks), y.device)
-    return ry, rcb, rcr
+                 (*planes, *(t for t in (modes, cmodes) if t is not None), *rec, *levels,
+                  order, sched, wmb, hmb, *qps, np.concatenate([qtab(q) for q in qps]),
+                  blocks), dev)
+    return rec
+
+
+def _device(t) -> bool:
+    """False for a CPU tensor (the plain twin runs), True for a CUDA one;
+    raises for any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return True
 
 
 def i16_recon(y, cb, cr, modes, cmodes, qp: int, qpc: int, *, blocks=None):
@@ -192,12 +210,10 @@ def i16_recon(y, cb, cr, modes, cmodes, qp: int, qpc: int, *, blocks=None):
     i16_recon_plain. blocks: the kernel's grid size (None: as many blocks
     as fit on the card at once); any size gives the same result."""
     grid = dataflow.check_blocks(blocks)
-    if y.device.type == "cpu":
+    if not _device(y):
         return i16_recon_plain(y, cb, cr, modes, cmodes, qp, qpc)
-    if y.device.type != "cuda":
-        raise ValueError(f"unsupported device {y.device}")
-    return _launch_i16(i16_recon, "wavefront_i16_frame", y, cb, cr, modes, cmodes, (),
-                       qp, qpc, grid)
+    return _launch(i16_recon, "wavefront_i16_frame", y, cb, cr, modes, cmodes, (),
+                   (qp, qpc), grid)
 
 
 # kernel launches so far, as counted by the C entry point (one per accepted
@@ -205,25 +221,17 @@ def i16_recon(y, cb, cr, modes, cmodes, qp: int, qpc: int, *, blocks=None):
 i16_recon.launches = 0
 
 
-def chroma_recon(cb, cr, cmodes, qpc: int):
-    """K7: reconstruct the intra chroma of a frame. cb/cr (H/2, W/2)
-    uint8, cmodes (nmb,) int32 chroma modes, qpc the chroma QP. Returns
-    the uint8 recon planes. CUDA tensors go to the kernel, CPU tensors to
-    chroma_recon_plain."""
-    if cb.device.type == "cpu":
+def chroma_recon(cb, cr, cmodes, qpc: int, *, blocks=None):
+    """K7 without its levels: reconstruct the intra chroma of a frame.
+    cb/cr (H/2, W/2) uint8, cmodes (nmb,) int32 chroma modes, qpc the
+    chroma QP. Returns the uint8 recon planes. CUDA tensors go to the
+    kernel (one launch, counted on chroma_frame.launches), CPU tensors to
+    chroma_recon_plain. blocks: as i16_recon's."""
+    grid = dataflow.check_blocks(blocks)
+    if not _device(cb):
         return chroma_recon_plain(cb, cr, cmodes, qpc)
-    if cb.device.type != "cuda":
-        raise ValueError(f"unsupported device {cb.device}")
-    wmb, hmb = _check_planes(None, cb, cr, None, cmodes)
-    rcb, rcr = torch.empty_like(cb), torch.empty_like(cr)
-    build.launch(chroma_recon, "wavefront_i16", "wavefront_chroma_frame",
-                 (cb, cr, cmodes, rcb, rcr, wmb, hmb, qpc, qtab(qpc)), cb.device)
-    return rcb, rcr
-
-
-# kernel launches so far, as counted by the C launch loop (one per
-# accepted anti-diagonal launch)
-chroma_recon.launches = 0
+    return _launch(chroma_frame, "wavefront_chroma_frame", None, cb, cr, None, cmodes, (),
+                   (qpc,), grid)
 
 
 def chroma_levels_from_recon(cb, cr, rcb, rcr, cmodes, qpc: int):
@@ -249,11 +257,34 @@ def i16_levels_from_recon(y, cb, cr, ry, rcb, rcr, modes, cmodes,
     return (i16dc, ac, *chroma_levels_from_recon(cb, cr, rcb, rcr, cmodes, qpc))
 
 
-def chroma_frame(cb, cr, cmodes, qpc: int):
-    """(recon_cb, recon_cr, cdc, cac): the tuple of wavefront_chroma_impl,
-    recon planes as uint8."""
-    rcb, rcr = chroma_recon(cb, cr, cmodes, qpc)
+def chroma_frame_plain(cb, cr, cmodes, qpc: int):
+    """Plain PyTorch K7 with its levels: plain K7, then the levels from its
+    recon. Returns (recon_cb, recon_cr, cdc, cac)."""
+    rcb, rcr = chroma_recon_plain(cb, cr, cmodes, qpc)
     return (rcb, rcr, *chroma_levels_from_recon(cb, cr, rcb, rcr, cmodes, qpc))
+
+
+def chroma_frame(cb, cr, cmodes, qpc: int, *, blocks=None):
+    """K7: (recon_cb, recon_cr, cdc (2, nmb, 4), cac (2, nmb, 4, 15)), the
+    tuple of wavefront_chroma_impl, recon planes as uint8. CUDA tensors go
+    to the kernel, which writes the levels as it reconstructs (one launch,
+    the C entry point wavefront_chroma_frame_levels, counted on
+    chroma_frame.launches); CPU tensors to chroma_frame_plain. blocks: as
+    i16_recon's."""
+    grid = dataflow.check_blocks(blocks)
+    if not _device(cb):
+        return chroma_frame_plain(cb, cr, cmodes, qpc)
+    nmb, dev, i32 = cmodes.numel(), cb.device, torch.int32
+    levels = (torch.empty((2, nmb, 4), dtype=i32, device=dev),
+              torch.empty((2, nmb, 4, 15), dtype=i32, device=dev))
+    rcb, rcr = _launch(chroma_frame, "wavefront_chroma_frame_levels", None, cb, cr, None,
+                       cmodes, levels, (qpc,), grid)
+    return (rcb, rcr, *levels)
+
+
+# K7's kernel launches so far, by chroma_frame and chroma_recon, as counted
+# by the C entry points (one per accepted launch, one per frame)
+chroma_frame.launches = 0
 
 
 def i16_frame_plain(y, cb, cr, modes, cmodes, qp: int, qpc: int):
@@ -271,17 +302,15 @@ def i16_frame(y, cb, cr, modes, cmodes, qp: int, qpc: int, *, blocks=None):
     reconstructs (the C entry point wavefront_i16_frame_levels); CPU
     tensors to i16_frame_plain. blocks: as i16_recon's."""
     grid = dataflow.check_blocks(blocks)
-    if y.device.type == "cpu":
+    if not _device(y):
         return i16_frame_plain(y, cb, cr, modes, cmodes, qp, qpc)
-    if y.device.type != "cuda":
-        raise ValueError(f"unsupported device {y.device}")
     nmb, dev, i32 = modes.numel(), y.device, torch.int32
     levels = (torch.empty((nmb, 16), dtype=i32, device=dev),
               torch.empty((nmb, 16, 15), dtype=i32, device=dev),
               torch.empty((2, nmb, 4), dtype=i32, device=dev),
               torch.empty((2, nmb, 4, 15), dtype=i32, device=dev))
-    ry, rcb, rcr = _launch_i16(i16_frame, "wavefront_i16_frame_levels", y, cb, cr, modes,
-                               cmodes, levels, qp, qpc, grid)
+    ry, rcb, rcr = _launch(i16_frame, "wavefront_i16_frame_levels", y, cb, cr, modes,
+                           cmodes, levels, (qp, qpc), grid)
     i16dc, ac, cdc, cac = levels
     return ry, i16dc, ac, rcb, rcr, cdc, cac
 

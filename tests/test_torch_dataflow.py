@@ -1,20 +1,21 @@
 """The one-launch dataflow schedules (kernels/dataflow.py,
-csrc/mb_dataflow.cuh) of K4, K6, K8 and K1 / K1t, and the diagonal schedule
-of the Intra_4x4 MB body (csrc/intra4x4.cuh), on the CPU.
+csrc/mb_dataflow.cuh) of K4, K6, K8 and K1 / K1t / K7, and the diagonal
+schedule of the Intra_4x4 MB body (csrc/intra4x4.cuh), on the CPU.
 
 K4, K6 and K8 hand out MBs by ticket in `knight_order` and make each wait
-for its left, top, top-right and top-left neighbours; K1 and K1t hand them
-out in `diagonal_order` and wait on left, top and top-left only. Here: each
-order is a permutation in which every waited neighbour comes first, it is
-the order of the waves the plain twins iterate over, and a grid of any size
-finishes under it. Coded MB by MB in random orders that respect the wait
-set, K8 (in a per-MB Python form of the kernel) and the plain K1 give the
-plain twins' planes; K8 run before its top-right neighbour does not, and
-no MB with an earlier ticket writes into the samples K8 loads before its
-wait. Coding an MB's 4x4 blocks as the kernel does (10 steps t = i + 2j,
-two blocks at once, each sample predicted from three cells through the
-packed Intra4x4 table) gives i4x4_mb_code's result. The kernels themselves
-are held against the plain twins on the card by chip_smoke.py."""
+for its left, top, top-right and top-left neighbours; K1, K1t and K7 hand
+them out in `diagonal_order` and wait on left, top and top-left only. Here:
+each order is a permutation in which every waited neighbour comes first, it
+is the order of the waves the plain twins iterate over, and a grid of any
+size finishes under it. Coded MB by MB in random orders that respect the
+wait set, K8 (in a per-MB Python form of the kernel), the plain K1 and the
+plain K7 with its levels give the plain twins' outputs; K8 run before its
+top-right neighbour does not, and no MB with an earlier ticket writes into
+the samples K8 loads before its wait. Coding an MB's 4x4 blocks as the
+kernel does (10 steps t = i + 2j, two blocks at once, each sample predicted
+from three cells through the packed Intra4x4 table) gives i4x4_mb_code's
+result. The kernels themselves are held against the plain twins on the card
+by chip_smoke.py."""
 
 import numpy as np
 import pytest
@@ -249,8 +250,9 @@ def test_blocks_argument():
 
 
 def test_blocks_argument_k1_k1t_k8():
-    """K1, K1t and K8 refuse a bad grid size on any device; on CPU tensors
-    a valid one changes nothing: the plain twin runs."""
+    """K1, K1t, K7 (chroma_recon and chroma_frame) and K8 refuse a bad grid
+    size on any device; on CPU tensors a valid one changes nothing: the
+    plain twin runs."""
     rng = np.random.default_rng(5)
     y = torch.from_numpy(rng.integers(0, 256, (32, 48)).astype(np.uint8))
     cb, cr = (torch.from_numpy(rng.integers(0, 256, (16, 24)).astype(np.uint8))
@@ -260,6 +262,8 @@ def test_blocks_argument_k1_k1t_k8():
              torch.from_numpy(rng.integers(-8, 9, (6, 4, 2)).astype(np.int32)))
     calls = [(wavefront_i16.i16_recon, wavefront_i16.i16_recon_plain, (y, cb, cr, modes, modes, 28, 28)),
              (wavefront_i16.i16_frame, wavefront_i16.i16_frame_plain, (y, cb, cr, modes, modes, 28, 28)),
+             (wavefront_i16.chroma_recon, wavefront_i16.chroma_recon_plain, (cb, cr, modes, 28)),
+             (wavefront_i16.chroma_frame, wavefront_i16.chroma_frame_plain, (cb, cr, modes, 28)),
              (deblock.deblock_frame, deblock.deblock_frame_plain, (y, cb, cr, *state, 36, 34))]
     for fn, plain, args in calls:
         for bad in (0, -2, 2.0, "3"):
@@ -478,13 +482,16 @@ def test_k8_prefetch_rule(grid):
             assert m in _deps(wmb, hmb, n), (n, m)
 
 
-@pytest.mark.parametrize("wh", [(176, 144), (64, 208)], ids=["qcif", "64x208"])
-def test_k1_per_mb_in_any_order_the_i16_wait_set_allows(wh):
-    """The plain K1 coded MB by MB in orders that wait on left, top and
-    top-left only, never on top-right (the persistent grid's random orders
-    with 3 blocks and one per MB in diagonal tickets, and each diagonal from
-    the bottom, every MB before its top-right neighbour), equals
-    i16_recon_plain: the I16 wait set suffices."""
+@pytest.mark.parametrize("kernel,wh", [("K1", (176, 144)), ("K1", (64, 208)),
+                                       ("K7", (176, 144)), ("K7", (64, 208))],
+                         ids=["qcif", "64x208", "k7-qcif", "k7-64x208"])
+def test_k1_per_mb_in_any_order_the_i16_wait_set_allows(kernel, wh):
+    """The plain K1 (or, chroma only, K7 with its levels) coded MB by MB in
+    orders that wait on left, top and top-left only, never on top-right
+    (the persistent grid's random orders with 3 blocks and one per MB in
+    diagonal tickets, and each diagonal from the bottom, every MB before
+    its top-right neighbour), equals i16_recon_plain (chroma_frame_plain:
+    recon and levels): the I16 wait set suffices for both kernels."""
     w, h = wh
     rng = np.random.default_rng(w + h)
     wmb, hmb = w // 16, h // 16
@@ -492,8 +499,11 @@ def test_k1_per_mb_in_any_order_the_i16_wait_set_allows(wh):
     planes = [torch.from_numpy(p.astype(np.uint8)) for p in _mb_frame(rng, w, h)]
     modes, cmodes = (torch.from_numpy(rng.integers(0, 4, nmb).astype(np.int32))
                      for _ in range(2))
-    qp = 28
-    want = wavefront_i16.i16_recon_plain(*planes, modes, cmodes, qp, chroma_qp(qp))
+    qp, qpc = 28, chroma_qp(28)
+    if kernel == "K1":
+        want = wavefront_i16.i16_recon_plain(*planes, modes, cmodes, qp, qpc)
+    else:
+        want = wavefront_i16.chroma_frame_plain(*planes[1:], cmodes, qpc)
     ysrc = wavefront_i16.to_mbs(planes[0].to(torch.int32), 16)
     csrc = torch.stack([wavefront_i16.to_mbs(p.to(torch.int32), 8) for p in planes[1:]])
     r_, c_ = np.divmod(np.arange(nmb), wmb)
@@ -501,14 +511,22 @@ def test_k1_per_mb_in_any_order_the_i16_wait_set_allows(wh):
     for how in orders:
         ypad = wavefront_i16._recon_planes(1, h, w, "cpu")
         cpad = wavefront_i16._recon_planes(2, h // 2, w // 2, "cpu")
+        cdc = torch.full((2, nmb, 4), -999, dtype=torch.int32)
+        cac = torch.full((2, nmb, 4, 15), -999, dtype=torch.int32)
 
         def code(mb):
             r, c = (torch.tensor([v]) for v in divmod(mb, wmb))
             m = torch.tensor([mb])
-            wavefront_i16._step(ypad, r, c, 16, lambda p: wavefront_i16._i16_luma_code(
-                ysrc[m], p[0], modes[m], qp)[0][None])
-            wavefront_i16._step(cpad, r, c, 8, lambda p: wavefront_i16._chroma_code(
-                csrc[:, m], p, cmodes[m], chroma_qp(qp))[0])
+
+            def chroma(p):
+                rec, cdc[:, m], cac[:, m] = wavefront_i16._chroma_code(
+                    csrc[:, m], p, cmodes[m], qpc)
+                return rec
+
+            if kernel == "K1":
+                wavefront_i16._step(ypad, r, c, 16, lambda p: wavefront_i16._i16_luma_code(
+                    ysrc[m], p[0], modes[m], qp)[0][None])
+            wavefront_i16._step(cpad, r, c, 8, chroma)
 
         if isinstance(how, np.ndarray):
             for mb in how:
@@ -516,9 +534,11 @@ def test_k1_per_mb_in_any_order_the_i16_wait_set_allows(wh):
         else:
             _play(wmb, hmb, dataflow.diagonal_order(wmb, hmb), how, I16_NEIGHBOURS,
                   finish=code, seed=7)
-        got = (ypad[0, 1:, 1:], cpad[0, 1:, 1:], cpad[1, 1:, 1:])
+        got = ((ypad[0, 1:, 1:], cpad[0, 1:, 1:], cpad[1, 1:, 1:]) if kernel == "K1"
+               else (cpad[0, 1:, 1:], cpad[1, 1:, 1:], cdc, cac))
+        assert len(got) == len(want)
         for g, x in zip(got, want):
-            assert torch.equal(g.to(torch.uint8), x)
+            assert torch.equal(g.to(x.dtype), x)
 
 
 def _i4x4_in_steps(src, modes, nb, qp):

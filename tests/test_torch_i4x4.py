@@ -21,8 +21,8 @@ from h264_fer_tpu.ops import intra as jax_intra
 from h264_fer_tpu.ops.transform import chroma_qp
 from h264_fer_tpu_torch.codec.intra_decision import intra_mode_decision
 from h264_fer_tpu_torch.kernels.wavefront_i4x4 import i4x4_luma, i4x4_luma_plain
-from h264_fer_tpu_torch.kernels.wavefront_i16 import (chroma_frame, chroma_recon,
-                                                      chroma_recon_plain)
+from h264_fer_tpu_torch.kernels.wavefront_i16 import (chroma_frame, chroma_frame_plain,
+                                                      chroma_recon, chroma_recon_plain)
 from h264_fer_tpu_torch.ops import intra
 
 torch.set_num_threads(1)
@@ -115,10 +115,11 @@ def test_wrappers_route_cpu_to_plain_without_launch():
     cb, cr = (torch.from_numpy(rng.integers(0, 256, (16, 24)).astype(np.uint8))
               for _ in range(2))
     cm = torch.tensor([0, 1, 2, 3, 0, 3], dtype=torch.int32)
-    before = (i4x4_luma.launches, chroma_recon.launches)
+    before = (i4x4_luma.launches, chroma_frame.launches)
     for got, want in ((i4x4_luma(y, m4, 30), i4x4_luma_plain(y, m4, 30)),
-                      (chroma_recon(cb, cr, cm, 30), chroma_recon_plain(cb, cr, cm, 30))):
+                      (chroma_recon(cb, cr, cm, 30), chroma_recon_plain(cb, cr, cm, 30)),
+                      (chroma_frame(cb, cr, cm, 30), chroma_frame_plain(cb, cr, cm, 30))):
         for g, r in zip(got, want):
             assert torch.equal(g, r)
     assert got[0].dtype == torch.uint8
-    assert (i4x4_luma.launches, chroma_recon.launches) == before
+    assert (i4x4_luma.launches, chroma_frame.launches) == before
