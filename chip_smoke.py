@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero and prints no result line):
+Phases (any failure exits non-zero and prints no result line; each
+1080p path's stream must also have the byte count STREAM_BYTES gives it):
   1. print the card's name and power limit; build the CUDA kernels from
      the eight sources in h264_fer_tpu_torch/kernels/csrc (one nvcc per
      source, all started at once, sm_90a) and print each build's time and
@@ -27,14 +28,16 @@ Phases (any failure exits non-zero and prints no result line):
      tests hold against the JAX reference). Prints e2e fps, device frame
      fps and the per-stage device times;
   4. hold K2 (integer search), K3 (qpel refine), K4 (P decision wavefront,
-     one launch per frame) and K5 (MC) against their plain twins on the
-     card, bit-exact: at 1920x1088 for QP 28, 40 and 46 (the three metric
-     tiers) on the maps and MVs of a content pair, then on QCIF grids with
-     random previous MVs beyond the search limit, random MC MVs at the
-     limit (K4 also with its grid forced to 1 and to 3 blocks), and flat
-     content where every score ties, and on a tall 64x208 and a one-MB-wide
-     16x144 content pair; time kernel and plain at QP 28, holding every
-     timed call to the plain output;
+     one launch per frame) and K5 (MC, one thread per quadrant row reading
+     aligned words) against their plain twins on the card, bit-exact: at
+     1920x1088 for QP 28, 40 and 46 (the three metric tiers) on the maps
+     and MVs of a content pair, then on QCIF grids with random previous MVs
+     beyond the search limit, random MC MVs over the whole ±limit (K4 also
+     with its grid forced to 1 and to 3 blocks), and flat content where
+     every score ties, the random MVs again at window 7 (luma rows W + 18
+     bytes, only 2-byte aligned), and on a tall 64x208, a one-MB-wide
+     16x144 and a one-MB-tall 176x16 content pair; time kernel and plain at
+     QP 28, holding every timed call to the plain output;
   5. drive the IPPP main path: GopIpppEncoder(1920, 1088, 28, gop_len=8)
      encodes 16 frames with the launch counts set to 0 just before; the
      stream of the first GOP's first 4 frames (the IDR and 3 P frames) must
@@ -44,21 +47,22 @@ Phases (any failure exits non-zero and prints no result line):
      headers; a QCIF IPPP stream from the card must equal the CPU path's.
      Prints e2e fps, device ms per P frame for each stage and the counted
      launches (one K1t per IDR, one K4 per P frame);
-  6. hold K4x4 (Intra_4x4 recon), K7 (chroma wavefront writing its
-     levels, one dataflow launch per frame) and K6 (mixed arbitration
-     wavefront) against their plain twins on the card, bit-exact on every
-     output (K7: recon planes and both level arrays from chroma_frame,
-     and the recon planes from chroma_recon): at 1920x1088 for QP
-     8, 28 and 46 in the decided modes of a content frame (printing the
-     I4x4 MB count of each K6 check; at QP 28 it must lie strictly between
-     0 and the MB count), on QCIF, 80x176, one-MB-wide 16x176 and
+  6. hold K4x4 (Intra_4x4 recon and levels), K7 (chroma wavefront writing
+     its levels) and K6 (mixed arbitration wavefront), each one dataflow
+     launch per frame, against their plain twins on the card, bit-exact on
+     every output (K7: recon planes and both level arrays from
+     chroma_frame, and the recon planes from chroma_recon): at 1920x1088
+     for QP 8, 28 and 46 in the decided modes of a content frame (printing
+     the I4x4 MB count of each K6 check; at QP 28 it must lie strictly
+     between 0 and the MB count), on QCIF, 80x176, one-MB-wide 16x176 and
      one-MB-tall 176x16 grids with random Intra4x4 modes in every block (on
-     QCIF K7 and K6 also with their grids forced to 1 and to 3 blocks), and
-     on a tall 64x208 grid (hmb > wmb) where both classes win (grids forced
-     likewise). K4x4 lies on no encode path, as its Pallas original: its
-     path is one i4x4_luma call on the 1080p frame at QP 28, with its count
-     set to 0 just before. Times kernels and plain twins at QP 28, holding
-     every timed call to the plain output;
+     QCIF, 16x176 and 176x16 all three also with their grids forced to 1
+     and to 3 blocks), and on a tall 64x208 grid (hmb > wmb) where both
+     classes win (grids forced likewise). K4x4 lies on no encode path, as
+     its Pallas original: its path is one i4x4_luma call on the 1080p frame
+     at QP 28, with its count set to 0 just before (one launch). Times
+     kernels and plain twins at QP 28, holding every timed call to the
+     plain output;
   7. drive the mixed all-intra path: GopIntraEncoder(1920, 1088, 28,
      mode="mixed") encodes 8 frames with the launch counts set to 0 just
      before (one K6 and one K7 launch per frame, no K1 or K1t, and no
@@ -87,6 +91,9 @@ Phases (any failure exits non-zero and prints no result line):
      equal the CPU path's. Prints e2e fps, K8's ms and launches per frame,
      the session's stage times and the profiled busy share;
   10. print the kernels line and, last, {"ok": true, "device": {...}}.
+     Each kernel's time is taken two ways (kernel_ms): `ms` with its
+     calls issued as the host gets to them, as a path issues them, and
+     `queued_ms` with them queued ahead of the card, the device's own time.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -115,6 +122,11 @@ N_PLAIN_IPPP = 4  # frames of the first GOP held against the plain chain
 N_SESSION, SESSION_INTRA_EVERY, N_PLAIN_SESSION = 16, 8, 3
 K8_I_QPS, K8_P_QPS = (16, 28, 46), (28, 36, 46)
 P_QPS = (28, 40, 46)  # SAD, SSD and 2*SSD tiers
+# bytes of each 1080p path's stream on chip_smoke's content (unchanged
+# since the session path was added; the kernels and plain twins are
+# bit-exact, so a kernel redesign must leave them so)
+STREAM_BYTES = {"all-intra": 3_227_147, "IPPP": 7_478_701, "mixed": 3_202_684,
+                "session": 7_081_712}
 # H100 SXM at 700 W: HBM3 rate (data sheet), and the int32 rate of the CUDA
 # cores (H100 whitepaper: 132 SMs x 64 int32 lanes x 1.98 GHz boost); K1's
 # work is int32.
@@ -143,14 +155,24 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps: int, check=None) -> float:
+# cycles the card spins per timed call before cuda_ms's queued calls (0.1
+# ms at 1.98 GHz): time for the host to issue them all first
+QUEUE_CYCLES_PER_REP = 198_000
+
+
+def cuda_ms(torch, fn, reps: int, check=None, queued=False) -> float:
     """Mean device time of fn() in ms over `reps` calls after one warm-up,
-    timed with CUDA events. With `check`, every call's output (the warm-up
-    too) is kept and passed to check() after the timing, so that a race
-    shows as a mismatch in any repetition; an untimed round of `reps` calls,
-    kept and checked the same way, first grows the allocator's cache to
-    hold them, so that no device allocation for the kept outputs lands in
-    the timed round."""
+    timed with CUDA events. Without `queued` (stage times, a kernel's ms)
+    the events also count the card waiting for the host. With `queued` (a
+    kernel's queued_ms) the timed calls wait behind a kernel that spins the
+    card (torch.cuda._sleep) while the host issues them, so the events time
+    the device's work back to back, not the host's pace of issuing it: a
+    wrapper's own host time can exceed a short kernel's device time. With `check`, every
+    call's output (the warm-up too) is kept and passed to check() after the
+    timing, so that a race shows as a mismatch in any repetition; an
+    untimed round of `reps` calls, kept and checked the same way, first
+    grows the allocator's cache to hold them, so that no device allocation
+    for the kept outputs lands in the timed round."""
     outs = [fn()]
     if check is not None:
         for out in [fn() for _ in range(reps)]:
@@ -158,6 +180,8 @@ def cuda_ms(torch, fn, reps: int, check=None) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(QUEUE_CYCLES_PER_REP * reps)
     start.record()
     for _ in range(reps):
         out = fn()
@@ -169,6 +193,16 @@ def cuda_ms(torch, fn, reps: int, check=None) -> float:
         for out in outs:
             check(out)
     return start.elapsed_time(end) / reps
+
+
+def kernel_ms(torch, fn, reps: int, check=None):
+    """A kernel's time two ways, (ms, queued_ms), each by cuda_ms: ms with
+    the calls issued as the host gets to them (the kernels line's `ms`, the
+    method it has always used: what a path sees), queued_ms with the calls
+    queued ahead of the card (the device's own time, which the host's pace
+    can hide for a kernel shorter than its wrapper's host time)."""
+    return (cuda_ms(torch, fn, reps, check),
+            cuda_ms(torch, fn, reps, check, queued=True))
 
 
 def k1_pixel_ops(qp: int) -> float:
@@ -272,7 +306,8 @@ def i16_inputs(torch, dev, frame, qp, modes):
 def check_k1(torch, dev, name, frame, qp, modes=None, blocks=None):
     """K1 kernel vs plain on one frame, in the decided modes or in the given
     (mode16, chroma mode) arrays, with the grid forced to `blocks` blocks
-    if given; returns (max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
+    if given; returns (max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    queued_ms)."""
     from h264_fer_tpu_torch.kernels.wavefront_i16 import i16_recon, i16_recon_plain
     from h264_fer_tpu_torch.ops.transform import chroma_qp
 
@@ -282,23 +317,26 @@ def check_k1(torch, dev, name, frame, qp, modes=None, blocks=None):
     got = i16_recon(y, cb, cr, m16, cm, qp, qpc, blocks=blocks)
     want = i16_recon_plain(y, cb, cr, m16, cm, qp, qpc)
     err = max_err(torch, got, want)
-    ms = cuda_ms(torch, lambda: i16_recon(y, cb, cr, m16, cm, qp, qpc, blocks=blocks), 20,
-                 check=same_as(torch, want, label))
+    ms, queued_ms = kernel_ms(
+        torch, lambda: i16_recon(y, cb, cr, m16, cm, qp, qpc, blocks=blocks), 20,
+        check=same_as(torch, want, label))
     plain_ms = cuda_ms(torch, lambda: i16_recon_plain(y, cb, cr, m16, cm, qp, qpc), 2)
     print(f"{label}: max_abs_err {err} (tolerance 0, every timed call too), kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.2f} ms per frame", flush=True)
+          f"{ms:.4f} ms (queued {queued_ms:.4f}), plain {plain_ms:.2f} ms per frame",
+          flush=True)
     if err != 0:
         raise AssertionError(f"{label}: kernel != plain")
     h, w = y.shape
     bound = k1_bound(w, h, qp, qpc, m16.cpu().numpy(), cm.cpu().numpy())
-    return err, ms, plain_ms, *bound
+    return err, ms, plain_ms, *bound, queued_ms
 
 
 def check_k1t(torch, dev, name, frame, qp, modes=None, blocks=None):
     """K1t kernel vs plain twin on one frame (recon and the four level
     arrays), and its recon vs K1's, in the decided modes or in the given
     (mode16, chroma mode) arrays, with the grid forced to `blocks` blocks
-    if given; returns (max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
+    if given; returns (max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    queued_ms)."""
     from h264_fer_tpu_torch.kernels.wavefront_i16 import (i16_frame, i16_frame_plain,
                                                           i16_recon)
     from h264_fer_tpu_torch.ops.transform import chroma_qp
@@ -311,18 +349,26 @@ def check_k1t(torch, dev, name, frame, qp, modes=None, blocks=None):
     want, plain_ms = timed_once(torch, lambda: i16_frame_plain(*args))
     err = max_err(torch, got, want)
     k1_err = max_err(torch, [got[0], got[3], got[4]], i16_recon(*args))
-    ms = cuda_ms(torch, lambda: i16_frame(*args, blocks=blocks), 20,
-                 check=same_as(torch, want, label))
+    ms, queued_ms = kernel_ms(torch, lambda: i16_frame(*args, blocks=blocks), 20,
+                              check=same_as(torch, want, label))
     h, w = y.shape
     nmb = (w // 16) * (h // 16)
     bound_ms, bound_by = bound(nbytes(y, cb, cr, m16, cm, *got),
                                k1_ops(qp, qpc, m16.cpu().numpy(), cm.cpu().numpy()))
     print(f"{label}: max_abs_err {err} (tolerance 0, every timed call too; recon vs K1 "
-          f"{k1_err}), kernel {ms:.4f} ms, plain {plain_ms:.2f} ms per frame, bound "
+          f"{k1_err}), kernel {ms:.4f} ms (queued {queued_ms:.4f}), plain "
+          f"{plain_ms:.2f} ms per frame, bound "
           f"{bound_ms:.4f} ms ({bound_by}; {nmb} MBs)", flush=True)
     if err != 0 or k1_err != 0:
         raise AssertionError(f"{label}: kernel != plain or != K1")
-    return err, ms, plain_ms, bound_ms, bound_by
+    return err, ms, plain_ms, bound_ms, bound_by, queued_ms
+
+
+def check_bytes(path: str, stream: bytes) -> None:
+    """Raise unless the 1080p stream of `path` has its STREAM_BYTES length."""
+    if len(stream) != STREAM_BYTES[path]:
+        raise AssertionError(f"{path} stream: {len(stream)} bytes, expected "
+                             f"{STREAM_BYTES[path]}")
 
 
 def parse_stream(stream: bytes, n_frames: int, w: int, h: int, qp: int):
@@ -461,8 +507,8 @@ def p_kernels(plain: bool) -> dict:
             "wavefront_p": pframe_decide_plain, "mc": mc_bulk_plain}
 
 
-def p_frame_stages(torch, kern, frame, ref, qp, mc_mv=None):
-    """One P frame through device_p_frame's stages (search window +-WINDOW,
+def p_frame_stages(torch, kern, frame, ref, qp, mc_mv=None, window=WINDOW):
+    """One P frame through device_p_frame's stages (search window +-window,
     adaptive MAXDIFF, the prefilter below QP 36), with K2-K5 the callables
     `kern` of p_kernels. frame: (y, cb, cr) uint8 planes on one device;
     ref: (ref_y, ref_cb, ref_cr, prev_mv); mc_mv: MVs for K5 in place of
@@ -479,7 +525,7 @@ def p_frame_stages(torch, kern, frame, ref, qp, mc_mv=None):
     ref_y, ref_cb, ref_cr, prev_mv = ref
     h, w = y.shape
     wmb, hmb = w // 16, h // 16
-    ext = WINDOW + 2
+    ext = window + 2
     ext_c = ext // 2 + 1
     metric_id, lam = me_params(qp)
     mbq = lambda x: blocks_to_mbq(x, wmb, hmb)  # noqa: E731
@@ -494,12 +540,12 @@ def p_frame_stages(torch, kern, frame, ref, qp, mc_mv=None):
         return outs[name]
 
     planes = run("interp", ref_y, ext)
-    im = run("me_int", y, planes[0], ext, WINDOW, metric_id)
-    c1, c2_blk, c2, q2ok = me_centres(im, prev_mv, wmb, hmb, WINDOW)
+    im = run("me_int", y, planes[0], ext, window, metric_id)
+    c1, c2_blk, c2, q2ok = me_centres(im, prev_mv, wmb, hmb, window)
     q1, q2 = run("me_qpel", y, planes, c1, c2_blk, ext, metric_id)
     maxdiff = adaptive_maxdiff(y, wmb, hmb, -1)
     dec = run("wavefront_p", y, planes, mbq(im), mbq(c1), mbq(q1), c2, mbq(q2),
-              q2ok, maxdiff, wmb, hmb, WINDOW, ext, metric_id, lam)
+              q2ok, maxdiff, wmb, hmb, window, ext, metric_id, lam)
     pred = run("mc", planes, pad_chroma(ref_cb, ext_c), pad_chroma(ref_cr, ext_c),
                dec["mv"] if mc_mv is None else mc_mv, ext, ext_c, wmb, hmb)
     levels = run("residual_recon", y, cb, cr, *pred, dec["skip"], maxdiff, wmb,
@@ -617,19 +663,20 @@ def p_work(torch, args, outs) -> dict:
 
 
 def check_p_kernels(torch, label, ref, src, prev_mv, qp, mc_mv=None,
-                    time_it=False, blocks=()):
+                    time_it=False, blocks=(), window=WINDOW):
     """K2-K5 kernel vs plain twin on one frame pair, each kernel fed the
     plain chain's inputs. ref / src: (y, cb, cr) uint8 planes on the card;
     prev_mv: the previous frame's MVs (nmb, 4, 2); mc_mv: MVs for K5 (the
     plain decision's when None); blocks: grid sizes to force on K4 in
-    further checks. Returns {kernel: (max_abs_err, ms, plain_ms, bound_ms,
-    bound_by)} (times None unless time_it; every timed call is held to
-    the plain output too) and the plain decision."""
+    further checks; window: the search range (ext = window + 2). Returns
+    {kernel: (max_abs_err, ms, plain_ms, bound_ms, bound_by, queued_ms)}
+    (times None unless time_it; every timed call is held to the plain
+    output too) and the plain decision."""
     from h264_fer_tpu_torch.kernels.wavefront_p import pframe_decide
 
     kern = p_kernels(plain=False)
     plain, args, outs = p_frame_stages(torch, p_kernels(plain=True), src,
-                                       (*ref, prev_mv), qp, mc_mv)
+                                       (*ref, prev_mv), qp, mc_mv, window)
     work = p_work(torch, args, outs)
     out = {}
     for name in P_KERNELS:
@@ -644,21 +691,22 @@ def check_p_kernels(torch, label, ref, src, prev_mv, qp, mc_mv=None,
                 print(f"{name} {label} qp{qp} grid of {b} blocks: max_abs_err {err_b}",
                       flush=True)
                 err = max(err, err_b)
-        ms = plain_ms = None
+        ms = plain_ms = queued_ms = None
         if time_it:
             def check(o, name=name, want=want):
                 if max_err(torch, kernel_outputs(o), want):
                     raise AssertionError(f"{name} != plain in a timed call at {label} qp{qp}")
-            ms = cuda_ms(torch, lambda: kern[name](*a), 20, check)
+            ms, queued_ms = kernel_ms(torch, lambda: kern[name](*a), 20, check)
             plain_ms = cuda_ms(torch, lambda: plain[name](*a), 1)
         bound_ms, bound_by = bound(*work[name])
         print(f"{name} {label} qp{qp}: max_abs_err {err} (tolerance 0)"
-              + (f", kernel {ms:.4f} ms, plain {plain_ms:.2f} ms" if time_it else "")
+              + (f", kernel {ms:.4f} ms (queued {queued_ms:.4f}), plain {plain_ms:.2f} ms"
+                 if time_it else "")
               + f", bound {bound_ms:.4f} ms ({bound_by}, {work[name][0]} bytes)",
               flush=True)
         if err != 0:
             raise AssertionError(f"{name} kernel != plain at {label} qp{qp}")
-        out[name] = (err, ms, plain_ms, bound_ms, bound_by)
+        out[name] = (err, ms, plain_ms, bound_ms, bound_by, queued_ms)
     return out, outs["wavefront_p"]
 
 
@@ -666,8 +714,10 @@ def check_p_small_grids(torch, dev):
     """K2-K5 on QCIF: random previous MVs up to beyond the search limit (so
     q2 lanes are both valid and masked, and c2 is clamped), random MC MVs
     over the whole ±lim range (with K4's grid forced to 1 and 3 blocks too),
-    and flat content where every score ties; then a tall (64x208) and a
-    one-MB-wide (16x144) content pair."""
+    and flat content where every score ties; the same random MVs at window
+    7, whose luma rows (W + 18 bytes) are only 2-byte aligned where window
+    8's chroma rows are; then a tall (64x208), a one-MB-wide (16x144) and a
+    one-MB-tall (176x16) content pair."""
     rng = np.random.default_rng(SEED)
     lim = 4 * (WINDOW + 2) - 4
 
@@ -686,7 +736,12 @@ def check_p_small_grids(torch, dev):
                         mc_mv=rand_mv(-lim, lim + 1, 99),
                         blocks=(1, 3) if qp == QP else ())
         check_p_kernels(torch, "176x144 flat (ties)", flat, flat, prev, qp)
-    for w, h in ((64, 208), (16, 144)):
+    lim7 = 4 * (7 + 2) - 4
+    for qp in P_QPS:
+        check_p_kernels(torch, "176x144 window 7 random MVs", qcif[0], qcif[1],
+                        rand_mv(-lim7 - 4, lim7 + 5, 99), qp,
+                        mc_mv=rand_mv(-lim7, lim7 + 1, 99), window=7)
+    for w, h in ((64, 208), (16, 144), (176, 16)):
         f0, f1 = pair(w, h)
         nmb = (w // 16) * (h // 16)
         check_p_kernels(torch, f"{w}x{h}", f0, f1, rand_mv(-lim - 4, lim + 5, nmb), QP)
@@ -842,10 +897,10 @@ def check_mixed_kernels(torch, label, frame, qp, mode4=None, time_it=False,
     """K7 (recon and levels), K4x4 and K6 kernel vs plain twin on one frame
     (y, cb, cr) on the card, each fed the plain chain's inputs: the decided
     modes, or Intra4x4 modes mode4 in their place; blocks: grid sizes to
-    force on K7 and K6 in further checks. K7 runs both ways, with its
+    force on K7, K4x4 and K6 in further checks. K7 runs both ways, with its
     levels (chroma_frame) and recon only (chroma_recon). Returns ({kernel:
-    (max_abs_err, ms, plain_ms, bound_ms, bound_by)} (times None unless
-    time_it; every timed call is held to the plain output too), the I4x4
+    (max_abs_err, ms, plain_ms, bound_ms, bound_by, queued_ms)} (times None
+    unless time_it; every timed call is held to the plain output too), the I4x4
     MB count of K6, K4x4's launches in its own path run when time_it, and
     the plain chain's slice payload of the frame)."""
     from h264_fer_tpu_torch.kernels.wavefront_i4x4 import i4x4_luma, i4x4_luma_plain
@@ -882,6 +937,8 @@ def check_mixed_kernels(torch, label, frame, qp, mode4=None, time_it=False,
             "wavefront_mixed": err6(got6)}
     for b in blocks:
         for name, err_b in (("wavefront_mixed", err6(mixed_luma(*args, blocks=b))),
+                            ("wavefront_i4x4", max_err(torch, i4x4_luma(y, m4, qp, blocks=b),
+                                                       want4)),
                             ("wavefront_chroma", max_err(torch, chroma_frame(
                                 cb, cr, cm, qpc, blocks=b), want7)),
                             ("wavefront_chroma recon only", max_err(torch, chroma_recon(
@@ -911,24 +968,25 @@ def check_mixed_kernels(torch, label, frame, qp, mode4=None, time_it=False,
             if err6(out):
                 raise AssertionError(f"K6 != plain in a timed call at {label} qp{qp}")
 
-        times = {"wavefront_chroma": (cuda_ms(torch, lambda: chroma_frame(cb, cr, cm, qpc), 20,
-                                              same_as(torch, want7, f"K7 {label} qp{qp}")),
+        times = {"wavefront_chroma": (kernel_ms(torch, lambda: chroma_frame(cb, cr, cm, qpc),
+                                                20, same_as(torch, want7, f"K7 {label} qp{qp}")),
                                       plain7_ms),
-                 "wavefront_i4x4": (cuda_ms(torch, lambda: i4x4_luma(y, m4, qp), 20, check4),
+                 "wavefront_i4x4": (kernel_ms(torch, lambda: i4x4_luma(y, m4, qp), 20, check4),
                                     plain4_ms),
-                 "wavefront_mixed": (cuda_ms(torch, lambda: mixed_luma(*args), 10, check6),
+                 "wavefront_mixed": (kernel_ms(torch, lambda: mixed_luma(*args), 10, check6),
                                      plain6_ms)}
     out = {}
     for name in MIXED_KERNELS:
         bound_ms, bound_by = bound(*work[name])
-        ms, plain_ms = times.get(name, (None, None))
+        (ms, queued_ms), plain_ms = times.get(name, ((None, None), None))
         print(f"{name} {label} qp{qp}: max_abs_err {errs[name]} (tolerance 0)"
-              + (f", kernel {ms:.4f} ms, plain {plain_ms:.1f} ms" if time_it else "")
+              + (f", kernel {ms:.4f} ms (queued {queued_ms:.4f}), plain {plain_ms:.1f} ms"
+                 if time_it else "")
               + f", bound {bound_ms:.4f} ms ({bound_by}, {work[name][0]} bytes)",
               flush=True)
         if errs[name] != 0:
             raise AssertionError(f"{name} kernel != plain at {label} qp{qp}")
-        out[name] = (errs[name], ms, plain_ms, bound_ms, bound_by)
+        out[name] = (errs[name], ms, plain_ms, bound_ms, bound_by, queued_ms)
     print(f"K6 {label} qp{qp}: {n4} I4x4 MBs of {nmb}", flush=True)
     return out, n4, k4_launches, mixed_payload(dec, cm, cdc, cac, want6)
 
@@ -1009,8 +1067,8 @@ def k8_ops(bs_v, bs_h, luma_lines: int, chroma_lines: int) -> float:
 def check_k8(torch, label, state, qp, time_it=False, blocks=None):
     """K8 kernel vs plain twin on one frame's state (y, cb, cr uint8,
     mb_intra, nz_luma, mv) on the card, with the grid forced to `blocks`
-    blocks if given. Returns (max_abs_err, ms, plain_ms, bound_ms, bound_by)
-    (ms and the bound None unless time_it; every timed call is held to the
+    blocks if given. Returns (max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    queued_ms) (times and the bound None unless time_it; every timed call is held to the
     plain output) and the number of samples the filter changed."""
     from h264_fer_tpu_torch.kernels.deblock import bs_maps, deblock_frame, deblock_frame_plain
     from h264_fer_tpu_torch.ops.transform import chroma_qp
@@ -1021,23 +1079,25 @@ def check_k8(torch, label, state, qp, time_it=False, blocks=None):
     want, plain_ms = timed_once(torch, lambda: deblock_frame_plain(*state, qp, qpc))
     err = max_err(torch, got, want)
     changed = sum(int((g != p).sum()) for g, p in zip(got, state[:3]))
-    ms = bound_ms = bound_by = None
+    ms = queued_ms = bound_ms = bound_by = None
     timing = ""
     if time_it:
-        ms = cuda_ms(torch, lambda: deblock_frame(*state, qp, qpc, blocks=blocks), 20,
-                     check=same_as(torch, want, f"K8 {label} qp{qp}"))
+        ms, queued_ms = kernel_ms(
+            torch, lambda: deblock_frame(*state, qp, qpc, blocks=blocks), 20,
+            check=same_as(torch, want, f"K8 {label} qp{qp}"))
         h, w = state[0].shape
         bs_v, bs_h = bs_maps(*state[3:], w // 16, h // 16)
         lines = k8_filtered_lines(state, qp, qpc)
         bound_ms, bound_by = bound(nbytes(*state, *got), k8_ops(bs_v, bs_h, *lines))
-        timing = (f", kernel {ms:.4f} ms (every timed call == plain), bound "
+        timing = (f", kernel {ms:.4f} ms (queued {queued_ms:.4f}; every timed call =="
+                  " plain), bound "
                   f"{bound_ms:.4f} ms ({bound_by}; {lines[0]} luma + {lines[1]} chroma "
                   "lines filtered)")
     print(f"K8 {label} qp{qp}: max_abs_err {err} (tolerance 0), {changed} samples "
           f"filtered, plain {plain_ms:.1f} ms" + timing, flush=True)
     if err != 0:
         raise AssertionError(f"K8 kernel != plain at {label} qp{qp}")
-    return (err, ms, plain_ms, bound_ms, bound_by), changed
+    return (err, ms, plain_ms, bound_ms, bound_by, queued_ms), changed
 
 
 def encoder_state(enc):
@@ -1205,6 +1265,7 @@ def main() -> int:
     if stream != plain_chain_stream(torch, dev, enc, frames):
         raise AssertionError("kernel-path stream != plain-chain stream")
     parse_stream(stream, N_FRAMES, W, H, QP)
+    check_bytes("all-intra", stream)
     qcif = content(3, 176, 144)
     s_gpu = GopIntraEncoder(176, 144, QP, device=dev).encode_sequence(qcif)
     s_cpu = GopIntraEncoder(176, 144, QP, device="cpu").encode_sequence(qcif)
@@ -1281,6 +1342,7 @@ def main() -> int:
     if not stream.startswith(plain) or not rest.startswith(b"\x00\x00\x00\x01\x21"):
         raise AssertionError("IPPP first frames != plain-chain stream")
     parse_ippp_stream(stream, lens, W, H, QP)
+    check_bytes("IPPP", stream)
     qcif = content(6, 176, 144)
     s_gpu = GopIpppEncoder(176, 144, QP, gop_len=4, device=dev).encode_sequence(qcif)
     s_cpu = GopIpppEncoder(176, 144, QP, gop_len=4, device="cpu").encode_sequence(qcif)
@@ -1310,15 +1372,14 @@ def main() -> int:
         print("device busy share: not measured (the profiler saw no device time)")
 
     # ---- 6. K4x4, K7 and K6 kernels vs plain twins ----------------------------
-    nwave = W // 16 + 2 * (H // 16 - 1)
-    # random Intra4x4 modes in every block; K7's and K6's grids forced to 1
-    # and 3 blocks on QCIF (and on 64x208 below)
+    # random Intra4x4 modes in every block; the three grids forced to 1 and
+    # 3 blocks on QCIF, 16x176 and 176x16 (and on 64x208 below)
     for label, w, h in small + [("16x176", 16, 176), ("176x16", 176, 16)]:
         f = tuple(torch.from_numpy(p).to(dev) for p in content(1, w, h)[0])
         m4 = torch.from_numpy(rng.integers(0, 9, ((w // 16) * (h // 16), 16))
                               .astype(np.int32)).to(dev)
         check_mixed_kernels(torch, f"{label} random modes", f, 30, mode4=m4,
-                            blocks=(1, 3) if (w, h) == (176, 144) else ())
+                            blocks=(1, 3) if (w, h) != (80, 176) else ())
     _, n4, _, _ = check_mixed_kernels(torch, "64x208", tuple(
         torch.from_numpy(p).to(dev) for p in tall_frame()), 30, blocks=(1, 3))
     if not 0 < n4 < 52:
@@ -1334,8 +1395,8 @@ def main() -> int:
             if not 0 < n4 < (W // 16) * (H // 16):
                 raise AssertionError(f"K6 chose I4x4 at {n4} MBs: the arbitration "
                                      f"should run both ways at QP {QP}")
-    if k4_launches != nwave:
-        raise AssertionError(f"K4x4 launched {k4_launches} times, expected {nwave}")
+    if k4_launches != 1:
+        raise AssertionError(f"K4x4 launched {k4_launches} times in one call, expected 1")
     print(f"K4x4, K7 and K6 checks done on {name}", flush=True)
 
     # ---- 7. mixed all-intra path ------------------------------------------------
@@ -1362,6 +1423,7 @@ def main() -> int:
     if not stream.startswith(plain) or not rest.startswith(b"\x00\x00\x00\x01\x25"):
         raise AssertionError("mixed first frame != plain-chain stream")
     parse_stream(stream, N_FRAMES, W, H, QP)
+    check_bytes("mixed", stream)
     qcif = content(3, 176, 144)
     s_gpu = GopIntraEncoder(176, 144, QP, mode="mixed", device=dev).encode_sequence(qcif)
     s_cpu = GopIntraEncoder(176, 144, QP, mode="mixed", device="cpu").encode_sequence(qcif)
@@ -1445,6 +1507,7 @@ def main() -> int:
     if not stream.startswith(plain) or not rest.startswith(b"\x00\x00\x00\x01\x21"):
         raise AssertionError("session first frames != plain-chain stream")
     parse_session_stream(stream, enc.stats, W, H, QP)
+    check_bytes("session", stream)
     qcif = content(6, 176, 144)
     for iframe, n_qcif, every in (("i16", 6, 4), ("mixed", 3, 2)):
         qcfg = EncoderConfig(qp=QP, intra_every=every, deblock=True)
@@ -1515,13 +1578,13 @@ def main() -> int:
         if timing is None:  # a P kernel: its QP 28 run, errors over all tiers
             err = max(pk[q][kname][0] for q in P_QPS)
             timing = pk[QP][kname][1:]
-        ms, plain_ms, bound_ms, bound_by = timing
+        ms, plain_ms, bound_ms, bound_by, queued_ms = timing
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"{csrc}{sources.get(kname, kname)}.cu",
             "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None})
+            "library_ms": None, "queued_ms": queued_ms})
     print(name)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

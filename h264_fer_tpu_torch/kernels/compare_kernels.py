@@ -1,18 +1,22 @@
-"""Time the wavefront kernels of another checkout and of this one on one
-card, in turns (other, this, this, other):
+"""Time the kernels of another checkout and of this one on one card, in
+turns (other, this, this, other):
 
     python3 -m h264_fer_tpu_torch.kernels.compare_kernels OTHER_CHECKOUT
 
 run from the root of this checkout, OTHER_CHECKOUT being, for example, the
 parent commit unpacked with `git archive`. Each turn is a process of its
 own started in one checkout's root (the two share module names); it builds
-that checkout's kernels, times K3, K4, K6, K4x4, K1t, K1, K7 (through
-chroma_frame: recon and levels) and K8 (on the session encoder's P-frame
-state) with CUDA events at 1920x1088, QP 28, on chip_smoke.py's inputs
-(K3 and K4 on the chained P frame), and reports a checksum of each
+that checkout's kernels, times K2, K3, K4, K5, K6, K4x4, K1t, K1, K7
+(through chroma_frame: recon and levels) and K8 (on the session encoder's
+P-frame state) with CUDA events at 1920x1088, QP 28, on chip_smoke.py's
+inputs (K2-K5 on the chained P frame), and reports a checksum of each
 kernel's outputs, so that the turns also show both checkouts compute the
-same function.
-Prints one line per turn and one per kernel.
+same function. Each kernel is timed two ways, with the same code in both
+checkouts: "queued", its calls issued behind a kernel that spins the card
+(the device's time for the work, back to back), and "paced", its calls
+issued one after another as the host gets to them (what the path sees
+when the host issues more slowly than the card runs).
+Prints one line per turn and two per kernel.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ sys.path.insert(0, ".")
 import torch
 import chip_smoke as cs
 from h264_fer_tpu_torch.kernels.wavefront_p import pframe_decide
+from h264_fer_tpu_torch.kernels.mc import mc_bulk
+from h264_fer_tpu_torch.kernels.me_int import integer_score_map
 from h264_fer_tpu_torch.kernels.wavefront_mixed import mixed_luma
 from h264_fer_tpu_torch.kernels.wavefront_i4x4 import i4x4_luma
 from h264_fer_tpu_torch.kernels.me_qpel import qpel_refine_maps
@@ -49,9 +55,31 @@ enc = Encoder(cs.W, cs.H, EncoderConfig(qp=cs.QP), device=dev)
 for f in cs.content(2, cs.W, cs.H):
     enc.encode_frame(*f)
 state = cs.encoder_state(enc)  # the P frame's state before the filter
+
+
+def timed(fn, reps, queued):
+    """Mean ms of fn() over reps calls between two CUDA events: a copy of
+    chip_smoke.cuda_ms (queued / paced), kept only while the checkout
+    compared with may lack cuda_ms's `queued` option; once both have it,
+    call cs.cuda_ms and delete this copy."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(198_000 * reps)  # chip_smoke.QUEUE_CYCLES_PER_REP
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 runs = {
+    "K2": (lambda: integer_score_map(*args["me_int"]), 20),
     "K3": (lambda: qpel_refine_maps(*args["me_qpel"]), 20),
     "K4": (lambda: pframe_decide(*args["wavefront_p"]), 20),
+    "K5": (lambda: mc_bulk(*args["mc"]), 20),
     "K6": (lambda: mixed_luma(*m), 10),
     "K4x4": (lambda: i4x4_luma(y, m[2], cs.QP), 20),
     "K1t": (lambda: i16_frame(y, cb, cr, m16, cm, cs.QP, qpc), 20),
@@ -64,13 +92,13 @@ for name, (fn, reps) in runs.items():
     res = fn()
     ts = list(res.values()) if isinstance(res, dict) else list(res)
     digest = sum(int(t.to(torch.int64).sum()) * (i + 1) for i, t in enumerate(ts))
-    out[name] = (cs.cuda_ms(torch, fn, reps), digest)
+    out[name] = (timed(fn, reps, True), timed(fn, reps, False), digest)
 print("RESULT " + json.dumps(out), flush=True)
 '''
 
 
 def turn(root: str) -> dict:
-    """{kernel: (ms, checksum)} of the checkout at `root`."""
+    """{kernel: (queued ms, paced ms, checksum)} of the checkout at `root`."""
     proc = subprocess.run([sys.executable, "-c", TURN], cwd=root, capture_output=True,
                           text=True)
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
@@ -89,13 +117,15 @@ def main(argv) -> int:
     for label, root in (("other", other), ("this", "."), ("this", "."), ("other", other)):
         res = turn(root)
         results.append((label, res))
-        print(label, {k: round(v[0], 4) for k, v in res.items()}, flush=True)
+        print(label, {k: (round(v[0], 4), round(v[1], 4)) for k, v in res.items()},
+              flush=True)
     for name in results[0][1]:
-        ms = {lab: [round(r[name][0], 4) for lb, r in results if lb == lab]
-              for lab in ("other", "this")}
-        same = len({r[name][1] for _, r in results}) == 1
-        print(f"{name}: other {ms['other']} ms, this {ms['this']} ms; "
-              f"outputs equal across checkouts: {same}")
+        for i, how in ((0, "queued"), (1, "paced")):
+            ms = {lab: [round(r[name][i], 4) for lb, r in results if lb == lab]
+                  for lab in ("other", "this")}
+            print(f"{name} {how}: other {ms['other']} ms, this {ms['this']} ms")
+        same = len({r[name][2] for _, r in results}) == 1
+        print(f"{name}: outputs equal across checkouts: {same}")
     return 0
 
 

@@ -100,14 +100,4 @@ __constant__ int kInvZigzag[16] = {0, 1, 5, 6, 2, 4, 7, 12,
 __constant__ int kRasterToZ[16] = {0, 1, 4, 5, 2, 3, 6, 7,
                                    8, 9, 12, 13, 10, 11, 14, 15};
 
-// Rows r0..r1 of the MBs on knight wave d = 2r + c (0 <= c < wmb); none
-// when r1 < r0. r0 = ceil((d - wmb + 1) / 2), clamped at 0: the halving is
-// done only on a positive value, as C++ division truncates toward zero.
-__host__ __device__ inline void knight_rows(int d, int wmb, int hmb, int* r0,
-                                            int* r1) {
-  const int t = d - wmb + 2;
-  *r0 = t > 0 ? t / 2 : 0;
-  *r1 = d / 2 < hmb - 1 ? d / 2 : hmb - 1;
-}
-
 }  // namespace

@@ -1,7 +1,7 @@
 // One-launch dataflow schedule of a frame's macroblocks, shared by the
 // persistent wavefronts K4 (csrc/wavefront_p.cu), K6
-// (csrc/wavefront_mixed.cu), K8 (csrc/deblock.cu) and K1 / K1t and K7
-// (csrc/wavefront_i16.cu).
+// (csrc/wavefront_mixed.cu), K4x4 (csrc/wavefront_i4x4.cu), K8
+// (csrc/deblock.cu) and K1 / K1t and K7 (csrc/wavefront_i16.cu).
 //
 // Instead of one launch per dependency wave, one launch runs a persistent
 // grid whose blocks loop:
@@ -22,6 +22,10 @@
 //     state. K8's top edge reads, as p samples, columns 16c+13..16c+15 of
 //     rows 16r-4..16r-1, which the top-right MB's left-edge filter writes
 //     and which the norm's raster order filters first.
+//   - K4x4 takes tickets in knight order and waits on the same four
+//     neighbours, but per 4x4-block step, not per MB: it uses steps 1-2 of
+//     the loop (dataflow_next) and, in place of the ready flags, edge
+//     slots that carry their samples (csrc/wavefront_i4x4.cu).
 //   - K1, K1t and K7 wait on left, top and top-left (kIntraSet) and take
 //     tickets in diagonal order (d = r + c, then r): Intra_16x16 and
 //     chroma prediction read the top row, left column and corner, never a

@@ -5,11 +5,15 @@ A launch hands out its MBs by ticket in an order uploaded by `schedule`;
 each MB waits for the ready flags of the neighbours in its kernel's wait
 set, codes itself and sets its own flag. The order is topological for the
 wait set, which is what makes a grid of any size finish:
-- K4 (csrc/wavefront_p.cu), K6 (csrc/wavefront_mixed.cu) and K8
-  (csrc/deblock.cu) wait on left, top, top-right and top-left and take
-  `knight_order`: K4's MV predictor and K6's Intra_4x4 prediction read the
-  top-right MB's final state, and K8's top edge reads samples that the
-  top-right MB's left edge filters first in the norm's raster order;
+- K4 (csrc/wavefront_p.cu), K6 (csrc/wavefront_mixed.cu), K4x4
+  (csrc/wavefront_i4x4.cu) and K8 (csrc/deblock.cu) wait on left, top,
+  top-right and top-left and take `knight_order`: K4's MV predictor and
+  the Intra_4x4 prediction of K6 and K4x4 read the top-right MB's final
+  state (block 5 reads its row 15), and K8's top edge reads samples that
+  the top-right MB's left edge filters first in the norm's raster order.
+  K4x4 waits per 4x4-block step on edge slots that carry the samples, in
+  place of the ready flags (8 per MB, zeroed with the ticket counter in
+  one buffer: wavefront_i4x4.scratch);
 - K1 / K1t and K7 (csrc/wavefront_i16.cu) wait on left, top and top-left
   and take `diagonal_order`: Intra_16x16 and chroma prediction read no
   top-right sample, so the diagonals d = r + c are the shortest chain.

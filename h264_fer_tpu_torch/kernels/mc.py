@@ -2,10 +2,13 @@
 
 `mc_bulk` is the wrapper of the CUDA kernel csrc/mc.cu, which replaces the
 Pallas kernel _mc_kernel (h264_fer_tpu/kernels/mc_pallas.py:42, via
-mc_bulk_pallas_impl at :98): luma and both chroma planes in one launch. On
-a CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
-`mc_luma_bulk` and `mc_chroma_bulk`, the XLA contract twins
-(codec/tpu_pframe.py:284,411) in plain PyTorch.
+mc_bulk_pallas_impl at :98): luma and both chroma planes in one launch,
+one thread per quadrant row reading aligned 32-bit words. On a CUDA tensor
+it launches the kernel or raises; on a CPU tensor it runs `mc_luma_bulk`
+and `mc_chroma_bulk`, the XLA contract twins (codec/tpu_pframe.py:284,411)
+in plain PyTorch. On the CUDA route it refuses the bases the kernel
+cannot read in words: planes and padded chroma not 4-byte aligned, MVs
+not 8 (`check_aligned`).
 """
 
 from __future__ import annotations
@@ -78,10 +81,22 @@ def mc_bulk_plain(planes, cb_pad, cr_pad, mv, ext: int, ext_c: int,
             mc_chroma_bulk(cr_pad, mv, ext_c, wmb, hmb))
 
 
+def check_aligned(planes, cb_pad, cr_pad, mv) -> None:
+    """Raise ValueError for a planes / cb_pad / cr_pad base that is not
+    4-byte aligned or an mv base that is not 8-byte aligned: the kernel
+    reads them in aligned words (its plain twin has no such need)."""
+    for name, t, align in (("planes", planes, 4), ("cb_pad", cb_pad, 4),
+                           ("cr_pad", cr_pad, 4), ("mv", mv, 8)):
+        if t.data_ptr() % align:
+            raise ValueError(f"{name}: the kernel reads it in aligned {align}-byte words")
+
+
 def mc_bulk(planes, cb_pad, cr_pad, mv, ext: int, ext_c: int,
             wmb: int, hmb: int):
     """K5: mc_bulk_plain's function. CUDA tensors (planes and padded chroma
-    uint8, mv int32) go to the kernel, CPU tensors to the plain version."""
+    uint8, mv int32) go to the kernel, CPU tensors to the plain version.
+    On the kernel's route, raises ValueError for bases it cannot read in
+    words (check_aligned)."""
     if planes.device.type == "cpu":
         return mc_bulk_plain(planes, cb_pad, cr_pad, mv, ext, ext_c, wmb, hmb)
     if planes.device.type != "cuda":
@@ -94,6 +109,7 @@ def mc_bulk(planes, cb_pad, cr_pad, mv, ext: int, ext_c: int,
     build.check_tensor("cb_pad", cb_pad, cshape, torch.uint8, dev)
     build.check_tensor("cr_pad", cr_pad, cshape, torch.uint8, dev)
     build.check_tensor("mv", mv, (wmb * hmb, 4, 2), I32, dev)
+    check_aligned(planes, cb_pad, cr_pad, mv)
     vp, i = ctypes.c_void_p, ctypes.c_int
     fn = build.function("mc", "mc_bulk", [vp] * 7 + [i] * 4 + [vp])
     pred_y = torch.empty((h, w), dtype=I32, device=dev)

@@ -1,5 +1,5 @@
-"""Phase profile of the one-launch wavefronts K4, K6, K8, K1t and K7 on
-the card:
+"""Phase profile of the one-launch wavefronts K4, K6, K4x4, K8, K1t and K7
+on the card:
 
     python3 -m h264_fer_tpu_torch.kernels.profile_dataflow
 
@@ -12,9 +12,12 @@ the copies with nvcc apart from the package's libraries, checks their
 outputs against the real kernels, and prints per kernel: the mean cycles
 per MB of each phase, the flag hop (wait end after the last waited
 neighbour's publish) and the time per step of the critical path (a knight
-diagonal d = c + 2r for K4, K6 and K8, an anti-diagonal d = r + c for
+diagonal d = c + 2r for K4, K6, K4x4 and K8, an anti-diagonal d = r + c for
 K1t and K7, which share one instrumented build). The stamps cost time of their own: the phase split, not the total,
-is what it measures.
+is what it measures. K4x4 waits per 4x4-block step on its neighbours'
+edge slots, not per MB: its report gives the cycles of each step's wait,
+of the body without them and of its publishes, the hop of the left edge's
+first slot and the time per knight diagonal.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ PROF_DIR = build.BUILD_DIR / "profile"
 
 HEAD = r'''
 __device__ unsigned long long g_prof[32];
-__device__ unsigned long long g_ts[3][8160];
+__device__ unsigned long long g_ts[4][8160];
 __device__ __forceinline__ unsigned long long gtime() {
   unsigned long long t; asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t)); return t; }
 #define PROF(k) if (threadIdx.x == 0) { long long _n = clock64(); \
@@ -44,7 +47,7 @@ extern "C" int prof_read(unsigned long long* p, unsigned long long* ts) {
   cudaMemcpyFromSymbol(p, g_prof, sizeof(g_prof));
   return (int)cudaMemcpyFromSymbol(ts, g_ts, sizeof(g_ts)); }
 extern "C" int prof_reset() {
-  static unsigned long long z[32 + 3 * 8160];
+  static unsigned long long z[32 + 4 * 8160];
   cudaMemcpyToSymbol(g_prof, z, sizeof(g_prof));
   return (int)cudaMemcpyToSymbol(g_ts, z, sizeof(g_ts)); }
 '''
@@ -97,6 +100,46 @@ K6_PHASES = {0: "ticket", 1: "prefetch", 2: "wait", 3: "neighbour state",
              4: "candidates and their sizes", 9: "choice, state, publish",
              10: "outputs", 20: "I16 candidate (thread 0)",
              21: "I4x4 candidate (thread 256)", 22: "I4x4 and its sizes (thread 256)"}
+
+K4X4_STAMPS = [
+    # the hook carries its MB's index for the stamps below
+    ("  int need, lane;\n", "  int need, lane, mb;\n"),
+    ("kNeed[lane] : 0, lane, false};\n", "kNeed[lane] : 0, lane, mb, false};\n"),
+    ("  for (;;) {\n", "  for (;;) {\n    long long _pt = clock64();\n"),
+    ("    if (mb < 0) return;\n", "    if (mb < 0) return;\n    PROF(0)\n"),
+    ("    cp_async_wait_all();\n    __syncwarp();\n",
+     "    cp_async_wait_all();\n    __syncwarp();\n    PROF(1)\n"),
+    ("    i4x4_mb(s_src, m4, nb, f.qp, f.tab, f.levels + 256 * mb, sc, lane, hook);\n",
+     "    i4x4_mb(s_src, m4, nb, f.qp, f.tab, f.levels + 256 * mb, sc, lane, hook);\n"
+     "    PROF(2)\n"),
+    ("      *reinterpret_cast<uint2*>(f.yrec + (size_t)(y0 + y) * W + x0 + x) = v;\n    }\n",
+     "      *reinterpret_cast<uint2*>(f.yrec + (size_t)(y0 + y) * W + x0 + x) = v;\n    }\n"
+     "    PROF(3) TS(3) if (threadIdx.x == 0) atomicAdd(&g_prof[31], 1ull);\n"),
+    # the waits of each step, on lane 0 (from the hook's start to its barrier)
+    ("    if (t == 5 || t > 6) return;  // steps that read no new neighbour slot\n",
+     "    if (t == 5 || t > 6) return;  // steps that read no new neighbour slot\n"
+     "    long long _w = clock64();\n"),
+    ("    __syncwarp();\n  }\n\n  // lane `who` publishes",
+     "    __syncwarp();\n    if (lane == 0) atomicAdd(&g_prof[10 + t], (unsigned long long)"
+     "(clock64() - _w));\n  }\n\n  // lane `who` publishes"),
+    # the left edge's first slot: its publish, and the right neighbour's wait for it
+    ("    bool wait = mine != nullptr && !got && need <= t;\n",
+     "    bool wait = mine != nullptr && !got && need <= t;\n"
+     "    if (t == 0 && lane == 0 && wait) g_ts[1][mb] = gtime();\n"),
+    ("    got = true;\n", "    got = true;\n    if (lane == 0) g_ts[2][mb] = gtime();\n"),
+    ("    st_relaxed64(own + k, 1ull << 32 | v);\n",
+     "    st_relaxed64(own + k, 1ull << 32 | v);\n    if (k == 0) g_ts[0][mb] = gtime();\n"),
+    # lane 0's publishes (it makes 6 of the MB's 8)
+    ("  __device__ __forceinline__ void after(int t) const {\n    if (t == 3) publish(0, 0);\n",
+     "  __device__ __forceinline__ void after(int t) const {\n    long long _a = clock64();\n"
+     "    if (t == 3) publish(0, 0);\n"),
+    ("      publish(1, 7);\n    }\n  }\n};\n",
+     "      publish(1, 7);\n    }\n    if (lane == 0) atomicAdd(&g_prof[20], (unsigned long long)"
+     "(clock64() - _a));\n  }\n};\n"),
+]
+K4X4_WAITS = {10 + t: f"wait before step {t} (lane 0)" for t in (0, 1, 2, 3, 4, 6)}
+K4X4_PHASES = {0: "ticket", 1: "source, modes, borders", 2: "10 steps with their waits",
+               3: "recon store", **K4X4_WAITS, 20: "publishes (lane 0, in the steps)"}
 
 K8_STAMPS = [
     ("  for (;;) {\n", "  for (;;) {\n    long long _pt = clock64();\n"),
@@ -206,7 +249,7 @@ def report(lib, label: str, wmb: int, hmb: int, phases: dict, run, neighbours=FO
     end.record()
     torch.cuda.synchronize()
     acc = np.zeros(32, np.uint64)
-    ts = np.zeros((3, 8160), np.uint64)
+    ts = np.zeros((4, 8160), np.uint64)
     lib.prof_read(acc.ctypes.data, ts.ctypes.data)
     n = max(int(acc[31]), 1)
     print(f"{label}: {start.elapsed_time(end):.4f} ms with stamps, {n} MBs; "
@@ -232,13 +275,49 @@ def report(lib, label: str, wmb: int, hmb: int, phases: dict, run, neighbours=FO
           f"ns: median {np.median(step):.0f}", flush=True)
 
 
+def report_steps(lib, label: str, wmb: int, hmb: int, phases: dict, run) -> None:
+    """report() for K4x4, whose MBs wait per step on their neighbours' edge
+    slots: the phases and the waits of each step, the hop of the left
+    edge's first slot (the right neighbour's fetch end after the slot's
+    publish, where the fetch started first) and the time per knight
+    diagonal of the MBs' completion."""
+    run()
+    lib.prof_reset()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    acc = np.zeros(32, np.uint64)
+    ts = np.zeros((4, 8160), np.uint64)
+    lib.prof_read(acc.ctypes.data, ts.ctypes.data)
+    n = max(int(acc[31]), 1)
+    print(f"{label}: {start.elapsed_time(end):.4f} ms with stamps, {n} MBs; "
+          "mean cycles per MB (lane 0):")
+    for i, phase in phases.items():
+        print(f"  {phase:34s} {acc[i] / n:10.1f}")
+    body = (int(acc[2]) - sum(int(acc[i]) for i in K4X4_WAITS)) / n
+    print(f"  {'10 steps less the waits (body)':34s} {body:10.1f}")
+    nmb = wmb * hmb
+    pub, fetch0, fetch1, done = (ts[i, :nmb].astype(np.int64) for i in range(4))
+    mbs = [mb for mb in range(nmb) if mb % wmb and fetch0[mb] < pub[mb - 1]]
+    hops = np.array([fetch1[mb] - pub[mb - 1] for mb in mbs] or [0])
+    d = np.array([mb % wmb + 2 * (mb // wmb) for mb in range(nmb)])
+    step = np.diff([done[d == k].max() for k in range(d.max() + 1)])
+    print(f"  left-slot hop ns: median {np.median(hops):.0f}, p90 "
+          f"{np.percentile(hops, 90):.0f} ({hops.size} MBs waited); per knight diagonal "
+          f"ns: median {np.median(step):.0f}", flush=True)
+
+
 def main() -> int:
     import chip_smoke as cs  # the checkout's root is on sys.path under -m
     from ..codec.encoder import Encoder, EncoderConfig
     from ..ops.transform import chroma_qp
     from .deblock import _edge_params, deblock_frame
     from .wavefront_i16 import chroma_frame, i16_frame, qtab
-    from .wavefront_i4x4 import PRED4_TABLE
+    from .wavefront_i4x4 import PRED4_TABLE, i4x4_luma
+    from .wavefront_i4x4 import scratch as i4x4_scratch
     from .wavefront_mixed import KEYS, TABLES, mixed_luma
     from ..ops.device import const
 
@@ -288,6 +367,22 @@ def main() -> int:
     if not all(torch.equal(got[k], want[k]) for k in KEYS):
         raise AssertionError("profiled K6 != K6")
     report(lib6, f"K6 {cs.W}x{cs.H} qp{cs.QP}", wmb, hmb, K6_PHASES, k6)
+
+    y = frame[0]
+    want = i4x4_luma(y, m[2], cs.QP)  # in the decided Intra4x4 modes
+    lib4x4 = instrumented("wavefront_i4x4", K4X4_STAMPS)
+
+    def k4x4():
+        out = [torch.empty_like(t) for t in want]
+        call(lib4x4, "wavefront_i4x4_frame",
+             (y, m[2], const(PRED4_TABLE, dev), *out, i4x4_scratch(nmb, dev),
+              const(dataflow.knight_order(wmb, hmb), dev), wmb, hmb, cs.QP,
+              qtab(cs.QP), 0))
+        return out
+
+    if not all(torch.equal(g, w) for g, w in zip(k4x4(), want)):
+        raise AssertionError("profiled K4x4 != K4x4")
+    report_steps(lib4x4, f"K4x4 {cs.W}x{cs.H} qp{cs.QP}", wmb, hmb, K4X4_PHASES, k4x4)
 
     enc = Encoder(cs.W, cs.H, EncoderConfig(qp=cs.QP), device=dev)
     for f in cs.content(2, cs.W, cs.H):

@@ -7,12 +7,22 @@ which replaces the Pallas kernel _i4_kernel_body
 CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
 `i4x4_luma_plain`, the same function in plain PyTorch.
 
-Both run MB knight waves d = 2r + c: a 4x4 block reads its left, top,
-top-left and top-right neighbours, and under d = 2r + c the MB above-right
-is on an earlier wave, so one wave's MBs are independent. Inside an MB the
-16 blocks run in Z-scan order. `i4x4_mb_code` is that per-MB step, written
-once for the plain K4x4 and the plain K6 (kernels/wavefront_mixed.py); the
-kernels share its CUDA form, csrc/intra4x4.cuh.
+A 4x4 block reads its left, top, top-left and top-right neighbours, so an
+MB waits on all four neighbour MBs (the kAllFour set of
+csrc/mb_dataflow.cuh: block 5 reads the top-right MB's row 15). The plain
+twin runs MB knight waves d = 2r + c, under which the MB above-right is on
+an earlier wave, so one wave's MBs are independent. The kernel is one
+launch per frame: a persistent grid of one-warp blocks takes the MBs by
+ticket in the same knight order (kernels/dataflow.py) and codes each in 10
+diagonal steps of its 4x4 blocks, waiting before a step only for the
+neighbour edge samples that step reads. A neighbour publishes its edge in
+4-sample slots, each with its flag in one 64-bit word, as its blocks
+finish; so an MB trails its left neighbour by ~4 block steps, not by a
+whole MB (csrc/wavefront_i4x4.cu has the rules). Inside an MB the 16
+blocks run in Z-scan order (the kernel's steps give the same result).
+`i4x4_mb_code` is that per-MB step, written once for the plain K4x4 and
+the plain K6 (kernels/wavefront_mixed.py); the kernels share its CUDA
+form, csrc/intra4x4.cuh.
 """
 
 from __future__ import annotations
@@ -23,7 +33,7 @@ from ..ops import intra, transform
 from ..ops.device import const
 from ..ops.tables import INTRA4X4_SCAN_ORDER_XY
 from ..ops.tiles import from_mbs, to_mbs
-from . import build
+from . import build, dataflow
 from .wavefront_i16 import qtab
 
 I32 = torch.int32
@@ -123,11 +133,21 @@ def i4x4_luma_plain(y, modes, qp: int):
     return from_mbs(rec.reshape(-1, 16, 16), hmb, wmb).to(torch.uint8), levels
 
 
-def i4x4_luma(y, modes, qp: int):
+def scratch(nmb: int, device):
+    """The kernel's zeroed scratch, one allocation and one fill: 8 int64
+    edge slots per MB, then the dataflow scratch of nmb + 1 int32 (ready
+    flags and the ticket counter; only the counter is used)."""
+    return torch.zeros(8 * nmb + (nmb + 2) // 2, dtype=torch.int64, device=device)
+
+
+def i4x4_luma(y, modes, qp: int, *, blocks=None):
     """K4x4: (recon, levels) of an all-Intra_4x4 frame, the tuple of
     pallas_i4x4_luma with the recon as uint8. y (H, W) uint8, modes
-    (nmb, 16) int32. CUDA tensors go to the kernel (one launch per knight
-    wave, 2 * (hmb - 1) + wmb), CPU tensors to i4x4_luma_plain."""
+    (nmb, 16) int32. CUDA tensors go to the kernel (one launch per frame),
+    CPU tensors to i4x4_luma_plain. blocks: the kernel's grid size (None:
+    as many blocks as fit on the card at once); any size gives the same
+    result."""
+    grid = dataflow.check_blocks(blocks)
     if y.device.type == "cpu":
         return i4x4_luma_plain(y, modes, qp)
     if y.device.type != "cuda":
@@ -138,16 +158,18 @@ def i4x4_luma(y, modes, qp: int):
     hmb, wmb = h // 16, w // 16
     build.check_tensor("y", y, (h, w), torch.uint8, y.device)
     build.check_tensor("modes", modes, (hmb * wmb, 16), I32, y.device)
-    if y.data_ptr() % 8:
-        raise ValueError("y: the kernel reads it in 8-byte words")
+    if y.data_ptr() % 16:
+        raise ValueError("y: the kernel copies it in 16-byte chunks")
     rec = torch.empty_like(y)
     levels = torch.empty((hmb * wmb, 16, 16), dtype=I32, device=y.device)
     build.launch(i4x4_luma, "wavefront_i4x4", "wavefront_i4x4_frame",
-                 (y, modes, const(PRED4_TABLE, y.device), rec, levels, wmb, hmb, qp,
-                  qtab(qp)), y.device)
+                 (y, modes, const(PRED4_TABLE, y.device), rec, levels,
+                  scratch(hmb * wmb, y.device),
+                  const(dataflow.knight_order(wmb, hmb), y.device), wmb, hmb, qp,
+                  qtab(qp), grid), y.device)
     return rec, levels
 
 
-# kernel launches so far, as counted by the C launch loop (one per
-# accepted knight-wave launch)
+# kernel launches so far, as counted by the C entry point (one per accepted
+# launch, one per frame)
 i4x4_luma.launches = 0

@@ -1,28 +1,39 @@
 """The one-launch dataflow schedules (kernels/dataflow.py,
-csrc/mb_dataflow.cuh) of K4, K6, K8 and K1 / K1t / K7, and the diagonal
-schedule of the Intra_4x4 MB body (csrc/intra4x4.cuh), on the CPU.
+csrc/mb_dataflow.cuh) of K4, K6, K4x4, K8 and K1 / K1t / K7, and the
+diagonal schedule of the Intra_4x4 MB body (csrc/intra4x4.cuh), on the CPU.
 
-K4, K6 and K8 hand out MBs by ticket in `knight_order` and make each wait
-for its left, top, top-right and top-left neighbours; K1, K1t and K7 hand
-them out in `diagonal_order` and wait on left, top and top-left only. Here:
-each order is a permutation in which every waited neighbour comes first, it
-is the order of the waves the plain twins iterate over, and a grid of any
-size finishes under it. Coded MB by MB in random orders that respect the
-wait set, K8 (in a per-MB Python form of the kernel), the plain K1 and the
-plain K7 with its levels give the plain twins' outputs; K8 run before its
-top-right neighbour does not, and no MB with an earlier ticket writes into
-the samples K8 loads before its wait. Coding an MB's 4x4 blocks as the
+K4, K6, K4x4 and K8 hand out MBs by ticket in `knight_order` and make each
+wait for its left, top, top-right and top-left neighbours; K1, K1t and K7
+hand them out in `diagonal_order` and wait on left, top and top-left only.
+Here: each order is a permutation in which every waited neighbour comes
+first, it is the order of the waves the plain twins iterate over, and a
+grid of any size finishes under it. Coded MB by MB in random orders that
+respect the wait set, K8 (in a per-MB Python form of the kernel), the
+plain K4x4, the plain K1 and the plain K7 with its levels give the plain
+twins' outputs; K8 and K4x4 run before their top-right neighbour do not,
+and no MB with an earlier ticket writes into the samples K8 loads before
+its wait. K4x4's kernel waits per 4x4-block step, not per MB: a model of
+it at the step level (each MB steps once its neighbours have finished the
+steps the progress rule asks for, reading their edges only through the
+slots they publish) equals the plain K4x4, the rule's waits on the left,
+top and top-right MBs are each needed, and its wait on the top-left is
+implied by the top's. Coding an MB's 4x4 blocks as the
 kernel does (10 steps t = i + 2j, two blocks at once, each sample predicted
 from three cells through the packed Intra4x4 table) gives i4x4_mb_code's
 result. The kernels themselves are held against the plain twins on the card
 by chip_smoke.py."""
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from h264_fer_tpu_torch.kernels import deblock, dataflow, wavefront_i16, wavefront_mixed, wavefront_p
-from h264_fer_tpu_torch.kernels.wavefront_i4x4 import i4x4_mb_code, knight_waves
+from h264_fer_tpu_torch.kernels.wavefront_i4x4 import (i4x4_luma, i4x4_luma_plain,
+                                                       i4x4_mb_code, knight_waves,
+                                                       mb_neighbours)
 from h264_fer_tpu_torch.ops import intra, transform
 from h264_fer_tpu_torch.ops.transform import chroma_qp
 
@@ -541,15 +552,137 @@ def test_k1_per_mb_in_any_order_the_i16_wait_set_allows(kernel, wh):
             assert torch.equal(g.to(x.dtype), x)
 
 
+def _k4x4_per_mb(w, h, qp, run):
+    """The plain K4x4 one MB at a time: random source and Intra4x4 modes of
+    a w x h frame, each MB coded by i4x4_mb_code from the recon grid as it
+    stands when `run` (given the per-MB coder) reaches it. Returns (the
+    recon plane and levels, i4x4_luma_plain's)."""
+    rng = np.random.default_rng(w * h + qp)
+    wmb, hmb = w // 16, h // 16
+    y = torch.from_numpy(rng.integers(0, 256, (h, w)).astype(np.uint8))
+    modes = torch.from_numpy(rng.integers(0, 9, (wmb * hmb, 16)).astype(np.int32))
+    src = y.to(torch.int32).reshape(hmb, 16, wmb, 16).permute(0, 2, 1, 3)
+    rec = torch.zeros((hmb, wmb, 16, 16), dtype=torch.int32)
+    levels = torch.zeros((wmb * hmb, 16, 16), dtype=torch.int32)
+
+    def code(mb):
+        r, c = divmod(mb, wmb)
+        rt, ct = torch.tensor([r]), torch.tensor([c])
+        out, lv = i4x4_mb_code(src[r, c][None], modes[mb][None],
+                               mb_neighbours(rec, rt, ct), qp)
+        rec[r, c], levels[mb] = out[0], lv[0]
+
+    run(code)
+    got = rec.permute(0, 2, 1, 3).reshape(h, w).to(torch.uint8)
+    return (got, levels), i4x4_luma_plain(y, modes, qp)
+
+
+@pytest.mark.parametrize("wh", [(176, 144), (64, 208)], ids=lambda wh: f"{wh[0]}x{wh[1]}")
+def test_k4x4_per_mb_in_any_order_the_wait_set_allows(wh):
+    """The plain K4x4 coded MB by MB in the orders the persistent grid can
+    run in knight tickets under the four-neighbour wait set (3 blocks; on
+    64x208 also 1 block and one per MB), with random modes in every block,
+    equals i4x4_luma_plain: recon and levels. _play also shows each grid
+    size finishes."""
+    w, h = wh
+    wmb, hmb = w // 16, h // 16
+    for blocks in (1, 3, None) if h > w else (3,):
+        got, want = _k4x4_per_mb(w, h, 28, lambda code: _play(
+            wmb, hmb, dataflow.knight_order(wmb, hmb), blocks, NEIGHBOURS,
+            finish=code, seed=blocks or 0))
+        for g, x in zip(got, want):
+            assert torch.equal(g, x)
+
+
+def test_k4x4_needs_the_top_right_wait():
+    """The I16 wait set does not serve K4x4: coded along each anti-diagonal
+    from the bottom, so every MB runs before its top-right neighbour (an
+    order left, top and top-left allow), block 5 reads a row 15 that is not
+    yet reconstructed, and the frame differs from i4x4_luma_plain."""
+    w, h = 64, 208
+    wmb, hmb = w // 16, h // 16
+    r, c = np.divmod(np.arange(wmb * hmb), wmb)
+    order = np.lexsort((-r, r + c))
+
+    def run(code):
+        for mb in order:
+            code(int(mb))
+
+    (rec, lv), (want_rec, want_lv) = _k4x4_per_mb(w, h, 28, run)
+    assert not torch.equal(rec, want_rec)
+    assert not torch.equal(lv, want_lv)
+
+
+def test_blocks_argument_k4x4():
+    """i4x4_luma refuses a bad grid size on any device; on CPU tensors a
+    valid one changes nothing: the plain twin runs, with no launch."""
+    rng = np.random.default_rng(6)
+    y = torch.from_numpy(rng.integers(0, 256, (32, 48)).astype(np.uint8))
+    modes = torch.from_numpy(rng.integers(0, 9, (6, 16)).astype(np.int32))
+    for bad in (0, -2, 2.0, "3"):
+        with pytest.raises(ValueError):
+            i4x4_luma(y, modes, 30, blocks=bad)
+    want = i4x4_luma_plain(y, modes, 30)
+    before = i4x4_luma.launches
+    for blocks in (1, 3, None):
+        got = i4x4_luma(y, modes, 30, blocks=blocks)
+        assert all(torch.equal(g, x) for g, x in zip(got, want))
+    assert i4x4_luma.launches == before
+
+
+_TABLE = torch.from_numpy(intra.packed_mode_table().astype(np.int64)).reshape(9, 16)
+
+
+def _i4x4_step(ext, levels, t, src, modes, tr_ok, qp):
+    """Step t of csrc/intra4x4.cuh on n MBs, in place: the blocks (i, j)
+    with i + 2j = t coded from ext (n, 17, 21) as it stands before the step
+    (row 0: corner, top row, top-right samples; column 0: left column; -1
+    where unavailable), each sample predicted from three ext cells through
+    packed_mode_table (DC from its 8 samples); their reconstruction goes
+    into ext and their levels into levels (n, 16, 16)."""
+    n = src.shape[0]
+    coded = []
+    for j in range(4):
+        i = t - 2 * j
+        if not 0 <= i <= 3:
+            continue
+        bx, by = 4 * i, 4 * j
+        z = (j >> 1) * 8 + (i >> 1) * 4 + (j & 1) * 2 + (i & 1)
+        e = ext[:, by:by + 5, :]  # e[:, 0, bx] is the block's corner
+        m = modes[:, z].long()
+        code = _TABLE[m]  # (n, 16)
+        rep = (z in (3, 11)) | ((bx == 12) & ((by > 0) | ~tr_ok))
+        acc = (code >> 18) & 3
+        for k in range(3):
+            idx = (code >> (4 * k)) & 15
+            row = torch.where((idx >= 1) & (idx <= 4), idx, 0)
+            col = torch.where(idx < 5, 0, torch.where(
+                torch.as_tensor(rep).reshape(-1, 1) & (idx >= 9), 4, idx - 4))
+            cell = e[torch.arange(n)[:, None], row, bx + col]
+            acc = acc + ((code >> (12 + 2 * k)) & 3) * cell
+        pred = acc >> ((code >> 20) & 3)
+        top4 = e[:, 0, bx + 1:bx + 5].sum(-1)
+        left4 = e[:, 1:5, bx].sum(-1)
+        dc = torch.where(e[:, 0, bx] != -1, (top4 + left4 + 4) >> 3, torch.where(
+            e[:, 1, bx] != -1, (left4 + 2) >> 2, torch.where(
+                e[:, 0, bx + 1] != -1, (top4 + 2) >> 2, 128)))
+        pred = torch.where((m == 2)[:, None], dc[:, None], pred)
+        assert (pred.abs() < 999).all(), f"block ({i}, {j}) read an uncoded sample"
+        pred = pred.to(torch.int32).reshape(n, 4, 4)
+        q = transform.quantize_residual(transform.forward_transform_4x4(
+            src[:, by:by + 4, bx:bx + 4] - pred), qp, False)
+        levels[:, z] = transform.zigzag_scan(q)
+        coded.append((bx, by, (pred + transform.inverse_residual(q, qp, False))
+                      .clamp(0, 255)))
+    assert len(coded) == (1 if t in (0, 1, 8, 9) else 2)
+    for bx, by, rec in coded:
+        ext[:, by + 1:by + 5, bx + 1:bx + 5] = rec
+
+
 def _i4x4_in_steps(src, modes, nb, qp):
     """i4x4_mb_code's function as csrc/intra4x4.cuh computes it: the MB's
-    reconstruction inside `ext` (row 0: corner, top row, top-right samples;
-    column 0: left column; -1 where unavailable), step t coding the blocks
-    (i, j) with i + 2j = t from ext as it stood before the step, each
-    sample predicted from three ext cells through packed_mode_table (DC
-    from its 8 samples)."""
+    reconstruction inside `ext`, coded in the 10 steps of _i4x4_step."""
     n = src.shape[0]
-    table = torch.from_numpy(intra.packed_mode_table().astype(np.int64)).reshape(9, 16)
     ext = torch.full((n, 17, 21), -999, dtype=torch.int64)  # -999: not coded yet
     ext[:, 0, 0] = nb["corner"]
     ext[:, 0, 1:17] = nb["trow"]
@@ -557,42 +690,7 @@ def _i4x4_in_steps(src, modes, nb, qp):
     ext[:, 1:17, 0] = nb["lcol"]
     levels = torch.zeros((n, 16, 16), dtype=torch.int32)
     for t in range(10):
-        coded = []
-        for j in range(4):
-            i = t - 2 * j
-            if not 0 <= i <= 3:
-                continue
-            bx, by = 4 * i, 4 * j
-            z = (j >> 1) * 8 + (i >> 1) * 4 + (j & 1) * 2 + (i & 1)
-            e = ext[:, by:by + 5, :]  # e[:, 0, bx] is the block's corner
-            m = modes[:, z].long()
-            code = table[m]  # (n, 16)
-            rep = (z in (3, 11)) | ((bx == 12) & ((by > 0) | ~nb["tr_ok"]))
-            acc = (code >> 18) & 3
-            for k in range(3):
-                idx = (code >> (4 * k)) & 15
-                row = torch.where((idx >= 1) & (idx <= 4), idx, 0)
-                col = torch.where(idx < 5, 0, torch.where(
-                    torch.as_tensor(rep).reshape(-1, 1) & (idx >= 9), 4, idx - 4))
-                cell = e[torch.arange(n)[:, None], row, bx + col]
-                acc = acc + ((code >> (12 + 2 * k)) & 3) * cell
-            pred = acc >> ((code >> 20) & 3)
-            top4 = e[:, 0, bx + 1:bx + 5].sum(-1)
-            left4 = e[:, 1:5, bx].sum(-1)
-            dc = torch.where(e[:, 0, bx] != -1, (top4 + left4 + 4) >> 3, torch.where(
-                e[:, 1, bx] != -1, (left4 + 2) >> 2, torch.where(
-                    e[:, 0, bx + 1] != -1, (top4 + 2) >> 2, 128)))
-            pred = torch.where((m == 2)[:, None], dc[:, None], pred)
-            assert (pred.abs() < 999).all(), f"block ({i}, {j}) read an uncoded sample"
-            pred = pred.to(torch.int32).reshape(n, 4, 4)
-            q = transform.quantize_residual(transform.forward_transform_4x4(
-                src[:, by:by + 4, bx:bx + 4] - pred), qp, False)
-            levels[:, z] = transform.zigzag_scan(q)
-            coded.append((bx, by, (pred + transform.inverse_residual(q, qp, False))
-                          .clamp(0, 255)))
-        assert len(coded) == (1 if t in (0, 1, 8, 9) else 2)
-        for bx, by, rec in coded:
-            ext[:, by + 1:by + 5, bx + 1:bx + 5] = rec
+        _i4x4_step(ext, levels, t, src, modes, nb["tr_ok"], qp)
     return ext[:, 1:, 1:17].to(torch.int32), levels
 
 
@@ -616,3 +714,173 @@ def test_i4x4_diagonal_steps_match_zscan(qp):
     got_rec, got_lv = _i4x4_in_steps(src, modes, nb, qp)
     assert torch.equal(got_rec, want_rec)
     assert torch.equal(got_lv, want_lv)
+
+
+# K4x4's edge slots (csrc/wavefront_i4x4.cu): slot k < 4 holds the MB's
+# column 15, rows 4k..4k+3, slot 4 + k its row 15, columns 4k..4k+3; the
+# step after which each is published (_PUBLISH: EdgeHook::after); and what
+# each step reads first (_READS: the kFrom, kSlot, kNeed and kCell
+# arrays): (step, neighbour (dr, dc), slot, first ext cell: ("col", row)
+# of column 0, ("row", col) of row 0, or ("corner",) for the top-left's
+# byte 3). test_k4x4_slot_tables_match_the_kernel_source reads both out of
+# the .cu.
+_PUBLISH = {3: (0,), 5: (1,), 6: (4,), 7: (2, 5), 8: (6,), 9: (3, 7)}
+_READS = [(0, (0, -1), 0, ("col", 1)), (0, (-1, 0), 4, ("row", 1)),
+          (0, (-1, 0), 5, ("row", 5)), (0, (-1, -1), 7, ("corner",)),
+          (1, (-1, 0), 6, ("row", 9)), (2, (0, -1), 1, ("col", 5)),
+          (2, (-1, 0), 7, ("row", 13)), (3, (-1, 1), 4, ("row", 17)),
+          (4, (0, -1), 2, ("col", 9)), (6, (0, -1), 3, ("col", 13))]
+# the progress rule: before step t, how many steps each neighbour must
+# have finished (the left edge for even t <= 6, the top row and its
+# above-right samples for t <= 2, block 5's top-right samples at t = 3,
+# the corner at t = 0)
+_RULE = {(0, -1): {0: 4, 2: 6, 4: 8, 6: 10}, (-1, 0): {0: 8, 1: 9, 2: 10},
+         (-1, 1): {3: 7}, (-1, -1): {0: 10}}
+
+
+def _slot_cells(k):
+    """The ext cells (row, col) slot k publishes, in byte order."""
+    return [(1 + 4 * k + i, 16) if k < 4 else (16, 1 + 4 * (k - 4) + i) for i in range(4)]
+
+
+def _k4x4_steps_model(w, h, qp, rule=_RULE, p=1.0, seed=0):
+    """K4x4 at the step level: each MB codes its 10 steps (_i4x4_step),
+    step t once its neighbours have finished the steps `rule` asks for;
+    before it, it reads the slots _READS names from the scratch as they
+    stand (zero where a slot is not yet published), and after it publishes
+    the slots _PUBLISH names. In each round a random share p of the MBs
+    that may step (at least one) take their step, all reads before any
+    step, all publishes after. Returns (recon, levels, i4x4_luma_plain's)."""
+    rng = np.random.default_rng(w * h + seed)
+    wmb, hmb = w // 16, h // 16
+    n = wmb * hmb
+    y = torch.from_numpy(rng.integers(0, 256, (h, w)).astype(np.uint8))
+    modes = torch.from_numpy(rng.integers(0, 9, (n, 16)).astype(np.int32))
+    src = y.to(torch.int32).reshape(hmb, 16, wmb, 16).permute(0, 2, 1, 3).reshape(n, 16, 16)
+    r, c = np.divmod(np.arange(n), wmb)
+    tr_ok = torch.from_numpy((r > 0) & (c + 1 < wmb))
+    ext = torch.full((n, 17, 21), -999, dtype=torch.int64)
+    ext[:, 0, :] = -1  # every neighbour sample unavailable until read
+    ext[:, :, 0] = -1
+    levels = torch.zeros((n, 16, 16), dtype=torch.int32)
+    slots = np.zeros((n, 8, 4), np.int64)
+    done = np.zeros(n, np.int64)
+
+    def nbr(mb, d):
+        rr, cc = r[mb] + d[0], c[mb] + d[1]
+        return rr * wmb + cc if rr >= 0 and 0 <= cc < wmb else None
+
+    # per neighbour: its raster index (-1 outside the frame) and the
+    # progress it must have reached before each step 0..10
+    waits = [(np.array([-1 if nbr(mb, d) is None else nbr(mb, d) for mb in range(n)]),
+              np.array([need.get(t, 0) for t in range(11)])) for d, need in rule.items()]
+    while (done < 10).any():
+        ok = done < 10
+        for idx, need in waits:
+            ok &= (idx < 0) | (done[np.maximum(idx, 0)] >= need[done])
+        ready = np.flatnonzero(ok).tolist()
+        assert ready, "no MB can step: a deadlock"
+        pick = [mb for mb in ready if rng.random() < p] or [ready[0]]
+        for mb in pick:
+            t = done[mb]
+            for ts, d, k, cell in _READS:
+                m = nbr(mb, d)
+                if ts != t or m is None:
+                    continue
+                v = torch.from_numpy(slots[m, k])
+                if cell[0] == "corner":
+                    ext[mb, 0, 0] = v[3]
+                elif cell[0] == "col":
+                    ext[mb, cell[1]:cell[1] + 4, 0] = v
+                else:
+                    ext[mb, 0, cell[1]:cell[1] + 4] = v
+        for t in sorted({int(done[mb]) for mb in pick}):
+            mbs = torch.tensor([mb for mb in pick if done[mb] == t])
+            e, lv = ext[mbs], levels[mbs]
+            _i4x4_step(e, lv, t, src[mbs], modes[mbs], tr_ok[mbs], qp)
+            ext[mbs], levels[mbs] = e, lv
+            for k in _PUBLISH.get(t, ()):
+                for mb in mbs.tolist():
+                    slots[mb, k] = [int(ext[mb, a, b]) for a, b in _slot_cells(k)]
+        done[pick] += 1
+    rec = ext[:, 1:, 1:17].reshape(hmb, wmb, 16, 16).permute(0, 2, 1, 3).reshape(h, w)
+    return rec.to(torch.uint8), levels, i4x4_luma_plain(y, modes, qp)
+
+
+def test_k4x4_slot_reads_follow_the_rule():
+    """The slots each step reads are published by the steps the progress
+    rule waits for: slot s published after step p needs progress p + 1,
+    and the rule asks for no more than the largest such need."""
+    published = {k: t + 1 for t, ks in _PUBLISH.items() for k in ks}
+    assert sorted(published) == list(range(8))
+    for d, need in _RULE.items():
+        for t, progress in need.items():
+            reads = [published[k] for ts, dd, k, _ in _READS if ts == t and dd == d]
+            assert reads and max(reads) == progress, (d, t)
+    assert {(ts, dd) for ts, dd, _, _ in _READS} == {
+        (t, d) for d, need in _RULE.items() for t in need}
+
+
+def test_k4x4_slot_tables_match_the_kernel_source():
+    """_READS and _PUBLISH are what csrc/wavefront_i4x4.cu does: its
+    __constant__ kFrom / kSlot / kNeed / kCell arrays, the publish(who,
+    slot) calls of EdgeHook::after per step, and the steps its
+    EdgeHook::before skips as reading no new slot."""
+    src = (Path(dataflow.__file__).parent / "csrc" / "wavefront_i4x4.cu").read_text()
+    arrays = {name: [int(v) for v in body.split(",")] for name, body in re.findall(
+        r"__constant__ int (k\w+)\[kReads\] = \{([^}]*)\};", src)}
+    nbr = {0: (0, -1), 1: (-1, 0), 2: (-1, 1), 3: (-1, -1)}
+    reads = []
+    for frm, slot, need, cell in zip(*(arrays[k] for k in ("kFrom", "kSlot", "kNeed", "kCell"))):
+        first = ("corner",) if frm == 3 else ("col" if frm == 0 else "row", cell)
+        reads.append((need, nbr[frm], slot, first))
+    assert reads == _READS
+    after = src[src.index("void after(int t) const {"):]
+    after = after[:after.index("\n  }\n")]
+    published = {}
+    for t, body in re.findall(r"if \(t == (\d+)\) (\{[^}]*\}|publish\([^;]*\);)", after):
+        published[int(t)] = tuple(int(k) for k in re.findall(r"publish\(\d+, (\d+)\)", body))
+    assert published == _PUBLISH
+    skip = re.search(r"if \(t == (\d+) \|\| t > (\d+)\) return;", src)
+    reading = {t for t, _, _, _ in _READS}
+    assert {int(skip[1])} | set(range(int(skip[2]) + 1, 10)) == set(range(10)) - reading
+
+
+@pytest.mark.parametrize("wh", [(176, 144), (64, 208), (16, 176), (176, 16)],
+                         ids=lambda wh: f"{wh[0]}x{wh[1]}")
+def test_k4x4_step_model_equals_plain(wh):
+    """MBs stepping under the progress rule, in random rounds, reading
+    their neighbours' edges only through the slots: i4x4_luma_plain's
+    recon and levels, random modes in every block."""
+    w, h = wh
+    rec, lv, (want_rec, want_lv) = _k4x4_steps_model(w, h, 28, p=0.6, seed=1)
+    assert torch.equal(rec, want_rec)
+    assert torch.equal(lv, want_lv)
+
+
+@pytest.mark.parametrize("d", [(0, -1), (-1, 0), (-1, 1)], ids=["left", "top", "top-right"])
+def test_k4x4_step_model_needs_each_wait(d):
+    """Waiting one step less on the left, top or top-right MB reads a slot
+    before it is published, and in some random rounds the frame differs
+    from i4x4_luma_plain on QCIF or 64x208."""
+    rule = {k: {t: v - (k == d) for t, v in need.items()} for k, need in _RULE.items()}
+    for seed in range(4):
+        for w, h in ((64, 208), (176, 144)):
+            rec, lv, (want_rec, want_lv) = _k4x4_steps_model(w, h, 28, rule, 0.5, seed)
+            if not (torch.equal(rec, want_rec) and torch.equal(lv, want_lv)):
+                return
+    raise AssertionError(f"the mutant that waits one step less on {d} went unseen")
+
+
+def test_k4x4_top_left_wait_is_implied():
+    """Waiting one step less on the top-left MB changes nothing, in any
+    random rounds: the top MB
+    waited at its step 6 for its left MB, the top-left, to finish, and the
+    rule waits for the top MB's step 8. The kernel polls the top-left's
+    slot all the same: it reads the slot with relaxed loads that no fence
+    orders after the top MB's, so the poll is what makes the value visible
+    to it."""
+    rule = dict(_RULE)
+    rule[(-1, -1)] = {0: 9}
+    rec, lv, (want_rec, want_lv) = _k4x4_steps_model(64, 208, 28, rule, 0.5)
+    assert torch.equal(rec, want_rec) and torch.equal(lv, want_lv)
