@@ -7,8 +7,9 @@ Phases (any failure exits non-zero and prints no result line; each
 1080p path's stream must also have the byte count STREAM_BYTES gives it):
   1. print the card's name and power limit; build the CUDA kernels from
      the eight sources in h264_fer_tpu_torch/kernels/csrc (one nvcc per
-     source, all started at once, sm_90a) and print each build's time and
-     ptxas report;
+     source, sm_90a) and the native slice decoder
+     h264_fer_tpu_torch/native/decoder_native.cpp (g++), all started at
+     once, and print each build's time and compiler report;
   2. hold the K1 kernel and K1t (K1 writing its levels), one dataflow
      launch per frame, against their plain PyTorch versions on the card:
      bit-exact recon (and K1t's four level arrays) at 1920x1088 for QP 8,
@@ -90,7 +91,19 @@ Phases (any failure exits non-zero and prints no result line; each
      session streams from the card, with i16 IDRs and with mixed IDRs, must
      equal the CPU path's. Prints e2e fps, K8's ms and launches per frame,
      the session's stage times and the profiled busy share;
-  10. print the kernels line and, last, {"ok": true, "device": {...}}.
+  10. the decode gate: decode each 1080p stream of phases 3, 5, 7 and 9
+     with the port's Decoder on the card (native form) and hold every
+     frame, exactly, to the reconstruction the run has for it: the plain
+     chain's recon (all-intra), the kernel path's reference planes as the
+     encoders recorded them (IPPP, mixed) and the session encoder's
+     reference planes (session, filter on: K8 runs once per decoded
+     frame). IPPP and mixed decode in the spec-correct mode (zero chroma
+     AC where a MB has no residual, as the encoders reconstruct); the
+     session stream selects it by signalling the filter. Prints each
+     stream's frames, median decode fps of 5 runs after a warm-up and K8
+     launches per frame; the QCIF session streams decode equal on the
+     card and on the CPU (plain K8);
+  11. print the kernels line and, last, {"ok": true, "device": {...}}.
      Each kernel's time is taken two ways (kernel_ms): `ms` with its
      calls issued as the host gets to them, as a path issues them, and
      `queued_ms` with them queued ahead of the card, the device's own time.
@@ -105,6 +118,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from unittest import mock
 
 import numpy as np
@@ -115,6 +129,7 @@ CHECK_QPS = (8, 28, 46)
 SEED = 7
 KERNEL_SOURCES = ("wavefront_i16", "me_int", "me_qpel", "wavefront_p", "mc",
                   "wavefront_i4x4", "wavefront_mixed", "deblock")
+NATIVE_DECODER = "decoder_native"  # h264_fer_tpu_torch/native, built by g++
 # the IPPP main path: bench.py's e2e_ippp_encode_1080p_fps configuration
 GOP_LEN, N_IPPP, WINDOW = 8, 16, 8
 N_PLAIN_IPPP = 4  # frames of the first GOP held against the plain chain
@@ -371,6 +386,103 @@ def check_bytes(path: str, stream: bytes) -> None:
                              f"{STREAM_BYTES[path]}")
 
 
+@contextmanager
+def recording(owner, attr: str, store: list, pick):
+    """Within the block, owner.attr is a wrapper of itself that appends
+    pick(result) of every call to store."""
+    fn = getattr(owner, attr)
+
+    def wrapped(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        store.append(pick(out))
+        return out
+
+    with mock.patch.object(owner, attr, wrapped):
+        yield
+
+
+def recon_of(out):
+    """The recon planes of a frame dict (device_i16_frame's and
+    device_mixed_frame's)."""
+    return out["recon_y"], out["recon_cb"], out["recon_cr"]
+
+
+def decode_gate(torch, dev, label: str, stream: bytes, recon, kw: dict, name: str):
+    """Decode `stream` with the port's Decoder on the card (native form,
+    `kw` its deblock / spec_mode), after a warm-up, with K8's count set to 0
+    just before: every frame must equal its reconstruction `recon` (uint8
+    planes on the card) exactly, and K8 must launch once per frame where the
+    filter runs and never elsewhere. Then times E2E_REPS more decodes.
+    Returns (frames, median fps, K8 launches)."""
+    from h264_fer_tpu_torch.codec.decoder import Decoder
+    from h264_fer_tpu_torch.kernels.deblock import deblock_frame
+
+    list(Decoder(device=dev, **kw).decode_annexb(stream))  # warm-up
+    torch.cuda.synchronize()
+    deblock_frame.launches = 0
+    frames = list(Decoder(device=dev, **kw).decode_annexb(stream))
+    launches = deblock_frame.launches
+    if len(frames) != len(recon):
+        raise AssertionError(f"decode {label}: {len(frames)} frames, expected {len(recon)}")
+    for i, (got, want) in enumerate(zip(frames, recon)):
+        for plane, a, b in zip(("y", "cb", "cr"), got, want):
+            b = b.cpu().numpy()
+            if a.shape != b.shape or not np.array_equal(a, b):
+                bad = (np.count_nonzero(a != b) if a.shape == b.shape else "shape")
+                raise AssertionError(f"decode {label}: frame {i} {plane} != its "
+                                     f"reconstruction ({bad} samples differ)")
+    if launches != (len(frames) if kw.get("deblock") else 0):
+        raise AssertionError(f"decode {label}: K8 launched {launches} times for "
+                             f"{len(frames)} frames with {kw}")
+    fps = []
+    for _ in range(E2E_REPS):
+        t0 = time.perf_counter()
+        n = sum(1 for _ in Decoder(device=dev, **kw).decode_annexb(stream))
+        fps.append(n / (time.perf_counter() - t0))
+    fps.sort()
+    print(f"decode {label}: {len(frames)} frames {W}x{H} ({kw}) == their "
+          f"reconstruction; K8 {launches / len(frames):g} launches per frame; decode "
+          f"fps median {fps[len(fps) // 2]:.2f} (runs {', '.join(f'{v:.2f}' for v in fps)}) "
+          f"on {name}", flush=True)
+    stages = decode_stages(torch, dev, stream, kw)
+    print(f"decode {label} stages (host ms per frame, one decode): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()) + f" on {name}", flush=True)
+    return len(frames), fps[len(fps) // 2], launches
+
+
+def decode_stages(torch, dev, stream: bytes, kw: dict) -> dict:
+    """Host ms per frame of one decode of `stream`: the native slice loop
+    (parse and reconstruction), K8 (the call, synchronised) and the rest
+    (NAL and header parse, uploads, read-back, the reference copy)."""
+    from h264_fer_tpu_torch import native
+    from h264_fer_tpu_torch.codec import decoder
+
+    spent = {"slice_loop": 0.0, "k8": 0.0}
+
+    def timed(key, fn, sync):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            return out
+        return wrapped
+
+    with mock.patch.object(native, "decode_slice_native",
+                           timed("slice_loop", native.decode_slice_native, False)), \
+            mock.patch.object(decoder, "deblock_frame",
+                              timed("k8", decoder.deblock_frame, True)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = sum(1 for _ in decoder.Decoder(device=dev, **kw).decode_annexb(stream))
+        total = time.perf_counter() - t0
+    out = {k: 1e3 * v / n for k, v in spent.items()}
+    out["other"] = 1e3 * total / n - sum(out.values())
+    out["total"] = 1e3 * total / n
+    return out
+
+
 def parse_stream(stream: bytes, n_frames: int, w: int, h: int, qp: int):
     """Read back SPS, PPS and the IDR slice headers with the port's parsers."""
     from h264_fer_tpu_torch.bitstream import nal
@@ -449,20 +561,27 @@ def timed_once(torch, fn):
 
 
 def build_all():
-    """Build every kernel source at once (one nvcc each) and print each
-    build's time and ptxas report."""
+    """Build every kernel source (one nvcc each) and the native slice
+    decoder (g++), all started at once, and print each build's time and
+    compiler report."""
+    from h264_fer_tpu_torch import native
     from h264_fer_tpu_torch.kernels import build
 
     def timed(name):
         t0 = time.perf_counter()
-        lib, log = build.compile_source(name)
+        if name == NATIVE_DECODER:
+            lib, log = build.compile_host_source(native.SOURCE)
+        else:
+            lib, log = build.compile_source(name)
         return lib, log, time.perf_counter() - t0
 
+    names = KERNEL_SOURCES + (NATIVE_DECODER,)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        done = dict(zip(KERNEL_SOURCES, pool.map(timed, KERNEL_SOURCES)))
+    with ThreadPoolExecutor(len(names)) as pool:
+        done = dict(zip(names, pool.map(timed, names)))
     for name, (lib, log, sec) in done.items():
-        print(f"built {lib.name} in {sec:.1f} s\n--- nvcc {name} ---\n{log.strip()}",
+        tool = "g++" if name == NATIVE_DECODER else "nvcc"
+        print(f"built {lib.name} in {sec:.1f} s\n--- {tool} {name} ---\n{log.strip()}",
               flush=True)
     print(f"all {len(done)} builds: {time.perf_counter() - t0:.1f} s wall", flush=True)
 
@@ -764,10 +883,17 @@ def plain_i16_payload(torch, dev, enc, frame):
             (ry, rcb, rcr))
 
 
+def plain_chain(torch, dev, enc, frames):
+    """The stream of the oracle chain on the card (mode decision, plain
+    K1t and entropy per frame, stitched by the encoder) and each frame's
+    recon planes."""
+    out = [plain_i16_payload(torch, dev, enc, f) for f in frames]
+    return enc.stitch([pay for pay, _ in out]), [rec for _, rec in out]
+
+
 def plain_chain_stream(torch, dev, enc, frames) -> bytes:
-    """The stream of the oracle chain on the card: mode decision, plain
-    K1t and entropy per frame, stitched by the encoder."""
-    return enc.stitch([plain_i16_payload(torch, dev, enc, f)[0] for f in frames])
+    """The stream of the oracle chain on the card (plain_chain's)."""
+    return plain_chain(torch, dev, enc, frames)[0]
 
 
 def plain_p_frame(torch, enc, frame, ref):
@@ -1199,6 +1325,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this test "
               "needs an NVIDIA card", file=sys.stderr)
         return 1
+    from h264_fer_tpu_torch.codec import gop
     from h264_fer_tpu_torch.kernels.mc import mc_bulk
     from h264_fer_tpu_torch.kernels.me_int import integer_score_map
     from h264_fer_tpu_torch.kernels.me_qpel import qpel_refine_maps
@@ -1262,10 +1389,13 @@ def main() -> int:
                              f"expected {N_FRAMES} and 0")
     if k1_launches != 1:
         raise AssertionError(f"K1 launched {k1_launches} times in one call")
-    if stream != plain_chain_stream(torch, dev, enc, frames):
+    plain, plain_recon = plain_chain(torch, dev, enc, frames)
+    if stream != plain:
         raise AssertionError("kernel-path stream != plain-chain stream")
     parse_stream(stream, N_FRAMES, W, H, QP)
     check_bytes("all-intra", stream)
+    # the decode gate (phase 10): the plain chain's recon of every frame
+    to_decode = {"all-intra": (stream, plain_recon, {})}
     qcif = content(3, 176, 144)
     s_gpu = GopIntraEncoder(176, 144, QP, device=dev).encode_sequence(qcif)
     s_cpu = GopIntraEncoder(176, 144, QP, device="cpu").encode_sequence(qcif)
@@ -1327,10 +1457,15 @@ def main() -> int:
     counted = (i16_frame, integer_score_map, qpel_refine_maps, pframe_decide, mc_bulk)
     for fn in counted:
         fn.launches = 0
-    t0 = time.perf_counter()
-    stream = enc.encode_sequence(frames)
-    e2e_s = [time.perf_counter() - t0]
+    recon = []
+    with recording(gop, "device_i16_frame", recon, recon_of), \
+            recording(gop, "next_reference", recon, lambda ref: ref[:3]):
+        t0 = time.perf_counter()
+        stream = enc.encode_sequence(frames)
+        e2e_s = [time.perf_counter() - t0]
     p_launches = {fn.__name__: fn.launches for fn in counted}
+    # its P frames' chroma decodes right in the spec-correct mode only
+    to_decode["IPPP"] = (stream, recon, {"spec_mode": True})
     n_gops, n_p = N_IPPP // GOP_LEN, N_IPPP - N_IPPP // GOP_LEN
     want = {"i16_frame": n_gops, "integer_score_map": n_p,
             "qpel_refine_maps": n_p, "pframe_decide": n_p, "mc_bulk": n_p}
@@ -1406,11 +1541,14 @@ def main() -> int:
     counted = (mixed_luma, chroma_frame, i16_recon, i16_frame)
     for fn in counted:
         fn.launches = 0
+    recon = []
     with mock.patch.object(wavefront_i16, "chroma_levels_from_recon",
-                           wraps=wavefront_i16.chroma_levels_from_recon) as rebuilt:
+                           wraps=wavefront_i16.chroma_levels_from_recon) as rebuilt, \
+            recording(enc, "_frame", recon, recon_of):
         t0 = time.perf_counter()
         stream = enc.encode_sequence(frames)
         e2e_s = [time.perf_counter() - t0]
+    to_decode["mixed"] = (stream, recon, {"spec_mode": True})
     m_launches = {fn.__name__: fn.launches for fn in counted}
     if rebuilt.call_count:
         raise AssertionError("the mixed path rebuilt the chroma levels from the recon")
@@ -1490,10 +1628,15 @@ def main() -> int:
     for fn in counted:
         fn.launches = 0
     enc = Encoder(W, H, cfg, device=dev)
+    recon = []
     t0 = time.perf_counter()
-    stream = enc.encode_sequence(frames)
+    stream = enc.headers()  # encode_sequence, keeping each frame's reference planes
+    for f in frames:
+        stream += enc.encode_frame(*f)
+        recon.append(enc._ref)
     e2e_s = [time.perf_counter() - t0]
     s_launches = {fn.__name__: fn.launches for fn in counted}
+    to_decode["session"] = (stream, recon, {"deblock": True})
     n_idr = sum(st["idr"] for st in enc.stats)
     n_p = N_SESSION - n_idr
     want = {"i16_frame": n_idr, "i16_recon": 0, "deblock_frame": N_SESSION,
@@ -1509,11 +1652,13 @@ def main() -> int:
     parse_session_stream(stream, enc.stats, W, H, QP)
     check_bytes("session", stream)
     qcif = content(6, 176, 144)
+    qcif_sessions = []
     for iframe, n_qcif, every in (("i16", 6, 4), ("mixed", 3, 2)):
         qcfg = EncoderConfig(qp=QP, intra_every=every, deblock=True)
-        if (Encoder(176, 144, qcfg, iframe=iframe, device=dev).encode_sequence(qcif[:n_qcif])
-                != Encoder(176, 144, qcfg, iframe=iframe,
-                           device="cpu").encode_sequence(qcif[:n_qcif])):
+        qcif_sessions.append(Encoder(176, 144, qcfg, iframe=iframe,
+                                     device=dev).encode_sequence(qcif[:n_qcif]))
+        if qcif_sessions[-1] != Encoder(176, 144, qcfg, iframe=iframe,
+                                        device="cpu").encode_sequence(qcif[:n_qcif]):
             raise AssertionError(f"QCIF {iframe} session stream on the card != CPU path stream")
     for _ in range(E2E_REPS - 1):
         e = Encoder(W, H, cfg, device=dev)
@@ -1547,7 +1692,23 @@ def main() -> int:
     else:
         print("device busy share: not measured (the profiler saw no device time)")
 
-    # ---- 10. result -------------------------------------------------------
+    # ---- 10. decode gate ----------------------------------------------------
+    from h264_fer_tpu_torch.codec.decoder import Decoder
+
+    decoded = {path: decode_gate(torch, dev, path, *to_decode[path], name)
+               for path in ("all-intra", "IPPP", "mixed", "session")}
+    for i, qstream in enumerate(qcif_sessions):  # K8 on the card == its plain twin
+        on_card, on_cpu = (list(Decoder(True, device=d).decode_annexb(qstream))
+                           for d in (dev, "cpu"))
+        if len(on_card) != len(on_cpu) or any(
+                not np.array_equal(a, b) for fa, fb in zip(on_card, on_cpu)
+                for a, b in zip(fa, fb)):
+            raise AssertionError(f"QCIF session stream {i}: card decode != CPU decode")
+    print(f"decode gate: {sum(v[0] for v in decoded.values())} frames of "
+          f"{len(decoded)} 1080p streams == their reconstruction; QCIF session "
+          f"decodes card == CPU on {name}", flush=True)
+
+    # ---- 11. result -------------------------------------------------------
     csrc = "h264_fer_tpu_torch/kernels/csrc/"
     rows = [("wavefront_i16", "h264_fer_tpu/kernels/wavefront_pallas.py:890",
              k1_launches, max(k1[q][0] for q in CHECK_QPS), k1[QP][1:]),
@@ -1585,6 +1746,8 @@ def main() -> int:
             "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "queued_ms": queued_ms})
+        if kname == "deblock":  # K8 also runs on the decode path
+            kernels[-1]["decode_launches"] = decoded["session"][2]
     print(name)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 """H.264 Baseline intra (all-Intra16x16 or mixed I4x4/I16) and IPPP encoder
-with the in-loop deblocking filter, in PyTorch and CUDA.
+with the in-loop deblocking filter, and its decoder, in PyTorch and CUDA.
 
 A port of the h264_fer_tpu JAX package (the frozen reference) to PyTorch
 on an NVIDIA H100. It imports neither JAX nor anything of h264_fer_tpu.
@@ -31,6 +31,13 @@ Session path: codec.encoder.Encoder, one frame in and one slice NAL out
 (frame SAD on the device) through the I frames above, P frames through
 device_p_frame, the trailing-skip drop, then with cfg.deblock the in-loop
 filter K8 (csrc/deblock.cu, knight waves of MB windows) on every frame.
+
+Decode path: codec.decoder.Decoder (python -m h264_fer_tpu_torch decode):
+the bit-serial CAVLC parse and the per-MB reconstruction on the host, in
+the native C++ slice loop (native/decoder_native.cpp, built by g++) or its
+Python form, then with deblock=True the in-loop filter K8 on the card for
+every frame whose stream signals it; the filtered planes are the next
+frame's reference.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Command-line interface of the port.
 
     python -m h264_fer_tpu_torch encode in.y4m out.264 [options]
+    python -m h264_fer_tpu_torch decode in.264 out.y4m [--deblock] [--fps N]
     python -m h264_fer_tpu_torch psnr ref.y4m test.y4m
 
 encode runs the session Encoder (codec/encoder.py): the device I frames
@@ -11,7 +12,11 @@ sequence encoders instead (parallel/gop_device.py): all-intra when
 statistics (bytes, ms, MB-type histogram) print with --stats. The options
 are those of the JAX package's CLI (h264_fer_tpu/cli.py), less the ones
 that choose between host and device paths: here every frame runs on the
-device. Decoding is not ported yet.
+device.
+
+decode runs codec/decoder.Decoder: the slice loop on the host (native C++),
+and with --deblock the in-loop filter K8 on the card (or its plain twin
+with --device cpu) where the stream signals it.
 """
 
 from __future__ import annotations
@@ -92,6 +97,28 @@ def _cmd_encode(args) -> int:
     return 0
 
 
+def _cmd_decode(args) -> int:
+    from .codec.decoder import Decoder
+    from .vio.y4m import Y4MWriter
+
+    with open(args.input, "rb") as f:
+        data = f.read()
+    dec = Decoder(deblock=args.deblock, device=args.device)
+    t0 = time.time()
+    wtr = None
+    n = 0
+    for y, cb, cr in dec.decode_annexb(data):
+        if wtr is None:
+            wtr = Y4MWriter(args.output, y.shape[1], y.shape[0], args.fps, 1)
+        wtr.write_frame(y, cb, cr)
+        n += 1
+    if wtr:
+        wtr.close()
+    dt = time.time() - t0
+    print(f"{n} frames decoded in {dt:.1f}s ({n / max(dt, 1e-9):.2f} fps)")
+    return 0
+
+
 def _cmd_psnr(args) -> int:
     import numpy as np
 
@@ -134,6 +161,15 @@ def main(argv=None) -> int:
     e.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     e.add_argument("--stats", action="store_true")
     e.set_defaults(fn=_cmd_encode)
+
+    d = sub.add_parser("decode", help="decode Annex-B .264 to Y4M")
+    d.add_argument("input")
+    d.add_argument("output")
+    d.add_argument("--deblock", action="store_true",
+                   help="apply the loop filter when the stream signals it")
+    d.add_argument("--fps", type=int, default=24)
+    d.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    d.set_defaults(fn=_cmd_decode)
 
     q = sub.add_parser("psnr", help="PSNR between two Y4M files")
     q.add_argument("ref")

@@ -9,8 +9,12 @@ library is never loaded. No PyTorch
 header is compiled, so a build takes seconds (PERF.md compares it with
 torch.utils.cpp_extension.load, timed by kernels/time_build.py).
 
+`compile_host_source` builds a host C++ source with a plain C interface
+(the native slice decoder, native/decoder_native.cpp) the same way with
+g++ into the same cache.
+
 Nothing here runs at import: the first launch of a kernel builds it. A
-missing nvcc or a failed compile raises; there is no fallback. `function`
+missing compiler or a failed compile raises; there is no fallback. `function`
 and `check_tensor` are what every kernel wrapper uses to bind its C entry
 point and to refuse a tensor the kernel does not take; `launch` runs the
 entry points that loop over dependent launches and count them.
@@ -35,6 +39,7 @@ CSRC = pathlib.Path(__file__).parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O3", "-shared", "-fPIC")
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 _lock = threading.Lock()
@@ -64,28 +69,47 @@ def includes(src: pathlib.Path) -> list[pathlib.Path]:
     return found
 
 
-def compile_source(name: str) -> tuple[pathlib.Path, str]:
-    """Compile csrc/<name>.cu unless its library is up to date. Returns
-    (library path, nvcc/ptxas output; empty when nothing was compiled)."""
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def gxx() -> str:
+    """Path of g++ on PATH."""
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the native decoder cannot be built")
+    return found
+
+
+def _compile(src: pathlib.Path, compiler: str, flags) -> tuple[pathlib.Path, str]:
+    """Compile src with `compiler` and `flags` into BUILD_DIR unless its
+    library is up to date. Returns (library path, compiler output; empty
+    when nothing was compiled)."""
+    h = hashlib.sha256(" ".join(flags).encode())
     for f in includes(src):
         h.update(f.name.encode() + b"\0" + f.read_bytes())
-    out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    out = BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
+    proc = subprocess.run([compiler, *flags, "-o", tmp, str(src)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"kernel build failed: {name}: nvcc exit "
-                           f"{proc.returncode}\n{proc.stdout}")
+        raise RuntimeError(f"build failed: {src.name}: {pathlib.Path(compiler).name} "
+                           f"exit {proc.returncode}\n{proc.stdout}")
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     return out, proc.stdout
+
+
+def compile_source(name: str) -> tuple[pathlib.Path, str]:
+    """Compile csrc/<name>.cu unless its library is up to date. Returns
+    (library path, nvcc/ptxas output; empty when nothing was compiled)."""
+    return _compile(CSRC / f"{name}.cu", nvcc(), NVCC_FLAGS)
+
+
+def compile_host_source(src: pathlib.Path) -> tuple[pathlib.Path, str]:
+    """Compile the host C++ source `src` with g++ (GXX_FLAGS) unless its
+    library is up to date. Returns (library path, g++ output)."""
+    return _compile(src, gxx(), GXX_FLAGS)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -12,11 +12,13 @@ intermediates (mocomp.cpp:66-71).
 The arithmetic is int32; every plane value lies in 0..255, so the planes
 are returned as uint8 (a quarter of the bytes for the kernels that read
 them). Elementwise work only, in plain PyTorch, as the reference computes
-it outside any Pallas kernel.
+it outside any Pallas kernel. mc_macroblock_from_planes is the decoder's
+host-side (numpy) MC of one MB from these planes.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -74,3 +76,37 @@ def pad_chroma(ref_c, ext_c: int):
     """The chroma plane edge-padded by ext_c + 1 on every side, for the
     bilinear MC window reads (pad_chroma_jax); keeps the dtype."""
     return _edge_pad(ref_c, ext_c + 1)
+
+
+def mc_macroblock_from_planes(planes, cb_pad, cr_pad, mb_x: int, mb_y: int, mv,
+                              ext: int, ext_c: int):
+    """Whole-MB MC of the decoder's Python form from precomputed planes
+    (h264_fer_tpu/ops/interp.mc_macroblock_from_planes, interp.py:157),
+    host side: equal to ops/mc.mc_macroblock wherever every MV lies within
+    ±(ext - 1) full pel.
+
+    planes: interpolated_planes(ref_y, ext) as a numpy array; cb_pad /
+    cr_pad: pad_chroma(ref_c, ext_c) as numpy int32, ext_c >= ext // 2 + 1.
+    mv: (4, 4, 2) quadrant-major quarter-pel MVs, uniform within each
+    quadrant (the decoder's sub-8x8 collapse). Returns (pred_l 16x16,
+    pred_cb 8x8, pred_cr 8x8) int32."""
+    pred_l = np.empty((16, 16), np.int32)
+    pred_cb = np.empty((8, 8), np.int32)
+    pred_cr = np.empty((8, 8), np.int32)
+    x0, y0 = mb_x * 16, mb_y * 16
+    for q in range(4):
+        ox, oy = (q & 1) * 8, (q >> 1) * 8
+        mvx, mvy = int(mv[q, 0, 0]), int(mv[q, 0, 1])
+        frac = (mvy & 3) * 4 + (mvx & 3)
+        px = x0 + ox + (mvx >> 2) + ext
+        py = y0 + oy + (mvy >> 2) + ext
+        pred_l[oy: oy + 8, ox: ox + 8] = planes[frac][py: py + 8, px: px + 8]
+        cx = (x0 + ox) // 2 + (mvx >> 3) + ext_c + 1
+        cy = (y0 + oy) // 2 + (mvy >> 3) + ext_c + 1
+        fx, fy = mvx & 7, mvy & 7
+        for cplane, out in ((cb_pad, pred_cb), (cr_pad, pred_cr)):
+            a = cplane[cy: cy + 5, cx: cx + 5]
+            out[oy // 2: oy // 2 + 4, ox // 2: ox // 2 + 4] = (
+                (8 - fx) * (8 - fy) * a[:4, :4] + fx * (8 - fy) * a[:4, 1:]
+                + (8 - fx) * fy * a[1:, :4] + fx * fy * a[1:, 1:] + 32) >> 6
+    return pred_l, pred_cb, pred_cr

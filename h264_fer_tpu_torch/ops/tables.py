@@ -133,6 +133,10 @@ CODENUM_TO_CBP_INTRA = np.array(
 )
 CBP_TO_CODENUM_INTRA = np.argsort(CODENUM_TO_CBP_INTRA).astype(np.int32)
 
+# Partitions of each P_8x8 sub_mb_type 0..3 (8x8, 8x4, 4x8, 4x4; norm
+# Table 7-17), which the decoder reads an mvd for.
+SUB_MB_NUM_PARTS = np.array([1, 2, 2, 4], dtype=np.int32)
+
 
 # ---------------------------------------------------------------------------
 # Neighbouring 4x4 blocks A (left) and B (above) of each block, as

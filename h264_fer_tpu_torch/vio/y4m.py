@@ -1,11 +1,13 @@
-"""Y4M (YUV4MPEG2) frame input and PSNR (reference fileIO.cpp).
+"""Y4M (YUV4MPEG2) frame input and output, raw YUV and PSNR (reference
+fileIO.cpp).
 
 Frames are 8-bit 4:2:0 planar: Y (H, W), Cb (H/2, W/2), Cr (H/2, W/2) as
 NumPy uint8 arrays. The reader center-crops input to multiples of 16 in
 both dimensions, as the reference does (ReadFromY4M, fileIO.cpp:290-312), so
 that encoder inputs match.
 
-A copy of the reader and psnr of h264_fer_tpu/vio/y4m.py.
+A copy of h264_fer_tpu/vio/y4m.py: the reader, Y4MWriter (the decoder's
+output), the raw planar write_yuv / read_yuv and psnr.
 """
 
 from __future__ import annotations
@@ -106,6 +108,52 @@ class Y4MReader:
             if fr is None:
                 return
             yield fr
+
+
+class Y4MWriter:
+    """Writes (Y, Cb, Cr) uint8 frames as a Y4M stream, with the header
+    parameters of the reference writer (fileIO.cpp:147)."""
+
+    def __init__(self, f, width: int, height: int, fps_num: int = 24,
+                 fps_den: int = 1) -> None:
+        if isinstance(f, str):
+            f = open(f, "wb")
+        self.f = f
+        self.f.write(b"YUV4MPEG2 C420jpeg W%d H%d F%d:%d Ip A1:1\n"
+                     % (width, height, fps_num, fps_den))
+
+    def write_frame(self, y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> None:
+        self.f.write(b"FRAME\n")
+        for plane in (y, cb, cr):
+            self.f.write(np.ascontiguousarray(plane).tobytes())
+
+    def close(self) -> None:
+        self.f.close()
+
+
+def write_yuv(f, frames) -> None:
+    """Raw planar YUV writer (reference writeToYUV, fileIO.cpp:100-132)."""
+    if isinstance(f, str):
+        with open(f, "wb") as out:
+            write_yuv(out, frames)
+        return
+    for frame in frames:
+        for plane in frame:
+            f.write(np.ascontiguousarray(plane).tobytes())
+
+
+def read_yuv(path: str, width: int, height: int):
+    """Raw planar 4:2:0 frames of `path` as (y, cb, cr) uint8 arrays."""
+    data = np.fromfile(path, np.uint8)
+    ysz, csz = width * height, (width // 2) * (height // 2)
+    fsz = ysz + 2 * csz
+    out = []
+    for base in range(0, len(data) - fsz + 1, fsz):
+        y = data[base: base + ysz].reshape(height, width)
+        cb = data[base + ysz: base + ysz + csz].reshape(height // 2, width // 2)
+        cr = data[base + ysz + csz: base + fsz].reshape(height // 2, width // 2)
+        out.append((y, cb, cr))
+    return out
 
 
 def psnr(a: np.ndarray, b: np.ndarray) -> float:

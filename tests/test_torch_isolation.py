@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from h264_fer_tpu_torch import entry
+from h264_fer_tpu_torch.codec.decoder import Decoder
 from h264_fer_tpu_torch.codec.encoder import Encoder, EncoderConfig
 from h264_fer_tpu_torch.parallel.gop_device import GopIntraEncoder, GopIpppEncoder
 
@@ -66,6 +67,35 @@ def test_session_encoder_and_cli_leave_jax_out_of_sys_modules(tmp_path, fixtures
     assert out.stdout.strip().splitlines()[-1] == "clean"
 
 
+def test_decoder_and_cli_decode_leave_jax_out_of_sys_modules(tmp_path, fixtures_dir):
+    """The Decoder in both forms, with the filter (plain K8 on the CPU), and
+    the CLI's decode run without importing JAX or the JAX package."""
+    src = fixtures_dir / "ref_qcif_ippp_qp28.264"
+    session = tmp_path / "session.264"
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from h264_fer_tpu_torch.cli import main\n"
+        "from h264_fer_tpu_torch.codec.decoder import Decoder\n"
+        "from h264_fer_tpu_torch.codec.encoder import Encoder, EncoderConfig\n"
+        "enc = Encoder(32, 32, EncoderConfig(deblock=True), device='cpu')\n"
+        "z = np.full((32, 32), 90, np.uint8)\n"
+        f"open({str(session)!r}, 'wb').write(enc.encode_sequence([(z, z[::2, ::2], z[::2, ::2])] * 2))\n"
+        "for native in (True, False):\n"
+        f"    frames = list(Decoder(True, device='cpu', native=native).decode_annexb(open({str(session)!r}, 'rb').read()))\n"
+        "    assert len(frames) == 2 and frames[1][0].shape == (32, 32)\n"
+        f"assert main(['decode', {str(src)!r}, {str(tmp_path / 'out.y4m')!r}, '--deblock',"
+        " '--device', 'cpu']) == 0\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'h264_fer_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "clean"
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax(path):
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -95,3 +125,7 @@ def test_default_device_raises_without_cuda():
         Encoder(176, 144, EncoderConfig(deblock=True))
     with pytest.raises(RuntimeError, match="CUDA"):
         Encoder(176, 144, EncoderConfig(), iframe="mixed")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Decoder()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Decoder(deblock=True, native=False)

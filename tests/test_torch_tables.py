@@ -15,7 +15,7 @@ torch.set_num_threads(1)
 TABLES = ["ZIGZAG_YX", "ZIGZAG_FLAT", "INV_ZIGZAG_FLAT", "LEVEL_SCALE",
           "LEVEL_QUANTIZE", "QPI_TO_QPC", "INTRA4X4_SCAN_ORDER_XY",
           "RASTER_TO_LUMA_BLOCK", "CODENUM_TO_CBP_INTER", "CBP_TO_CODENUM_INTER",
-          "CODENUM_TO_CBP_INTRA", "CBP_TO_CODENUM_INTRA"]
+          "CODENUM_TO_CBP_INTRA", "CBP_TO_CODENUM_INTRA", "SUB_MB_NUM_PARTS"]
 CAVLC_TABLES = ["COEFF_TOKEN_LEN", "COEFF_TOKEN_BITS", "TOTAL_ZEROS_LEN",
                 "TOTAL_ZEROS_BITS", "TOTAL_ZEROS_CDC_LEN",
                 "TOTAL_ZEROS_CDC_BITS", "RUN_BEFORE_LEN", "RUN_BEFORE_BITS"]
