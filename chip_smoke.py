@@ -91,19 +91,36 @@ Phases (any failure exits non-zero and prints no result line; each
      session streams from the card, with i16 IDRs and with mixed IDRs, must
      equal the CPU path's. Prints e2e fps, K8's ms and launches per frame,
      the session's stage times and the profiled busy share;
-  10. the decode gate: decode each 1080p stream of phases 3, 5, 7 and 9
+  10. drive the host path, the reference encoder's exact per-MB loop on the
+     host with the in-loop filter K8 on the card: Encoder(1920, 1088,
+     EncoderConfig(qp=28, intra_every=8, deblock=True), iframe="host",
+     pframe="host") encodes 3 frames (an IDR and 2 P frames) with K8's
+     count set to 0 just before (one K8 launch per frame); the stream must
+     parse back with the filter signalled, and K8 is held bit-exact against
+     its plain twin on the last P frame's state before its filter. Prints
+     the seconds per frame of the host loop and of K8's synchronised call,
+     and the run's e2e fps. On QCIF, on the card and on the CPU: the
+     all-intra stream at QP 28 on 3 frames of tests/fixtures/clip_qcif_10f
+     .y4m must be the prefix of tests/fixtures/ref_qcif_intra_qp28.264 (the
+     C++ reference encoder's bytes), and each HOST_QCIF stream (5 frames of
+     the clip) must have the SHA-256 HOST_DIGESTS gives it, the digest of
+     the JAX package's host Encoder's stream (tests/test_torch_host_encoder
+     .py recomputes them with JAX); each card stream must equal the CPU's;
+  11. the decode gate: decode each 1080p stream of phases 3, 5, 7, 9 and 10
      with the port's Decoder on the card (native form) and hold every
      frame, exactly, to the reconstruction the run has for it: the plain
      chain's recon (all-intra), the kernel path's reference planes as the
      encoders recorded them (IPPP, mixed) and the session encoder's
-     reference planes (session, filter on: K8 runs once per decoded
-     frame). IPPP and mixed decode in the spec-correct mode (zero chroma
+     reference planes (session and host, filter on: K8 runs once per
+     decoded frame). IPPP and mixed decode in the spec-correct mode (zero chroma
      AC where a MB has no residual, as the encoders reconstruct); the
      session stream selects it by signalling the filter. Prints each
      stream's frames, median decode fps of 5 runs after a warm-up and K8
      launches per frame; the QCIF session streams decode equal on the
      card and on the CPU (plain K8);
-  11. print the kernels line and, last, {"ok": true, "device": {...}}.
+  12. print the kernels line (K8's row also with its launches on the host
+     path and on the session stream's decode) and, last,
+     {"ok": true, "device": {...}}.
      Each kernel's time is taken two ways (kernel_ms): `ms` with its
      calls issued as the host gets to them, as a path issues them, and
      `queued_ms` with them queued ahead of the card, the device's own time.
@@ -113,7 +130,9 @@ Imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import hashlib
 import json
+import pathlib
 import subprocess
 import sys
 import time
@@ -136,6 +155,26 @@ N_PLAIN_IPPP = 4  # frames of the first GOP held against the plain chain
 # the session path: 16 frames, an IDR every 8, the in-loop filter on
 N_SESSION, SESSION_INTRA_EVERY, N_PLAIN_SESSION = 16, 8, 3
 K8_I_QPS, K8_P_QPS = (16, 28, 46), (28, 36, 46)
+# the host path: an IDR and 2 P frames at 1080p (seconds of host work each)
+N_HOST = 3
+# the host path's QCIF streams: 5 frames of the clip through
+# Encoder(iframe="host", pframe="host", **kwargs) with EncoderConfig(**cfg),
+# each held to the SHA-256 of the JAX host Encoder's stream (tpu_* off; for
+# device_modes, fed the port's intra_mode_decision), which
+# tests/test_torch_host_encoder.py recomputes
+HOST_CLIP = "tests/fixtures/clip_qcif_10f.y4m"
+HOST_REF = "tests/fixtures/ref_qcif_intra_qp28.264"  # the C++ reference's bytes
+N_HOST_QCIF = 5
+HOST_QCIF = {"qp28": ({"qp": 28}, {}),
+             "qp40": ({"qp": 40}, {}),
+             "qp28_deblock": ({"qp": 28, "deblock": True}, {}),
+             "qp28_device_modes": ({"qp": 28}, {"device_modes": True})}
+HOST_DIGESTS = {
+    "qp28": "f3b260b2a7f4f6c86f00d8b41b2c93fa31187face12c60e734925a5a15e21cf8",
+    "qp40": "c3460d01d9e2002775b8516c6f48da5480f22307ae5a89b0bd0a450af9d8485d",
+    "qp28_deblock": "e34020ea00b5575cd8d6a56702d129d4710c9cd76b72ef02334af34d4c2f1443",
+    "qp28_device_modes": "3954d4c2cec9f42df22c0e814a6b6f1b774950e421d9b742eeb1510c1c42ac03",
+}
 P_QPS = (28, 40, 46)  # SAD, SSD and 2*SSD tiers
 # bytes of each 1080p path's stream on chip_smoke's content (unchanged
 # since the session path was added; the kernels and plain twins are
@@ -1318,6 +1357,81 @@ def parse_session_stream(stream: bytes, stats, w: int, h: int, qp: int):
             raise AssertionError(f"slice {i}: {sh}")
 
 
+def repo_file(rel: str) -> pathlib.Path:
+    return pathlib.Path(__file__).resolve().parent / rel
+
+
+def host_qcif_streams(dev) -> dict:
+    """The host path's QCIF streams on `dev`: "intra_qp28" (all-intra, QP 28,
+    3 frames of the clip) and every HOST_QCIF stream (N_HOST_QCIF frames),
+    each as (stream, the encoder's reconstruction of its last frame)."""
+    from h264_fer_tpu_torch.codec.encoder import Encoder, EncoderConfig
+    from h264_fer_tpu_torch.vio.y4m import Y4MReader
+
+    clip = list(Y4MReader(str(repo_file(HOST_CLIP))))[:N_HOST_QCIF]
+    cases = {"intra_qp28": ({"qp": 28, "intra_every": 1}, {}), **HOST_QCIF}
+    out = {}
+    for name, (cfg, kw) in cases.items():
+        enc = Encoder(176, 144, EncoderConfig(**cfg), iframe="host", pframe="host",
+                      device=dev, **kw)
+        stream = enc.encode_sequence(clip[:3] if name == "intra_qp28" else clip)
+        out[name] = (stream, enc.reconstructed())
+    return out
+
+
+def check_host_qcif(streams: dict, where: str) -> None:
+    """Raise unless the host all-intra stream is the prefix of the C++
+    reference's and every HOST_QCIF stream has its HOST_DIGESTS digest."""
+    ref = repo_file(HOST_REF).read_bytes()
+    intra = streams["intra_qp28"][0]
+    if not ref.startswith(intra):
+        raise AssertionError(f"host all-intra QCIF stream on {where} is not a prefix "
+                             "of the C++ reference encoder's")
+    for name in HOST_QCIF:
+        digest = hashlib.sha256(streams[name][0]).hexdigest()
+        if digest != HOST_DIGESTS[name]:
+            raise AssertionError(f"host QCIF {name} on {where}: SHA-256 {digest} != the "
+                                 f"JAX host Encoder's {HOST_DIGESTS[name]}")
+
+
+def host_path(torch, dev, frames):
+    """Phase 10's 1080p run: the host path on `frames`, with K8's count set
+    to 0 just before; the stream must parse back. Returns (stream, the
+    reference planes after each frame on the card, the K8 launches, the
+    state of the last K8 call (planes and syntax state before its filter),
+    per frame the seconds of the whole frame and of K8's synchronised call,
+    and the encoder's per-frame stats)."""
+    from h264_fer_tpu_torch.codec import encoder_host
+    from h264_fer_tpu_torch.codec.encoder import Encoder, EncoderConfig
+    from h264_fer_tpu_torch.kernels.deblock import deblock_frame
+
+    cfg = EncoderConfig(qp=QP, intra_every=SESSION_INTRA_EVERY, deblock=True)
+    enc = Encoder(W, H, cfg, iframe="host", pframe="host", device=dev)
+    k8_s, last_state = [], []
+
+    def timed_k8(*args):
+        last_state[:] = args[:6]
+        t0 = time.perf_counter()
+        out = deblock_frame(*args)
+        torch.cuda.synchronize()
+        k8_s.append(time.perf_counter() - t0)
+        return out
+
+    recon, frame_s = [], []
+    torch.cuda.synchronize()
+    deblock_frame.launches = 0
+    with mock.patch.object(encoder_host, "deblock_frame", timed_k8):
+        stream = enc.headers()
+        for f in frames:
+            t0 = time.perf_counter()
+            stream += enc.encode_frame(*f)
+            frame_s.append(time.perf_counter() - t0)
+            recon.append(tuple(torch.from_numpy(p).to(dev) for p in enc.reconstructed()))
+    launches = deblock_frame.launches
+    parse_session_stream(stream, enc.stats, W, H, QP)
+    return stream, recon, launches, tuple(last_state), frame_s, k8_s, enc.stats
+
+
 def main() -> int:
     import torch
 
@@ -1692,11 +1806,40 @@ def main() -> int:
     else:
         print("device busy share: not measured (the profiler saw no device time)")
 
-    # ---- 10. decode gate ----------------------------------------------------
+    # ---- 10. host path ----------------------------------------------------
+    frames = content(N_HOST, W, H)
+    stream, recon, host_launches, host_state, frame_s, k8_s, stats = host_path(
+        torch, dev, frames)
+    if host_launches != N_HOST:
+        raise AssertionError(f"host path: K8 launched {host_launches} times for "
+                             f"{N_HOST} frames")
+    to_decode["host"] = (stream, recon, {"deblock": True})
+    k8_host, _ = check_k8(torch, f"{W}x{H} host P state", host_state, QP)
+    print(f"host path: {N_HOST} frames {W}x{H} QP{QP} deblock ({sum(s['idr'] for s in stats)} "
+          f"IDR), {len(stream)} bytes, parses; K8 {host_launches / N_HOST:g} launches per "
+          f"frame, == plain on the last P frame's state; e2e fps {N_HOST / sum(frame_s):.4f} "
+          f"on {name}", flush=True)
+    for i, (fs, ks, st) in enumerate(zip(frame_s, k8_s, stats)):
+        print(f"host frame {i} ({'IDR' if st['idr'] else 'P'}, {st['bytes']} bytes, mb types "
+              f"{st['mb_types']}): {fs:.2f} s, host loop {fs - ks:.2f} s, K8 call "
+              f"{1e3 * ks:.2f} ms on {name}", flush=True)
+    t0 = time.perf_counter()
+    qcif_host = host_qcif_streams(dev)
+    check_host_qcif(qcif_host, name)
+    on_cpu = host_qcif_streams("cpu")
+    check_host_qcif(on_cpu, "the CPU")
+    for key, (s_card, _) in qcif_host.items():
+        if s_card != on_cpu[key][0]:
+            raise AssertionError(f"host QCIF {key} stream on the card != CPU path stream")
+    print(f"host QCIF: all-intra == the C++ reference's prefix, {len(HOST_QCIF)} streams == "
+          f"their JAX digests, card == CPU ({time.perf_counter() - t0:.1f} s) on {name}",
+          flush=True)
+
+    # ---- 11. decode gate ----------------------------------------------------
     from h264_fer_tpu_torch.codec.decoder import Decoder
 
     decoded = {path: decode_gate(torch, dev, path, *to_decode[path], name)
-               for path in ("all-intra", "IPPP", "mixed", "session")}
+               for path in ("all-intra", "IPPP", "mixed", "session", "host")}
     for i, qstream in enumerate(qcif_sessions):  # K8 on the card == its plain twin
         on_card, on_cpu = (list(Decoder(True, device=d).decode_annexb(qstream))
                            for d in (dev, "cpu"))
@@ -1708,14 +1851,15 @@ def main() -> int:
           f"{len(decoded)} 1080p streams == their reconstruction; QCIF session "
           f"decodes card == CPU on {name}", flush=True)
 
-    # ---- 11. result -------------------------------------------------------
+    # ---- 12. result -------------------------------------------------------
     csrc = "h264_fer_tpu_torch/kernels/csrc/"
     rows = [("wavefront_i16", "h264_fer_tpu/kernels/wavefront_pallas.py:890",
              k1_launches, max(k1[q][0] for q in CHECK_QPS), k1[QP][1:]),
             ("wavefront_i16_levels", "h264_fer_tpu/kernels/wavefront_pallas.py:173",
              launches, max(k1t[q][0] for q in CHECK_QPS), k1t[QP][1:]),
             ("deblock", "h264_fer_tpu/kernels/deblock_tpu.py:204",
-             s_launches["deblock_frame"], max(v[0] for v in k8.values()), k8["P", QP][1:]),
+             s_launches["deblock_frame"], max(k8_host[0], *(v[0] for v in k8.values())),
+             k8["P", QP][1:]),
             ("me_int", "h264_fer_tpu/kernels/me_int_pallas.py:34",
              p_launches["integer_score_map"], None, None),
             ("me_qpel", "h264_fer_tpu/kernels/me_pallas.py:28",
@@ -1746,7 +1890,8 @@ def main() -> int:
             "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "queued_ms": queued_ms})
-        if kname == "deblock":  # K8 also runs on the decode path
+        if kname == "deblock":  # K8 also runs on the host path and the decode path
+            kernels[-1]["host_launches"] = host_launches
             kernels[-1]["decode_launches"] = decoded["session"][2]
     print(name)
     print(json.dumps({"kernels": kernels}))

@@ -26,11 +26,19 @@ K3 (qpel refine, csrc/me_qpel.cu), K4 (decision wavefront, csrc/wavefront_p.cu)
 and K5 (MC, csrc/mc.cu), residual and recon, P-slice CAVLC; the reference
 planes and MVs carried on the device → host slice headers, payloads, EPB.
 
-Session path: codec.encoder.Encoder, one frame in and one slice NAL out
-(python -m h264_fer_tpu_torch encode, cli.py): IDRs by period or scene cut
-(frame SAD on the device) through the I frames above, P frames through
+Session path: codec.encoder.Encoder, one frame in and one slice NAL out:
+IDRs by period or scene cut through the I frames above, P frames through
 device_p_frame, the trailing-skip drop, then with cfg.deblock the in-loop
 filter K8 (csrc/deblock.cu, knight waves of MB windows) on every frame.
+
+Host path: the same Encoder with iframe="host" and pframe="host" (python
+-m h264_fer_tpu_torch encode without --tpu-* flags, cli.py) →
+codec.encoder_host.HostEncoder, the reference encoder's exact per-MB
+decision and CAVLC in numpy on the host (its I frames write the C++
+reference's bytes), the trailing-skip drop, then with cfg.deblock K8 on
+the card on every frame. Host and device frames mix (a device I frame
+hands its state to host P frames, a host I frame to device P frames), and
+device_modes=True gives host I frames the device's mode decision.
 
 Decode path: codec.decoder.Decoder (python -m h264_fer_tpu_torch decode):
 the bit-serial CAVLC parse and the per-MB reconstruction on the host, in

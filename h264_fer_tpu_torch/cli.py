@@ -4,15 +4,19 @@
     python -m h264_fer_tpu_torch decode in.264 out.y4m [--deblock] [--fps N]
     python -m h264_fer_tpu_torch psnr ref.y4m test.y4m
 
-encode runs the session Encoder (codec/encoder.py): the device I frames
-(--iframe i16 or mixed) and P frames, with the in-loop filter under
---deblock, on the card unless --device cpu. --gop-devices 1 runs the
-sequence encoders instead (parallel/gop_device.py): all-intra when
---intra-every is 1, else fixed GOPs of --intra-every frames. Per-frame
-statistics (bytes, ms, MB-type histogram) print with --stats. The options
-are those of the JAX package's CLI (h264_fer_tpu/cli.py), less the ones
-that choose between host and device paths: here every frame runs on the
-device.
+encode takes the JAX package's CLI flags (h264_fer_tpu/cli.py) with its
+defaults, so one command line writes the same bytes in both packages. It
+runs the session Encoder (codec/encoder.py): by default every frame on the
+host, the reference encoder's exact per-MB path (codec/encoder_host.py),
+with the in-loop filter K8 on the card under --deblock. --tpu-iframe [i16
+or mixed] moves the I frames to the device, --tpu-pframe the P frames,
+and --tpu-modes (or --tpu-pframe, or --tpu-iframe off) gives host I frames
+the device's intra mode decision. --device cpu runs all of it on the CPU
+(the kernels' plain PyTorch twins). --gop-devices 1 runs the sequence
+encoders instead (parallel/gop_device.py): all-intra when --intra-every is
+1 (mixed with --tpu-iframe mixed), else fixed GOPs of --intra-every
+frames. Per-frame statistics (bytes, ms, MB-type histogram) print with
+--stats.
 
 decode runs codec/decoder.Decoder: the slice loop on the host (native C++),
 and with --deblock the in-loop filter K8 on the card (or its plain twin
@@ -39,6 +43,10 @@ def _cmd_encode(args) -> int:
     from .codec.encoder import Encoder, EncoderConfig
     from .vio.y4m import Y4MReader
 
+    if args.tpu_me:
+        raise NotImplementedError("--tpu-me (ops/me.TpuMePipeline) is not ported: "
+                                  "ROADMAP.md lists it under 'Not to port'; "
+                                  "--tpu-pframe supersedes it")
     rd = Y4MReader(args.input)
     if args.gop_devices or args.tile_devices:
         if args.tile_devices or args.gop_devices > 1:
@@ -48,7 +56,8 @@ def _cmd_encode(args) -> int:
         frames = list(_read_frames(args, rd))
         t0 = time.time()
         if args.intra_every == 1:
-            enc = GopIntraEncoder(rd.width, rd.height, args.qp, mode=args.iframe,
+            enc = GopIntraEncoder(rd.width, rd.height, args.qp,
+                                  mode="mixed" if args.tpu_iframe == "mixed" else "i16",
                                   device=args.device)
         else:
             enc = GopIpppEncoder(
@@ -73,7 +82,15 @@ def _cmd_encode(args) -> int:
         scene_cut_idr=not args.no_scene_cut,
         deblock=args.deblock,
     )
-    enc = Encoder(rd.width, rd.height, cfg, iframe=args.iframe, device=args.device)
+    # the JAX CLI's choice: host frames unless a --tpu-* flag moves them;
+    # any of --tpu-modes / --tpu-iframe / --tpu-pframe builds its device
+    # mode decision, which host I frames then take
+    iframe = {None: "host", "off": "host"}.get(args.tpu_iframe, args.tpu_iframe)
+    enc = Encoder(rd.width, rd.height, cfg, iframe=iframe,
+                  pframe="device" if args.tpu_pframe else "host",
+                  device_modes=iframe == "host" and bool(
+                      args.tpu_modes or args.tpu_iframe or args.tpu_pframe),
+                  device=args.device)
     t0 = time.time()
     n = 0
     with open(args.output, "wb") as f:
@@ -150,9 +167,17 @@ def main(argv=None) -> int:
     e.add_argument("--no-prefilter", action="store_true")
     e.add_argument("--no-scene-cut", action="store_true")
     e.add_argument("--deblock", action="store_true", help="in-loop deblocking filter")
-    e.add_argument("--iframe", choices=["i16", "mixed"], default="i16",
-                   help="I frames: i16 (Intra_16x16 only) or mixed (the exact "
-                        "I4x4-vs-I16 choice per MB)")
+    e.add_argument("--tpu-modes", action="store_true",
+                   help="intra mode pre-decision on the device for host I frames")
+    e.add_argument("--tpu-me", action="store_true",
+                   help="motion search candidates on the device (not ported)")
+    e.add_argument("--tpu-iframe", nargs="?", const="i16",
+                   choices=["off", "i16", "mixed"], default=None,
+                   help="device I frames: i16 (Intra_16x16 only) or mixed (the "
+                        "exact I4x4-vs-I16 choice per MB)")
+    e.add_argument("--tpu-pframe", action="store_true",
+                   help="device P frames (ME maps, decision wavefront, MC and "
+                        "recon, slice entropy)")
     e.add_argument("--gop-devices", type=int, default=0, metavar="N",
                    help="the sequence encoders on N devices (all-intra or "
                         "fixed-GOP IPPP; scene cut off); only N = 1 is ported")

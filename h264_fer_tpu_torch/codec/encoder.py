@@ -1,21 +1,35 @@
 """Session encoder: one frame in, one Annex-B slice NAL out, with the
 in-loop filter on I and P frames.
 
-The counterpart of h264_fer_tpu/codec/encoder.Encoder in its fully-device
-configuration (tpu_pipeline set, tpu_iframe True or "mixed",
-tpu_pframe=True): every IDR through codec.iframe (K1t or the mixed frame),
-every P frame through codec.pframe.device_p_frame, then the trailing-skip
-drop (codec.gop) and, with cfg.deblock, the filter K8 on the whole frame.
+The counterpart of h264_fer_tpu/codec/encoder.Encoder. Each frame type
+runs on the host or on the device, as the JAX encoder's flags choose:
+
+- I frames: iframe="i16" or "mixed" (tpu_iframe True or "mixed") through
+  codec.iframe (K1t, or the mixed frame's K7 and K6), or iframe="host"
+  (both off) through the host per-MB encoder codec.encoder_host, the
+  reference's exact decision, whose modes come from the device
+  (codec.intra_decision, on the card) with device_modes=True
+  (tpu_pipeline without tpu_iframe).
+- P frames: pframe="device" (tpu_pframe=True) through
+  codec.pframe.device_p_frame, then the trailing-skip drop (codec.gop)
+  and, with cfg.deblock, the filter K8 on the whole frame; or
+  pframe="host" (tpu_pframe off) through codec.encoder_host, which drops
+  and filters (K8) in the same order.
+
 It keeps the reference's session logic: the IDR choice (intra_every, and
 the scene cut by frame SAD against the reconstruction or, with
 scene_cut_source, against the previous source frame), the idr_pic_id /
 frame_num / POC state machine of the slice headers, and per-frame stats.
 
-The reference planes and the per-MB state later frames read (the class of
-each MB for the stats and the filter's intra test, its coded-block flags
-and quadrant MVs) stay on the device. The host reads one payload per frame
-(its size and stats, then its used words); with the scene cut on, it also
-reads one SAD per frame before choosing the frame type.
+The reference frame and the per-MB state later frames read live where the
+P frames run. With device P frames they stay on the device (the planes,
+and per MB its class for the stats and the filter's intra test, its
+coded-block flags and quadrant MVs): the host reads one payload per frame
+(its size and stats, then its used words) and, with the scene cut on, one
+SAD. A host I frame uploads its reconstruction and state for the device P
+frame after it. With host P frames they stay in the HostEncoder's numpy
+arrays, and a device I frame hands its reconstruction and syntax state to
+the host (the JAX encoder's _materialize).
 """
 
 from __future__ import annotations
@@ -23,6 +37,7 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..bitstream import nal as nal_mod
@@ -32,20 +47,20 @@ from ..kernels.deblock import deblock_frame
 from ..ops import transform
 from ..ops.cavlc_bulk import words_to_bytes
 from ..ops.device import DEFAULT_DEVICE, resolve_device, upload
+from .encoder_host import INTRA_CLASS, SKIP_CLASS, HostEncoder
 from .gop import restore_dropped, trailing_skip_drop
 from .iframe import device_i16_frame, device_mixed_frame
+from .intra_decision import intra_mode_decision
 from .pframe import device_p_frame
 
-# the stats' MB classes (DohvatiStatistiku): P_L0_16x16, 16x8, 8x16, P_8x8,
-# P_8x8ref0, P_Skip, intra
-SKIP_CLASS, INTRA_CLASS = 5, 6
+_DEVICE_IFRAMES = {"i16": device_i16_frame, "mixed": device_mixed_frame}
 
 
 @dataclass
 class EncoderConfig:
-    """The encoder's options, as h264_fer_tpu/codec/encoder.EncoderConfig
-    less its `qpel`: the device P frame always refines to quarter pel, as
-    the reference's device P frame does whatever `qpel` says."""
+    """The encoder's options, as h264_fer_tpu/codec/encoder.EncoderConfig.
+    `qpel` holds for host P frames only: the device P frame always refines
+    to quarter pel, as the reference's device P frame does."""
 
     qp: int = 28
     intra_every: int = 100  # forced IDR period (frames)
@@ -55,27 +70,40 @@ class EncoderConfig:
     scene_cut_idr: bool = True  # IDR where the frame SAD exceeds 16 per sample
     scene_cut_source: bool = False  # scene-cut SAD against the previous
     # source frame instead of the reconstructed reference
+    qpel: bool = True  # quarter-pel refinement of the host P frame's search
     deblock: bool = False  # in-loop deblocking filter
 
 
 class Encoder:
     """Session encoder on one device (CUDA by default).
 
-    iframe: "i16" (all-Intra16x16 IDRs) or "mixed" (the exact I4x4-vs-I16
-    choice per MB). encode_frame takes uint8 numpy planes y (H, W), cb and
-    cr (H/2, W/2) and returns the frame's slice NAL."""
+    iframe: "i16" (all-Intra16x16 device IDRs), "mixed" (device IDRs with
+    the exact I4x4-vs-I16 choice per MB) or "host" (the host per-MB
+    encoder). pframe: "device" or "host". device_modes: with iframe="host",
+    the Intra16x16 and Intra4x4 modes come from the device's decision,
+    read back once per IDR, and only the bit-cost arbitration runs per MB.
+    encode_frame takes uint8 numpy planes y (H, W), cb and cr (H/2, W/2)
+    and returns the frame's slice NAL."""
 
     def __init__(self, width: int, height: int, cfg: EncoderConfig,
-                 iframe: str = "i16", device=DEFAULT_DEVICE) -> None:
+                 iframe: str = "i16", pframe: str = "device",
+                 device_modes: bool = False, device=DEFAULT_DEVICE) -> None:
         if width % 16 or height % 16:
             raise ValueError(f"frame {width}x{height} is not a whole number of MBs")
         if not 0 <= cfg.qp <= 51:
             raise ValueError(f"qp must be in 0..51, got {cfg.qp}")
-        if iframe not in ("i16", "mixed"):
-            raise ValueError(f"iframe={iframe!r}: 'i16' or 'mixed'")
+        if iframe not in ("i16", "mixed", "host"):
+            raise ValueError(f"iframe={iframe!r}: 'i16', 'mixed' or 'host'")
+        if pframe not in ("device", "host"):
+            raise ValueError(f"pframe={pframe!r}: 'device' or 'host'")
+        if device_modes and iframe != "host":
+            raise ValueError("device_modes feeds host I frames; device I frames "
+                             "decide their own modes")
         self.device = resolve_device(device)
         self.cfg = cfg
-        self._iframe = device_mixed_frame if iframe == "mixed" else device_i16_frame
+        self._iframe = _DEVICE_IFRAMES.get(iframe)  # None: host I frames
+        self._pframe_host = pframe == "host"
+        self._device_modes = device_modes
         self.w, self.h = width, height
         self.wmb, self.hmb = width // 16, height // 16
         self.nmb = self.wmb * self.hmb
@@ -91,9 +119,13 @@ class Encoder:
         self.first_frame = True
         self.curr_frame_count = 0
         self.stats = []  # per frame: bytes, ms, idr, mb_types
-        # on the device: the reference planes (the last frame as decoders
-        # hold it, filtered), the previous source luma, and per MB its class
-        # (0..6), coded-block flags (Z-scan) and quadrant MVs
+        # the host frames' per-MB encoder and state
+        self.host = (HostEncoder(width, height, cfg, self.qpc, self.device)
+                     if iframe == "host" or self._pframe_host else None)
+        # with device P frames, on the device: the reference planes (the
+        # last frame as decoders hold it, filtered), the previous source
+        # luma, and per MB its class (0..6), coded-block flags (Z-scan) and
+        # quadrant MVs
         self._ref = None
         self._prev_src = None
         self._mb_class = self._nz = self._mv = None
@@ -110,17 +142,24 @@ class Encoder:
     def reconstructed(self):
         """The last frame's reconstruction as the decoder holds it (after
         the trailing-skip drop and the filter): uint8 numpy planes."""
+        if self._pframe_host:
+            return tuple(p.astype(np.uint8) for p in
+                         (self.host.ref_y, self.host.ref_cb, self.host.ref_cr))
         return tuple(p.cpu().numpy() for p in self._ref)
 
     def _is_idr(self, y) -> bool:
         """selectNALUnitType (encoder._select_nal_unit_type): the first frame
         and every intra_every-th are IDRs; so is a frame whose luma SAD
         against the reference (or the previous source frame) exceeds 16 per
-        sample. The SAD is summed in int64 on the device."""
-        if self._ref is None or self.curr_frame_count % self.cfg.intra_every == 0:
+        sample. The SAD is summed in int64 where the reference lives: y is
+        the numpy plane with host P frames, else its copy on the device."""
+        if self.curr_frame_count % self.cfg.intra_every == 0:
             return True
         if not self.cfg.scene_cut_idr:
             return False
+        if self._pframe_host:
+            ref = self._prev_src if self.cfg.scene_cut_source else self.host.ref_y
+            return int(np.abs(y.astype(np.int64) - ref).sum()) > (self.nmb << 12)
         ref = self._prev_src if self.cfg.scene_cut_source else self._ref[0]
         sad = (y.to(torch.int64) - ref.to(torch.int64)).abs().sum()
         return int(sad) > (self.nmb << 12)
@@ -183,28 +222,67 @@ class Encoder:
         self._ref = (ry, rcb, rcr)
         return out
 
-    def encode_frame(self, y, cb, cr) -> bytes:
-        """Encode one frame (uint8 numpy planes); returns its slice NAL."""
-        t0 = time.time()
-        y, cb, cr = (upload(p, self.device) for p in (y, cb, cr))
-        is_idr = self._is_idr(y)
-        self._prev_src = y
-        self.curr_frame_count += 1
-        w = self._slice_header(is_idr)
+    def _host_frame(self, w: BitWriter, is_idr: bool, src, y_dev):
+        """Code a frame on the host (encoder_host); returns (RBSP, the MB-class
+        histogram). With device_modes, an IDR's modes come from the device's
+        decision on y_dev (one read-back). With device P frames after it,
+        its reconstruction and MB state go to the device."""
+        h = self.host
+        modes = None
+        if is_idr and self._device_modes:
+            dec = intra_mode_decision(y_dev.to(torch.int32), self.qpy)
+            both = torch.cat([dec["mode16"][:, None], dec["mode4"]], dim=1).cpu().numpy()
+            modes = (both[:, 0], both[:, 1:])
+        rbsp = h.encode_slice(w, is_idr, *src, modes)
+        mb_class = h.mb_class()
+        if not self._pframe_host:
+            dev = self.device
+            self._ref = tuple(upload(p, dev) for p in (h.ref_y, h.ref_cb, h.ref_cr))
+            self._mb_class = torch.from_numpy(mb_class).to(dev)
+            self._nz = torch.from_numpy(h.nz_luma).to(dev)
+            self._mv = torch.from_numpy(np.ascontiguousarray(h.mv[:, :, 0])).to(dev)
+        return rbsp, np.bincount(mb_class, minlength=7).tolist()
+
+    def _device_frame(self, w: BitWriter, is_idr: bool, y, cb, cr):
+        """Code a frame on the device; returns (RBSP, the MB-class
+        histogram). One transfer for the payload size and the histogram, one
+        for the payload's used words. With host P frames after an IDR, its
+        reconstruction and syntax state go to the host."""
         if is_idr:
             out = self._idr(y, cb, cr)
         else:
             out = self._p_frame(y, cb, cr, w.bit_position)
-        # one transfer for the payload size and the MB-class histogram, one
-        # for the payload's used words
         head = torch.cat([out["nbits"].reshape(1).to(torch.int64),
                           torch.bincount(self._mb_class, minlength=7).to(torch.int64)])
         nbits, *mb_types = (int(v) for v in head.cpu())
         words = out["words"][: (nbits + 63) // 64].cpu().numpy()
         w.append_bits(words_to_bytes(words, nbits), nbits)
         w.rbsp_trailing_bits()
+        if self._pframe_host:
+            self.host.load_device_idr(out)
+        return w.getvalue(), mb_types
+
+    def encode_frame(self, y, cb, cr) -> bytes:
+        """Encode one frame (uint8 numpy planes); returns its slice NAL."""
+        t0 = time.time()
+        src = (y, cb, cr)
+        dev_src = None if self._pframe_host else tuple(upload(p, self.device) for p in src)
+        is_idr = self._is_idr(y if self._pframe_host else dev_src[0])
+        self._prev_src = y if self._pframe_host else dev_src[0]
+        self.curr_frame_count += 1
+        w = self._slice_header(is_idr)
+        on_host = self._iframe is None if is_idr else self._pframe_host
+        if on_host:
+            y_dev = None
+            if is_idr and self._device_modes:
+                y_dev = dev_src[0] if dev_src else upload(y, self.device)
+            rbsp, mb_types = self._host_frame(w, is_idr, src, y_dev)
+        else:
+            if dev_src is None:
+                dev_src = tuple(upload(p, self.device) for p in src)
+            rbsp, mb_types = self._device_frame(w, is_idr, *dev_src)
         nal = nal_mod.write_nal_unit(
-            1, nal_mod.NAL_IDR if is_idr else nal_mod.NAL_NOT_IDR, w.getvalue())
+            1, nal_mod.NAL_IDR if is_idr else nal_mod.NAL_NOT_IDR, rbsp)
         self.stats.append({"bytes": len(nal), "ms": (time.time() - t0) * 1000.0,
                            "idr": is_idr, "mb_types": mb_types})
         return nal

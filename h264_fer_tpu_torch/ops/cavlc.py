@@ -1,16 +1,18 @@
-"""CAVLC residual block decoding (norm 9.2; reference residual.cpp), host side.
+"""CAVLC residual block coding (norm 9.2; reference residual.cpp), host side.
 
-The decoding half of h264_fer_tpu/ops/cavlc.py: nC to table context, the
-prefix-decode tables built from the coding tables of ops/cavlc_tables.py,
-level_prefix / level_suffix, and one 4x4 (or 2x2 chroma DC) block. This is
-the semantic reference of the native slice decoder's CAVLC
-(native/decoder_native.cpp) and the entropy stage of the decoder's Python
-form. The device writes the encoder's symbols (ops/cavlc_bulk.py).
+A copy of h264_fer_tpu/ops/cavlc.py. The decoding half: nC to table
+context, the prefix-decode tables built from the coding tables of
+ops/cavlc_tables.py, level_prefix / level_suffix, and one 4x4 (or 2x2
+chroma DC) block; the semantic reference of the native slice decoder's
+CAVLC (native/decoder_native.cpp) and the entropy stage of the decoder's
+Python form. The writing half: one block's (value, nbits) symbols, which
+the host per-MB encoder (codec/encoder_host.py) writes and sizes. The
+device encoders write theirs in bulk (ops/cavlc_bulk.py).
 """
 
 from __future__ import annotations
 
-from ..bitstream.bitio import BitReader
+from ..bitstream.bitio import BitReader, BitWriter
 from .cavlc_tables import (
     COEFF_TOKEN_BITS,
     COEFF_TOKEN_LEN,
@@ -206,3 +208,116 @@ def decode_residual_block(r: BitReader, nc: int, start_idx: int, end_idx: int,
         coeff_num += run[i] + 1
         coeff[start_idx + coeff_num] = level[i]
     return coeff, total_coeff
+
+
+# ---------------------------------------------------------------------------
+# Block encode.
+
+
+def encode_level_code(level_code: int, suffix_len: int):
+    """(prefix, suffix_size, suffix) for a level code at adaptive suffix_len.
+
+    Closed form of the reference's levelcode_to_outputstream generation
+    (residual_tables.cpp:940-1006): the decomposition is unique, prefix
+    capped at 15 with a 12-bit escape suffix.
+    """
+    if suffix_len == 0:
+        if level_code < 14:
+            return level_code, 0, 0
+        if level_code < 30:
+            return 14, 4, level_code - 14
+        return 15, 12, level_code - 30
+    prefix = level_code >> suffix_len
+    if prefix < 15:
+        return prefix, suffix_len, level_code & ((1 << suffix_len) - 1)
+    return 15, 12, level_code - (15 << suffix_len)
+
+
+def _level_to_code(level: int, first_non_t1: bool) -> int:
+    """levelCode from a signed level (inverse of residual.cpp:1302-1312)."""
+    code = 2 * level - 2 if level > 0 else -2 * level - 1
+    if first_non_t1:
+        code -= 2
+    return code
+
+
+def block_symbols(levels, nc: int, max_num_coeff: int):
+    """(value, nbits) symbol list for one block (reference
+    residual_block_cavlc_write, residual.cpp:374-666). `levels` is the
+    zig-zag-ordered coefficient list (length max_num_coeff).
+
+    Returns (symbols, total_coeff).
+    """
+    nonzero_pos = [i for i in range(max_num_coeff) if levels[i] != 0]
+    total_coeff = len(nonzero_pos)
+    # trailing ones: up to 3 final +-1 coefficients
+    trailing_ones = 0
+    for i in range(total_coeff - 1, -1, -1):
+        if abs(levels[nonzero_pos[i]]) == 1 and trailing_ones < 3:
+            trailing_ones += 1
+        else:
+            break
+    ctx = nc_context(nc)
+    n = int(COEFF_TOKEN_LEN[ctx, total_coeff, trailing_ones])
+    assert n > 0, (nc, total_coeff, trailing_ones)
+    syms = [(int(COEFF_TOKEN_BITS[ctx, total_coeff, trailing_ones]), n)]
+    if total_coeff == 0:
+        return syms, 0
+
+    # trailing one signs, then levels high-frequency-first
+    rev = nonzero_pos[::-1]
+    for i in range(trailing_ones):
+        syms.append((1 if levels[rev[i]] < 0 else 0, 1))
+    suffix_len = 1 if (total_coeff > 10 and trailing_ones < 3) else 0
+    for i in range(trailing_ones, total_coeff):
+        lv = int(levels[rev[i]])
+        code = _level_to_code(lv, i == trailing_ones and trailing_ones < 3)
+        prefix, ssize, suffix = encode_level_code(code, suffix_len)
+        syms.append((1, prefix + 1))  # prefix zeros then the stop bit
+        if ssize > 0:
+            syms.append((suffix, ssize))
+        if suffix_len == 0:
+            suffix_len = 1
+        if abs(lv) > (3 << (suffix_len - 1)) and suffix_len < 6:
+            suffix_len += 1
+
+    total_zeros = nonzero_pos[-1] + 1 - total_coeff
+    if total_coeff < max_num_coeff:
+        if nc != -1:
+            syms.append((int(TOTAL_ZEROS_BITS[total_coeff - 1, total_zeros]),
+                         int(TOTAL_ZEROS_LEN[total_coeff - 1, total_zeros])))
+        else:
+            syms.append((int(TOTAL_ZEROS_CDC_BITS[total_coeff - 1, total_zeros]),
+                         int(TOTAL_ZEROS_CDC_LEN[total_coeff - 1, total_zeros])))
+
+    zeros_left = total_zeros
+    for i in range(total_coeff - 1, 0, -1):
+        if zeros_left <= 0:
+            break
+        run_before = nonzero_pos[i] - nonzero_pos[i - 1] - 1
+        if zeros_left > 6:
+            # escape coding (reference residual.cpp:73-84)
+            if run_before < 7:
+                syms.append((7 - run_before, 3))
+            else:
+                syms.append((1, run_before - 4 + 1))  # zeros then the stop bit
+        else:
+            syms.append((int(RUN_BEFORE_BITS[zeros_left - 1, run_before]),
+                         int(RUN_BEFORE_LEN[zeros_left - 1, run_before])))
+        zeros_left -= run_before
+    return syms, total_coeff
+
+
+def write_residual_block(w: BitWriter, levels, nc: int, max_num_coeff: int) -> int:
+    """Write one block; returns its TotalCoeff."""
+    syms, total_coeff = block_symbols(levels, nc, max_num_coeff)
+    for v, n in syms:
+        w.write(v, n)
+    return total_coeff
+
+
+def size_residual_block(levels, nc: int, max_num_coeff: int) -> int:
+    """Exact bit cost (reference residual_block_cavlc_size,
+    residual.cpp:673-957)."""
+    syms, _ = block_symbols(levels, nc, max_num_coeff)
+    return sum(n for _, n in syms)

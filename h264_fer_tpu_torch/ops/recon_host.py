@@ -1,12 +1,14 @@
 """Intra prediction and inverse transforms of one macroblock, host side (numpy).
 
-The decoder's Python form reconstructs MB by MB, and block by block in
-Intra_4x4, as the reference does; a PyTorch call per 4x4 block costs more
-than the block's arithmetic. These are the numpy paths of
-h264_fer_tpu/ops/intra.py (predict_4x4, predict_16x16, predict_chroma) and
-h264_fer_tpu/ops/transform.py (inverse_residual, inverse_dc_luma,
-inverse_dc_chroma, zigzag_unscan), int32 with arithmetic shifts. The
-directional Intra_4x4 modes read the port's own per-sample tables
+The decoder's Python form and the host per-MB encoder reconstruct MB by
+MB, and block by block in Intra_4x4, as the reference does; a PyTorch call
+per 4x4 block costs more than the block's arithmetic. These are the numpy
+paths of h264_fer_tpu/ops/intra.py (predict_4x4, predict_16x16,
+predict_chroma) and h264_fer_tpu/ops/transform.py (inverse_residual,
+inverse_dc_luma, inverse_dc_chroma, zigzag_unscan), int32 with arithmetic
+shifts, the reference's neighbour-sample fetches (fetch_p13, fetch_p33,
+fetch_p17) and the residual of a whole MB from its levels. The directional
+Intra_4x4 modes read the port's own per-sample tables
 (ops/intra._mode_tables), from which the CUDA Intra_4x4 body also takes
 them. tests/test_torch_decoder.py holds every function equal to the
 port's PyTorch version and to the JAX package's numpy one.
@@ -18,11 +20,90 @@ import numpy as np
 
 from .intra import _C4, _IDX4, _SH4, _W4, CHROMA_DC, CHROMA_HORIZONTAL, CHROMA_VERTICAL
 from .intra import I4X4_DC, I16_DC, I16_HORIZONTAL, I16_VERTICAL
-from .tables import INV_ZIGZAG_FLAT, LEVEL_SCALE
+from .tables import INTRA4X4_SCAN_ORDER_XY, INV_ZIGZAG_FLAT, LEVEL_SCALE, LUMA_NBR
 from .transform import _HAD2, _HAD4
 
 _H4 = np.array(_HAD4, np.int32)
 _H2 = np.array(_HAD2, np.int32)
+_BLK_XY = INTRA4X4_SCAN_ORDER_XY  # (16, 2) x, y of each Z-scan 4x4 block
+
+
+def fetch_p13(y: np.ndarray, x0: int, y0: int, blk: int) -> np.ndarray:
+    """The 13 neighbour samples of Z-scan block `blk` of the MB at (x0, y0)
+    in plane y (FetchPredictionSamplesIntra4x4, intra.cpp:294-378): corner,
+    left 4, top 4, top-right 4, -1 where unavailable. The top-right repeats
+    the last top sample at the frame's right edge, in the MB's right column
+    below its top row, and for blocks 3 and 11."""
+    bx, by = int(_BLK_XY[blk, 0]), int(_BLK_XY[blk, 1])
+    x, yy = x0 + bx, y0 + by
+    p = np.full(13, -1, np.int32)
+    if x > 0 and yy > 0:
+        p[0] = y[yy - 1, x - 1]
+    if x > 0:
+        p[1:5] = y[yy: yy + 4, x - 1]
+    if yy > 0:
+        p[5:9] = y[yy - 1, x: x + 4]
+        if x + 4 >= y.shape[1] or (bx == 12 and by > 0) or blk in (3, 11):
+            p[9:13] = y[yy - 1, x + 3]
+        else:
+            p[9:13] = y[yy - 1, x + 4: x + 8]
+    return p
+
+
+def fetch_p33(y: np.ndarray, x0: int, y0: int) -> np.ndarray:
+    """The 33 neighbour samples of the 16x16 MB at (x0, y0): corner, left
+    16, top 16, -1 where unavailable."""
+    p = np.full(33, -1, np.int32)
+    if x0 > 0 and y0 > 0:
+        p[0] = y[y0 - 1, x0 - 1]
+    if x0 > 0:
+        p[1:17] = y[y0: y0 + 16, x0 - 1]
+    if y0 > 0:
+        p[17:33] = y[y0 - 1, x0: x0 + 16]
+    return p
+
+
+def fetch_p17(plane: np.ndarray, cx: int, cy: int) -> np.ndarray:
+    """The 17 neighbour samples of the 8x8 chroma MB at (cx, cy)."""
+    p = np.full(17, -1, np.int32)
+    if cx > 0 and cy > 0:
+        p[0] = plane[cy - 1, cx - 1]
+    if cx > 0:
+        p[1:9] = plane[cy: cy + 8, cx - 1]
+    if cy > 0:
+        p[9:17] = plane[cy - 1, cx: cx + 8]
+    return p
+
+
+def intra4x4_pred_mode(i4x4_mode, mb_i4x4, wmb: int, curr: int, blk: int,
+                       constrained: bool = False) -> int:
+    """The predicted Intra_4x4 mode of block `blk` of MB `curr`
+    (getIntra4x4PredMode, intra.cpp:77-135): the lesser of the left and top
+    blocks' modes, 2 (DC) for a neighbour MB not coded Intra_4x4, and 2 when
+    either neighbour is outside the frame (or with constrained intra
+    prediction). i4x4_mode (nmb, 16) and mb_i4x4 (nmb,) per MB."""
+    a_same, a_blk, b_same, b_blk = LUMA_NBR[blk]
+    mode_a = mode_b = None
+    if a_same:
+        mode_a = int(i4x4_mode[curr, a_blk])
+    elif curr % wmb != 0:
+        mode_a = int(i4x4_mode[curr - 1, a_blk]) if mb_i4x4[curr - 1] else 2
+    if b_same:
+        mode_b = int(i4x4_mode[curr, b_blk])
+    elif curr >= wmb:
+        mode_b = int(i4x4_mode[curr - wmb, b_blk]) if mb_i4x4[curr - wmb] else 2
+    if mode_a is None or mode_b is None or constrained:
+        return 2
+    return min(mode_a, mode_b)
+
+
+def mb_of_blocks(blocks: np.ndarray) -> np.ndarray:
+    """The (16, 16) MB of (16, 4, 4) Z-scan blocks."""
+    out = np.empty((16, 16), np.int32)
+    for blk in range(16):
+        bx, by = int(_BLK_XY[blk, 0]), int(_BLK_XY[blk, 1])
+        out[by: by + 4, bx: bx + 4] = blocks[blk]
+    return out
 
 
 def _dc(total_both: int, total_a: int, total_b: int, both: bool, a_ok: bool,
@@ -150,3 +231,30 @@ def inverse_dc_chroma(c: np.ndarray, qp: int) -> np.ndarray:
     """InverseDCChroma: H2·c·H2, then ((f·LS) << qP//6) >> 5, (..., 2, 2)."""
     f = _H2 @ c @ _H2
     return ((f * int(LEVEL_SCALE[qp % 6, 0, 0])) << (qp // 6)) >> 5
+
+
+def luma_residual(levels: np.ndarray, qp: int) -> np.ndarray:
+    """The (16, 16) residual of an MB's 16 Z-scan 4x4 level lists (16, 16)."""
+    return mb_of_blocks(inverse_residual(zigzag_unscan(levels), qp, False))
+
+
+def i16_luma_residual(i16dc: np.ndarray, ac: np.ndarray, qp: int) -> np.ndarray:
+    """The (16, 16) residual of an Intra_16x16 MB (8.5.2,
+    inttransform.cpp:157-208): its DC list (16,) through the inverse
+    Hadamard, and its 16 AC lists (16, 15), the 16 blocks at once."""
+    dcv = inverse_dc_luma(zigzag_unscan(i16dc), qp)
+    lists = np.empty((16, 16), np.int32)
+    lists[:, 0] = dcv[_BLK_XY[:, 1] >> 2, _BLK_XY[:, 0] >> 2]
+    lists[:, 1:] = ac
+    return mb_of_blocks(inverse_residual(zigzag_unscan(lists), qp, True))
+
+
+def chroma_residual(dc: np.ndarray, ac: np.ndarray, qpc: int) -> np.ndarray:
+    """The (2, 8, 8) Cb and Cr residual of an MB (transformDecodingChroma,
+    inttransform.cpp:237-321) from its DC (2, 4) and AC (2, 4, 15) levels."""
+    dcv = inverse_dc_chroma(dc.reshape(2, 2, 2), qpc)
+    lists = np.empty((2, 4, 16), np.int32)
+    lists[:, :, 0] = dcv.reshape(2, 4)
+    lists[:, :, 1:] = ac
+    res = inverse_residual(zigzag_unscan(lists), qpc, True)
+    return res.reshape(2, 2, 2, 4, 4).transpose(0, 1, 3, 2, 4).reshape(2, 8, 8)

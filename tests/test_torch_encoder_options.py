@@ -63,7 +63,8 @@ def test_gop_ippp_encoder_options_equal_session(clip, streams):
 
 def test_cli_encode_writes_encoder_bytes(clip_path, streams, tmp_path, capsys):
     out = tmp_path / "s.264"
-    assert cli.main(["encode", clip_path, str(out), *ARGS, "--stats"]) == 0
+    assert cli.main(["encode", clip_path, str(out), *ARGS, "--tpu-iframe", "--tpu-pframe",
+                     "--stats"]) == 0
     assert out.read_bytes() == streams[0]
     lines = capsys.readouterr().out.splitlines()
     assert lines[0].startswith(f"10 frames {W}x{H} -> ")
@@ -75,15 +76,15 @@ def test_cli_encode_writes_encoder_bytes(clip_path, streams, tmp_path, capsys):
 
 def test_cli_encode_ranges_and_all_intra(clip, clip_path, tmp_path):
     out = tmp_path / "s.264"
-    args = ["--qp", "30", "--deblock", "--iframe", "mixed", "--start-frame", "3",
-            "--end-frame", "5", "--device", "cpu"]
+    args = ["--qp", "30", "--deblock", "--tpu-iframe", "mixed", "--tpu-pframe",
+            "--start-frame", "3", "--end-frame", "5", "--device", "cpu"]
     assert cli.main(["encode", clip_path, str(out), *args]) == 0
     enc = Encoder(W, H, EncoderConfig(qp=30, deblock=True), iframe="mixed", device="cpu")
     assert out.read_bytes() == enc.encode_sequence(clip[2:5])
     assert cli.main(["encode", clip_path, str(out), "--intra-every", "1",
                      "--gop-devices", "1", "--end-frame", "2", "--device", "cpu"]) == 0
     assert out.read_bytes() == GopIntraEncoder(W, H, 28, device="cpu").encode_sequence(clip[:2])
-    for extra in (["--gop-devices", "2"], ["--tile-devices", "1"]):
+    for extra in (["--gop-devices", "2"], ["--tile-devices", "1"], ["--tpu-me"]):
         with pytest.raises(NotImplementedError):
             cli.main(["encode", clip_path, str(out), "--device", "cpu", *extra])
     if not torch.cuda.is_available():

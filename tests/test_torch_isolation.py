@@ -43,14 +43,16 @@ def test_entry_on_cpu_leaves_jax_out_of_sys_modules():
 
 
 def test_session_encoder_and_cli_leave_jax_out_of_sys_modules(tmp_path, fixtures_dir):
-    """The session Encoder and the CLI (encode, psnr) run on the CPU without
-    importing JAX or the JAX package."""
+    """The session Encoder, its host per-MB path (the CLI's default encode)
+    and the CLI (encode, psnr) run on the CPU without importing JAX or the
+    JAX package."""
     src, dst = fixtures_dir / "clip_qcif_10f.y4m", tmp_path / "out.264"
     code = (
         "import sys\n"
         "import numpy as np\n"
         "from h264_fer_tpu_torch.cli import main\n"
         "from h264_fer_tpu_torch.codec.encoder import Encoder, EncoderConfig\n"
+        "from h264_fer_tpu_torch.codec.encoder_host import HostEncoder\n"
         f"assert main(['encode', {str(src)!r}, {str(dst)!r}, '--end-frame', '2',"
         " '--deblock', '--device', 'cpu']) == 0\n"
         f"assert main(['psnr', {str(src)!r}, {str(src)!r}]) == 0\n"
@@ -125,6 +127,9 @@ def test_default_device_raises_without_cuda():
         Encoder(176, 144, EncoderConfig(deblock=True))
     with pytest.raises(RuntimeError, match="CUDA"):
         Encoder(176, 144, EncoderConfig(), iframe="mixed")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Encoder(176, 144, EncoderConfig(deblock=True), iframe="host", pframe="host",
+                device_modes=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         Decoder()
     with pytest.raises(RuntimeError, match="CUDA"):
