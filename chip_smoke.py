@@ -94,7 +94,7 @@ Phases (any failure exits non-zero and prints no result line; each
   10. drive the host path, the reference encoder's exact per-MB loop on the
      host with the in-loop filter K8 on the card: Encoder(1920, 1088,
      EncoderConfig(qp=28, intra_every=8, deblock=True), iframe="host",
-     pframe="host") encodes 3 frames (an IDR and 2 P frames) with K8's
+     pframe="host") encodes 2 frames (an IDR and a P frame) with K8's
      count set to 0 just before (one K8 launch per frame); the stream must
      parse back with the filter signalled, and K8 is held bit-exact against
      its plain twin on the last P frame's state before its filter. Prints
@@ -106,7 +106,30 @@ Phases (any failure exits non-zero and prints no result line; each
      the clip) must have the SHA-256 HOST_DIGESTS gives it, the digest of
      the JAX package's host Encoder's stream (tests/test_torch_host_encoder
      .py recomputes them with JAX); each card stream must equal the CPU's;
-  11. the decode gate: decode each 1080p stream of phases 3, 5, 7, 9 and 10
+  11. the multi-device encoders and the band kernels: hold K1t-band,
+     K7-band and K6-band against their plain twins, bit-exact, on band 1 of
+     4 of a 1080p frame at QP 8, 28 and 46 with a real halo (band 0's last
+     rows as the full-frame kernels leave them), each also equal to the
+     full-frame kernel's rows of the band, timing them at QP 28; then drive
+     the multi-device encoders at 1080p on entries of the one card (and on
+     cuda:0..n-1 where there are n cards): TileIntraEncoder all-I16 in 4
+     even and 3 uneven bands and mixed in 3 uneven bands,
+     GopTileIntraEncoder (2, 2), GopIntraEncoder and GopIpppEncoder on 2
+     entries, each with the band kernels' counts set to 0 just before (one
+     launch of each band kernel of its mode per band per frame); every
+     stream must equal the one-device stream of phase 3, 5 or 7, and the
+     band encoders' recon must decode from it (decode_gate, untimed).
+     Prints each one's median e2e fps of 3 after a warm-up, the profiled
+     busy share of 2 frames in 4 bands, the device ms of each stage of one
+     band (i16 and mixed) and measure_scaling at 1, 2 and 4 entries; the
+     QCIF band streams on the
+     card (3 frames of the clip, i16 in 3 bands and mixed in 2) must have
+     the SHA-256 TILE_DIGESTS gives them (the JAX TileIntraEncoder's
+     streams, recomputed by tests/test_torch_tile_jax.py); two processes
+     (torch.distributed, gloo) encode QCIF GOPs of 2 on the card through
+     parallel/dist.py, and process 0's stream must equal the one-process
+     stream;
+  12. the decode gate: decode each 1080p stream of phases 3, 5, 7, 9 and 10
      with the port's Decoder on the card (native form) and hold every
      frame, exactly, to the reconstruction the run has for it: the plain
      chain's recon (all-intra), the kernel path's reference planes as the
@@ -118,7 +141,7 @@ Phases (any failure exits non-zero and prints no result line; each
      stream's frames, median decode fps of 5 runs after a warm-up and K8
      launches per frame; the QCIF session streams decode equal on the
      card and on the CPU (plain K8);
-  12. print the kernels line (K8's row also with its launches on the host
+  13. print the kernels line (K8's row also with its launches on the host
      path and on the session stream's decode) and, last,
      {"ok": true, "device": {...}}.
      Each kernel's time is taken two ways (kernel_ms): `ms` with its
@@ -155,8 +178,9 @@ N_PLAIN_IPPP = 4  # frames of the first GOP held against the plain chain
 # the session path: 16 frames, an IDR every 8, the in-loop filter on
 N_SESSION, SESSION_INTRA_EVERY, N_PLAIN_SESSION = 16, 8, 3
 K8_I_QPS, K8_P_QPS = (16, 28, 46), (28, 36, 46)
-# the host path: an IDR and 2 P frames at 1080p (seconds of host work each)
-N_HOST = 3
+# the host path: an IDR and a P frame at 1080p (tens of seconds of host work
+# each; 3 frames until the multi-device phase took the time)
+N_HOST = 2
 # the host path's QCIF streams: 5 frames of the clip through
 # Encoder(iframe="host", pframe="host", **kwargs) with EncoderConfig(**cfg),
 # each held to the SHA-256 of the JAX host Encoder's stream (tpu_* off; for
@@ -174,6 +198,15 @@ HOST_DIGESTS = {
     "qp40": "c3460d01d9e2002775b8516c6f48da5480f22307ae5a89b0bd0a450af9d8485d",
     "qp28_deblock": "e34020ea00b5575cd8d6a56702d129d4710c9cd76b72ef02334af34d4c2f1443",
     "qp28_device_modes": "3954d4c2cec9f42df22c0e814a6b6f1b774950e421d9b742eeb1510c1c42ac03",
+}
+# the band encoders' QCIF streams: 3 frames of the clip at QP 28 through
+# TileIntraEncoder(mode, n bands), each held to the SHA-256 of the JAX
+# TileIntraEncoder's stream, which tests/test_torch_tile_jax.py recomputes
+N_TILE_QCIF = 3
+TILE_QCIF = {"i16_3": ("i16", 3), "mixed_2": ("mixed", 2)}
+TILE_DIGESTS = {
+    "i16_3": "f31105fa34311b542483a57adcf9ed75e7c84bf23467d571cea9047b62b8e931",
+    "mixed_2": "1e3983a1ec842e6a794152db46bb58186c33e0ce43cba13776f5d2f9da7f0a8d",
 }
 P_QPS = (28, 40, 46)  # SAD, SSD and 2*SSD tiers
 # bytes of each 1080p path's stream on chip_smoke's content (unchanged
@@ -446,13 +479,14 @@ def recon_of(out):
     return out["recon_y"], out["recon_cb"], out["recon_cr"]
 
 
-def decode_gate(torch, dev, label: str, stream: bytes, recon, kw: dict, name: str):
+def decode_gate(torch, dev, label: str, stream: bytes, recon, kw: dict, name: str,
+                timed: bool = True):
     """Decode `stream` with the port's Decoder on the card (native form,
     `kw` its deblock / spec_mode), after a warm-up, with K8's count set to 0
     just before: every frame must equal its reconstruction `recon` (uint8
-    planes on the card) exactly, and K8 must launch once per frame where the
-    filter runs and never elsewhere. Then times E2E_REPS more decodes.
-    Returns (frames, median fps, K8 launches)."""
+    planes, on any device) exactly, and K8 must launch once per frame where
+    the filter runs and never elsewhere. Then, when `timed`, times E2E_REPS
+    more decodes. Returns (frames, median fps or None, K8 launches)."""
     from h264_fer_tpu_torch.codec.decoder import Decoder
     from h264_fer_tpu_torch.kernels.deblock import deblock_frame
 
@@ -473,6 +507,10 @@ def decode_gate(torch, dev, label: str, stream: bytes, recon, kw: dict, name: st
     if launches != (len(frames) if kw.get("deblock") else 0):
         raise AssertionError(f"decode {label}: K8 launched {launches} times for "
                              f"{len(frames)} frames with {kw}")
+    if not timed:
+        print(f"decode {label}: {len(frames)} frames {W}x{H} ({kw}) == their "
+              f"reconstruction on {name}", flush=True)
+        return len(frames), None, launches
     fps = []
     for _ in range(E2E_REPS):
         t0 = time.perf_counter()
@@ -1357,6 +1395,328 @@ def parse_session_stream(stream: bytes, stats, w: int, h: int, qp: int):
             raise AssertionError(f"slice {i}: {sh}")
 
 
+BAND_TILES = 4  # the band kernels' checks: band 1 of 4 bands of 17 MB rows at 1080p
+BAND_KERNELS = ("wavefront_i16_levels_band", "wavefront_chroma_band", "wavefront_mixed_band")
+
+
+def check_band_kernels(torch, dev, frame, qp, time_it=False):
+    """K1t-band, K7-band and K6-band kernel vs plain twin on band 1 of
+    BAND_TILES of one 1080p frame (card tensors y, cb, cr), with a real
+    halo: band 0's last rows as the full-frame kernels leave them (K1t's
+    recon; K7's chroma recon; K6's recon row, classes, TotalCoeffs and CBP,
+    with band 0's last-row Intra4x4 modes). Each band kernel's outputs must
+    also equal the full-frame kernel's rows of the band. Returns {kernel:
+    (max_abs_err, ms, plain_ms, bound_ms, bound_by, queued_ms)} (times None
+    unless time_it; every timed call is held to the plain output too)."""
+    from h264_fer_tpu_torch.codec.intra_decision import intra16_mode_decision
+    from h264_fer_tpu_torch.kernels.wavefront_i16 import (chroma_band, chroma_frame,
+                                                          chroma_frame_plain, i16_band,
+                                                          i16_frame, i16_frame_plain)
+    from h264_fer_tpu_torch.kernels.wavefront_mixed import (KEYS, TABLES, mixed_luma,
+                                                            mixed_luma_band,
+                                                            mixed_luma_plain)
+    from h264_fer_tpu_torch.ops.intra import INTRA16_TO_CHROMA_MODE
+    from h264_fer_tpu_torch.ops.transform import chroma_qp
+
+    y, cb, cr = frame
+    h, w = y.shape
+    wmb, hloc = w // 16, h // 16 // BAND_TILES
+    r0, qpc = hloc, chroma_qp(qp)  # band 1: MB rows [r0, r0 + hloc)
+
+    def band(x, per_row):  # band 1's rows of a plane or a per-MB array
+        return x[per_row * r0: per_row * (r0 + hloc)]
+
+    m16 = intra16_mode_decision(y.to(torch.int32), qp)[0].to(torch.int32)
+    cm = torch.from_numpy(INTRA16_TO_CHROMA_MODE).to(dev)[m16.long()]
+    # K1t-band
+    full = i16_frame(y, cb, cr, m16, cm, qp, qpc)
+    top = (full[0][16 * r0 - 1], full[3][8 * r0 - 1], full[4][8 * r0 - 1])
+    a1 = (band(y, 16), band(cb, 8), band(cr, 8), band(m16, wmb), band(cm, wmb), qp, qpc, top)
+    got1 = i16_band(*a1)
+    want1, plain1_ms = timed_once(torch, lambda: i16_frame_plain(*a1))
+    rows1 = [band(full[k], 16 if k == 0 else 8 if k in (3, 4) else wmb) for k in range(5)]
+    rows1 += [full[k][:, wmb * r0: wmb * (r0 + hloc)] for k in (5, 6)]
+    errs = {"wavefront_i16_levels_band": max(max_err(torch, got1, want1),
+                                             max_err(torch, got1, rows1))}
+    # K7-band
+    full7 = chroma_frame(cb, cr, cm, qpc)
+    top7 = (full7[0][8 * r0 - 1], full7[1][8 * r0 - 1])
+    a7 = (band(cb, 8), band(cr, 8), band(cm, wmb), qpc, top7)
+    got7 = chroma_band(*a7)
+    want7, plain7_ms = timed_once(torch, lambda: chroma_frame_plain(*a7))
+    rows7 = [band(full7[0], 8), band(full7[1], 8)] + [
+        full7[k][:, wmb * r0: wmb * (r0 + hloc)] for k in (2, 3)]
+    errs["wavefront_chroma_band"] = max(max_err(torch, got7, want7),
+                                        max_err(torch, got7, rows7))
+    # K6-band
+    dec, cm6, _, args = mixed_inputs(torch, frame, qp, chroma=chroma_frame)
+    full6 = mixed_luma(*args)
+    mb_t = slice(wmb * (r0 - 1), wmb * r0)  # band 0's last MB row
+    top6 = {"recon": full6["recon_y"][16 * r0 - 1], "choice4": full6["choice4"][mb_t],
+            "tc_luma": full6["tc_luma"][mb_t], "cbp_luma": full6["cbp_luma"][mb_t],
+            "mode4": dec["mode4"][mb_t]}
+    a6 = (band(y, 16), *(band(t, wmb) for t in args[1:6]), qp)
+    got6 = mixed_luma_band(*a6, top6)
+    want6, plain6_ms = timed_once(torch, lambda: mixed_luma_plain(*a6, top6))
+
+    def err6(out):
+        return max_err(torch, [out[k] for k in KEYS], [want6[k] for k in KEYS])
+
+    errs["wavefront_mixed_band"] = max(err6(got6), max_err(
+        torch, [got6[k] for k in KEYS],
+        [band(full6[k], 16 if k == "recon_y" else wmb) for k in KEYS]))
+    m16n, cmn, m4n = (t.cpu().numpy() for t in (a6[1], a6[3], a6[2]))
+    lv = [got6[k].cpu().numpy() for k in ("i16dc", "i16ac", "lv4")]
+    work = {  # (bytes, int32 operations) of each band function on these inputs
+        "wavefront_i16_levels_band": (nbytes(*a1[:5], *top, *got1),
+                                      k1_ops(qp, qpc, m16n, cmn)),
+        "wavefront_chroma_band": (nbytes(*a7[:3], *top7, *got7), chroma_ops(qpc, cmn)),
+        "wavefront_mixed_band": (nbytes(*a6[:6], *top6.values(), *(got6[k] for k in KEYS))
+                                 + TABLES.nbytes,
+                                 i16_luma_ops(qp, m16n) + i4x4_ops(qp, m4n)
+                                 + cavlc_size_ops(*lv) + m16n.size * (16 * 8 + 100))}
+    times = {}
+    if time_it:
+        def check6(out):
+            if err6(out):
+                raise AssertionError(f"K6-band != plain in a timed call at qp{qp}")
+
+        times = {"wavefront_i16_levels_band": (kernel_ms(
+                     torch, lambda: i16_band(*a1), 20, same_as(torch, want1, "K1t-band")),
+                     plain1_ms),
+                 "wavefront_chroma_band": (kernel_ms(
+                     torch, lambda: chroma_band(*a7), 20, same_as(torch, want7, "K7-band")),
+                     plain7_ms),
+                 "wavefront_mixed_band": (kernel_ms(
+                     torch, lambda: mixed_luma_band(*a6, top6), 10, check6), plain6_ms)}
+    out = {}
+    for kname in BAND_KERNELS:
+        bound_ms, bound_by = bound(*work[kname])
+        (ms, queued_ms), plain_ms = times.get(kname, ((None, None), None))
+        print(f"{kname} {W}x{H} band 1 of {BAND_TILES} ({hloc} MB rows, real halo) qp{qp}: "
+              f"max_abs_err {errs[kname]} (tolerance 0, vs plain and vs the full-frame "
+              "kernel's rows)"
+              + (f", kernel {ms:.4f} ms (queued {queued_ms:.4f}), plain {plain_ms:.1f} ms"
+                 if time_it else "")
+              + f", bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+        if errs[kname] != 0:
+            raise AssertionError(f"{kname} kernel != plain at qp{qp}")
+        out[kname] = (errs[kname], ms, plain_ms, bound_ms, bound_by, queued_ms)
+    print(f"K6-band qp{qp}: {int(got6['choice4'].sum())} I4x4 MBs of {m16n.size}", flush=True)
+    return out
+
+
+def band_stage_times(torch, dev, frame):
+    """Device ms of each stage of band 1 of BAND_TILES of one 1080p frame
+    (CUDA events), all-I16 and mixed, as parallel/tile.py runs them: the
+    mode decision with the source row above, the band kernels with band
+    0's last rows as their halo, the entropy with band 0's nC state."""
+    from h264_fer_tpu_torch.codec.entropy import (chroma_setup, i16_slice_entropy,
+                                                  mixed_slice_entropy)
+    from h264_fer_tpu_torch.kernels.wavefront_i16 import chroma_band, i16_band
+    from h264_fer_tpu_torch.kernels.wavefront_mixed import TOP_KEYS, mixed_luma_band
+    from h264_fer_tpu_torch.ops.intra import INTRA16_TO_CHROMA_MODE
+    from h264_fer_tpu_torch.ops.transform import chroma_qp
+    from h264_fer_tpu_torch.parallel import tile
+
+    qpc, wmb, hloc = chroma_qp(QP), W // 16, H // 16 // BAND_TILES
+    planes = [torch.from_numpy(p).to(dev) for p in frame]
+    b0, b1 = ([p[n * hloc * t: n * hloc * (t + 1)] for p, n in zip(planes, (16, 8, 8))]
+              for t in (0, 1))
+    top_row = planes[0][16 * hloc - 1].to(torch.int32)
+    out = {}
+    for mode, (decide, code) in tile.MODES.items():
+        halo = code(*b0, decide(b0[0], None, QP), None, None, QP, qpc)["halo"]
+        ctx = tile._ctx(halo)
+        dec = decide(b1[0], top_row, QP)
+        m16 = dec["mode16"]
+        cm = torch.from_numpy(INTRA16_TO_CHROMA_MODE).to(dev)[m16.long()]
+        times = {"mode_decision": cuda_ms(torch, lambda: decide(b1[0], top_row, QP), 5)}
+        if mode == "i16":
+            top = (halo["recon"], halo["cb"], halo["cr"])
+            _, i16dc, ac, _, _, cdc, cac = i16_band(*b1, m16, cm, QP, qpc, top)
+            times["k1t_band"] = cuda_ms(torch, lambda: i16_band(*b1, m16, cm, QP, qpc, top), 5)
+            times["entropy"] = cuda_ms(torch, lambda: i16_slice_entropy(
+                m16, cm, i16dc, ac, cdc, cac, wmb=wmb, hmb=hloc, top_ctx=ctx), 5)
+        else:
+            top7, top6 = (halo["cb"], halo["cr"]), {k: halo[k] for k in TOP_KEYS}
+            _, _, cdc, cac = chroma_band(*b1[1:], cm, qpc, top7)
+            ch = chroma_setup(cdc, cac, wmb, hloc, ctx[2:])
+            args = (b1[0], m16, dec["mode4"], cm, ch["cbp_chroma"], ch["bits"], QP, top6)
+            mx = mixed_luma_band(*args)
+            times["k7_band"] = cuda_ms(torch, lambda: chroma_band(*b1[1:], cm, qpc, top7), 5)
+            times["chroma_setup"] = cuda_ms(
+                torch, lambda: chroma_setup(cdc, cac, wmb, hloc, ctx[2:]), 5)
+            times["k6_band"] = cuda_ms(torch, lambda: mixed_luma_band(*args), 5)
+            ent = (mx["choice4"], m16, cm, *(mx[k] for k in (
+                "i16dc", "i16ac", "lv4", "prev_flags", "rem_modes", "cbp_luma", "tc_luma")),
+                cdc, cac)
+            times["entropy"] = cuda_ms(torch, lambda: mixed_slice_entropy(
+                *ent, wmb=wmb, hmb=hloc, top_ctx=ctx), 5)
+        out[mode] = times
+    return out
+
+
+def e2e_fps(torch, enc, frames, runs: int = 3):
+    """Sorted e2e fps of `runs` encode_sequence calls of `frames`, after the
+    caller's warm-up (host clock; each call returns the stream)."""
+    fps = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        enc.encode_sequence(frames)
+        fps.append(len(frames) / (time.perf_counter() - t0))
+    return sorted(fps)
+
+
+def multi_device_configs(dev, distinct: bool):
+    """The multi-device phase's 1080p configurations: (label, path whose
+    one-device stream it must equal, encoder maker, entries per config).
+    distinct: on cuda:0..n-1 in place of n entries of `dev`."""
+    from h264_fer_tpu_torch.parallel.gop_device import GopIntraEncoder, GopIpppEncoder
+    from h264_fer_tpu_torch.parallel.tile import GopTileIntraEncoder, TileIntraEncoder
+
+    def devs(n):
+        return [f"cuda:{i}" for i in range(n)] if distinct else [dev] * n
+
+    return [
+        ("i16 4 bands", "all-intra", 4, lambda: TileIntraEncoder(W, H, QP, devices=devs(4))),
+        ("i16 3 uneven bands", "all-intra", 3,
+         lambda: TileIntraEncoder(W, H, QP, devices=devs(3))),
+        ("mixed 3 uneven bands", "mixed", 3,
+         lambda: TileIntraEncoder(W, H, QP, devices=devs(3), mode="mixed")),
+        ("(gop 2, tile 2) i16", "all-intra", 4,
+         lambda: GopTileIntraEncoder(W, H, QP, 2, 2, devices=devs(4))),
+        ("GopIntraEncoder x2", "all-intra", 2,
+         lambda: GopIntraEncoder(W, H, QP, devices=devs(2))),
+        ("GopIpppEncoder x2", "IPPP", 2,
+         lambda: GopIpppEncoder(W, H, QP, gop_len=GOP_LEN, devices=devs(2))),
+    ]
+
+
+def multi_device_phase(torch, dev, name, to_decode):
+    """Drive the multi-device encoders at 1080p on n entries of the card
+    (and on cuda:0..n-1 where the machine has n cards): each stream must
+    equal the one-device stream of the same frames (to_decode[path][0]),
+    the band encoders' recon must decode from it through decode_gate, and
+    the band kernels' launch counts (set to 0 just before each checked run)
+    must be one per band per frame. Prints each configuration's median e2e
+    fps of 3 runs after a warm-up, the profiled busy share of 2 frames in 4
+    bands, the band stage times, measure_scaling at 1, 2 and 4 entries;
+    checks the QCIF band streams against TILE_DIGESTS and a two-process
+    gloo encode against the one-process stream. Returns the band kernels'
+    launches {name: n}."""
+    import os
+    import socket
+    import tempfile
+
+    from h264_fer_tpu_torch.kernels.wavefront_i16 import chroma_band, i16_band
+    from h264_fer_tpu_torch.kernels.wavefront_mixed import mixed_luma_band
+    from h264_fer_tpu_torch.parallel.gop_device import (GopIpppEncoder, measure_scaling,
+                                                        scaling_frames)
+
+    counted = {"wavefront_i16_levels_band": i16_band, "wavefront_chroma_band": chroma_band,
+               "wavefront_mixed_band": mixed_luma_band}
+    totals = dict.fromkeys(counted, 0)
+    frames = {"all-intra": content(N_FRAMES, W, H), "mixed": content(N_FRAMES, W, H),
+              "IPPP": content(N_IPPP, W, H)}
+    for label, path, n, make in multi_device_configs(dev, False):
+        make().encode_sequence(frames[path][:2])  # warm-up: allocator, library loads
+        torch.cuda.synchronize()
+        enc = make()  # TileIntraEncoder counts idr_pic_id over its life
+        for fn in counted.values():
+            fn.launches = 0
+        tiled = hasattr(enc, "hloc")
+        stream = (enc.encode_sequence(frames[path], keep_recon=True) if tiled
+                  else enc.encode_sequence(frames[path]))
+        got = {k: fn.launches for k, fn in counted.items()}
+        n_bands = n // getattr(enc, "n_gop", 1) if tiled else 0
+        want = {k: 0 for k in counted}
+        if tiled:
+            keys = (("wavefront_chroma_band", "wavefront_mixed_band") if enc.mode == "mixed"
+                    else ("wavefront_i16_levels_band",))
+            want.update({k: N_FRAMES * n_bands for k in keys})
+        if got != want:
+            raise AssertionError(f"{label}: band launches {got}, expected {want}")
+        for k in totals:
+            totals[k] += got[k]
+        if stream != to_decode[path][0]:
+            raise AssertionError(f"{label}: stream != the one-device {path} stream")
+        if tiled:
+            recon = [tuple(torch.from_numpy(p) for p in f) for f in enc.recon]
+            decode_gate(torch, dev, f"{label} recon", stream, recon,
+                        {"spec_mode": True} if enc.mode == "mixed" else {}, name, timed=False)
+        fps = e2e_fps(torch, enc, frames[path])
+        print(f"multi-device {label} on {n} entries of {dev}: {len(frames[path])} frames "
+              f"{W}x{H} QP{QP}, stream == one-device {path} stream"
+              + (", recon == decode" if tiled else "") + f", band launches {got}; e2e fps "
+              f"median {fps[1]:.2f} (runs {', '.join(f'{v:.2f}' for v in fps)}) on {name}",
+              flush=True)
+    make = multi_device_configs(dev, False)[0][3]  # i16 in 4 bands
+    wall, busy, top = device_busy(torch, lambda: make().encode_sequence(frames["all-intra"][:2]))
+    if busy > 0:
+        print(f"profiled 2-frame encode in 4 bands: wall {wall:.1f} ms, kernels {busy:.1f} ms, "
+              f"device busy {100 * busy / wall:.1f} % on {name}")
+        for key, ms_k, count in top:
+            print(f"  {ms_k:8.3f} ms  {count:6d} x  {key[:90]}")
+    else:
+        print("device busy share: not measured (the profiler saw no device time)")
+    if torch.cuda.device_count() > 1:
+        for label, path, n, make in multi_device_configs(dev, True):
+            if n <= torch.cuda.device_count():
+                if make().encode_sequence(frames[path]) != to_decode[path][0]:
+                    raise AssertionError(f"{label} on distinct cards: stream != one-device")
+                print(f"multi-device {label} on cuda:0..{n - 1}: stream == one-device "
+                      f"{path} stream", flush=True)
+    else:
+        print("multi-device on distinct cards: not run (one card)", flush=True)
+    for mode, times in band_stage_times(torch, dev, content(1, W, H)[0]).items():
+        print(f"band stages, {mode} (device ms, band 1 of {BAND_TILES}, one frame): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+              + f", sum {sum(times.values()):.3f} on {name}", flush=True)
+    scaling = measure_scaling(W, H, QP, device_counts=(1, 2, 4), devices=[dev] * 4)
+    print("measure_scaling (GopIntraEncoder, 8 frames, best of 2 after a warm-up) on "
+          f"1, 2, 4 entries of {dev}: "
+          + ", ".join(f"{k}: {v:.2f} fps" for k, v in scaling.items()) + f" on {name}",
+          flush=True)
+    t0 = time.perf_counter()
+    tile = tile_qcif_streams(dev)
+    for key, s in tile.items():
+        if hashlib.sha256(s).hexdigest() != TILE_DIGESTS[key]:
+            raise AssertionError(f"QCIF band stream {key} != its JAX digest")
+    print(f"QCIF band streams {sorted(tile)} == their JAX digests "
+          f"({time.perf_counter() - t0:.1f} s) on {name}", flush=True)
+    # two gloo processes on the card, QCIF, GOPs of 2
+    t0 = time.perf_counter()
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp) / "proc0.264"
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "h264_fer_tpu_torch.parallel.dist", str(out), "2",
+             "--size", "176x144", "--frames", "6", "--qp", str(QP)],
+            cwd=repo_file("."), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=dict(os.environ, H264_COORD_ADDR=f"127.0.0.1:{port}", H264_NUM_PROCS="2",
+                     H264_PROC_ID=str(i))) for i in range(2)]
+        try:
+            logs = [p.communicate(timeout=240)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for p, log in zip(procs, logs):
+            if p.returncode != 0:
+                raise AssertionError(f"gloo process failed:\n{log[-2000:]}")
+        got = out.read_bytes()
+    want = GopIpppEncoder(176, 144, QP, gop_len=2, device=dev).encode_sequence(
+        scaling_frames(176, 144, 6))
+    if got != want:
+        raise AssertionError("two-process gloo encode != one-process encode")
+    print(f"two gloo processes on {dev}: QCIF, 6 frames, GOPs of 2, {len(got)} bytes == "
+          f"one-process stream ({time.perf_counter() - t0:.1f} s) on {name}", flush=True)
+    return totals
+
+
 def repo_file(rel: str) -> pathlib.Path:
     return pathlib.Path(__file__).resolve().parent / rel
 
@@ -1377,6 +1737,18 @@ def host_qcif_streams(dev) -> dict:
         stream = enc.encode_sequence(clip[:3] if name == "intra_qp28" else clip)
         out[name] = (stream, enc.reconstructed())
     return out
+
+
+def tile_qcif_streams(dev) -> dict:
+    """{name: stream} of TILE_QCIF: the clip's first frames through
+    TileIntraEncoder on `dev` (one entry per band)."""
+    from h264_fer_tpu_torch.parallel.tile import TileIntraEncoder
+    from h264_fer_tpu_torch.vio.y4m import Y4MReader
+
+    clip = list(Y4MReader(str(repo_file(HOST_CLIP))))[:N_TILE_QCIF]
+    return {name: TileIntraEncoder(176, 144, QP, devices=[dev] * n,
+                                   mode=mode).encode_sequence(clip)
+            for name, (mode, n) in TILE_QCIF.items()}
 
 
 def check_host_qcif(streams: dict, where: str) -> None:
@@ -1451,6 +1823,7 @@ def main() -> int:
     from h264_fer_tpu_torch.ops.transform import chroma_qp
     from h264_fer_tpu_torch.parallel.gop_device import GopIntraEncoder, GopIpppEncoder
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     name = card()
     print(f"card: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}",
@@ -1459,6 +1832,7 @@ def main() -> int:
     # ---- 1. build ------------------------------------------------------------
     build_all()
 
+    print(f"[phase 1 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- 2. K1 and K1t kernels vs plain ------------------------------------
     small = [("176x144", 176, 144), ("80x176", 80, 176)]
     for label, w, h in small + [("16x144", 16, 144), ("176x16", 176, 16)]:
@@ -1488,6 +1862,7 @@ def main() -> int:
     k1_launches = i16_recon.launches
     print(f"K1 and K1t checks done on {name}", flush=True)
 
+    print(f"[phase 2 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- 3. main path ----------------------------------------------------------
     frames = content(N_FRAMES, W, H)
     enc = GopIntraEncoder(W, H, QP, device=dev)
@@ -1508,7 +1883,7 @@ def main() -> int:
         raise AssertionError("kernel-path stream != plain-chain stream")
     parse_stream(stream, N_FRAMES, W, H, QP)
     check_bytes("all-intra", stream)
-    # the decode gate (phase 10): the plain chain's recon of every frame
+    # the decode gate (phase 12): the plain chain's recon of every frame
     to_decode = {"all-intra": (stream, plain_recon, {})}
     qcif = content(3, 176, 144)
     s_gpu = GopIntraEncoder(176, 144, QP, device=dev).encode_sequence(qcif)
@@ -1550,6 +1925,7 @@ def main() -> int:
     else:
         print("device busy share: not measured (the profiler saw no device time)")
 
+    print(f"[phase 3 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- 4. K2-K5 kernels vs plain twins ------------------------------------
     check_p_small_grids(torch, dev)
     pair = [tuple(torch.from_numpy(p).to(dev) for p in f) for f in content(3, W, H)]
@@ -1563,6 +1939,7 @@ def main() -> int:
                                     dec["mv"], qp, time_it=qp == QP)
     print(f"K2-K5 checks done on {name}", flush=True)
 
+    print(f"[phase 4 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- 5. IPPP main path -----------------------------------------------------
     frames = content(N_IPPP, W, H)
     enc = GopIpppEncoder(W, H, QP, gop_len=GOP_LEN, device=dev)
@@ -1620,6 +1997,7 @@ def main() -> int:
     else:
         print("device busy share: not measured (the profiler saw no device time)")
 
+    print(f"[phase 5 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- 6. K4x4, K7 and K6 kernels vs plain twins ----------------------------
     # random Intra4x4 modes in every block; the three grids forced to 1 and
     # 3 blocks on QCIF, 16x176 and 176x16 (and on 64x208 below)
@@ -1648,6 +2026,7 @@ def main() -> int:
         raise AssertionError(f"K4x4 launched {k4_launches} times in one call, expected 1")
     print(f"K4x4, K7 and K6 checks done on {name}", flush=True)
 
+    print(f"[phase 6 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- 7. mixed all-intra path ------------------------------------------------
     enc = GopIntraEncoder(W, H, QP, mode="mixed", device=dev)
     enc.encode_sequence(frames[:2])  # warm-up: allocator, library loads
@@ -1703,6 +2082,7 @@ def main() -> int:
     else:
         print("device busy share: not measured (the profiler saw no device time)")
 
+    print(f"[phase 7 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- 8. K8 kernel vs plain twin ----------------------------------------
     from h264_fer_tpu_torch.codec.encoder import Encoder, EncoderConfig
 
@@ -1732,6 +2112,7 @@ def main() -> int:
                 k8[label, qp, blocks], _ = check_k8(torch, label, state, qp, blocks=blocks)
     print(f"K8 checks done on {name}", flush=True)
 
+    print(f"[phase 8 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- 9. session path ---------------------------------------------------
     cfg = EncoderConfig(qp=QP, intra_every=SESSION_INTRA_EVERY, deblock=True)
     frames = content(N_SESSION, W, H)
@@ -1806,6 +2187,7 @@ def main() -> int:
     else:
         print("device busy share: not measured (the profiler saw no device time)")
 
+    print(f"[phase 9 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- 10. host path ----------------------------------------------------
     frames = content(N_HOST, W, H)
     stream, recon, host_launches, host_state, frame_s, k8_s, stats = host_path(
@@ -1835,7 +2217,17 @@ def main() -> int:
           f"their JAX digests, card == CPU ({time.perf_counter() - t0:.1f} s) on {name}",
           flush=True)
 
-    # ---- 11. decode gate ----------------------------------------------------
+    print(f"[phase 10 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
+    # ---- 11. multi-device encoders and the band kernels ------------------
+    t0 = time.perf_counter()
+    frame = tuple(torch.from_numpy(p).to(dev) for p in content(1, W, H)[0])
+    bk = {qp: check_band_kernels(torch, dev, frame, qp, time_it=qp == QP)
+          for qp in CHECK_QPS}
+    band_launches = multi_device_phase(torch, dev, name, to_decode)
+    print(f"multi-device phase: {time.perf_counter() - t0:.1f} s on {name}", flush=True)
+
+    print(f"[phase 11 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
+    # ---- 12. decode gate ----------------------------------------------------
     from h264_fer_tpu_torch.codec.decoder import Decoder
 
     decoded = {path: decode_gate(torch, dev, path, *to_decode[path], name)
@@ -1851,7 +2243,8 @@ def main() -> int:
           f"{len(decoded)} 1080p streams == their reconstruction; QCIF session "
           f"decodes card == CPU on {name}", flush=True)
 
-    # ---- 12. result -------------------------------------------------------
+    print(f"[phase 12 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
+    # ---- 13. result -------------------------------------------------------
     csrc = "h264_fer_tpu_torch/kernels/csrc/"
     rows = [("wavefront_i16", "h264_fer_tpu/kernels/wavefront_pallas.py:890",
              k1_launches, max(k1[q][0] for q in CHECK_QPS), k1[QP][1:]),
@@ -1877,7 +2270,16 @@ def main() -> int:
              m_launches["chroma_frame"])):
         rows.append((kname, replaces, n, max(mk[q][kname][0] for q in CHECK_QPS),
                      mk[QP][kname][1:]))
-    sources = {"wavefront_chroma": "wavefront_i16", "wavefront_i16_levels": "wavefront_i16"}
+    for kname, replaces in (
+            ("wavefront_i16_levels_band", "h264_fer_tpu/parallel/tile.py:57"),
+            ("wavefront_chroma_band", "h264_fer_tpu/kernels/wavefront.py:222"),
+            ("wavefront_mixed_band", "h264_fer_tpu/kernels/wavefront_mixed.py:54")):
+        rows.append((kname, replaces, band_launches[kname],
+                     max(bk[q][kname][0] for q in CHECK_QPS), bk[QP][kname][1:]))
+    sources = {"wavefront_chroma": "wavefront_i16", "wavefront_i16_levels": "wavefront_i16",
+               "wavefront_i16_levels_band": "wavefront_i16",
+               "wavefront_chroma_band": "wavefront_i16",
+               "wavefront_mixed_band": "wavefront_mixed"}
     kernels = []
     for kname, replaces, n, err, timing in rows:
         if timing is None:  # a P kernel: its QP 28 run, errors over all tiers

@@ -46,6 +46,14 @@ the native C++ slice loop (native/decoder_native.cpp, built by g++) or its
 Python form, then with deblock=True the in-loop filter K8 on the card for
 every frame whose stream signals it; the filtered planes are the next
 frame's reference.
+
+Multi-device paths (parallel/): the sequence encoders take `devices`, a
+list driven by this one process whose entries may repeat, each a lane
+with a CUDA stream of its own; GopIntraEncoder / GopIpppEncoder split
+frames / GOPs in shares; parallel.tile.TileIntraEncoder and
+GopTileIntraEncoder code each frame in MB-row bands, pipelined across
+frames, with the band forms of K1t, K7 and K6; parallel.dist spans GOPs
+over processes (gloo).
 """
 
 from __future__ import annotations

@@ -12,11 +12,14 @@ with the in-loop filter K8 on the card under --deblock. --tpu-iframe [i16
 or mixed] moves the I frames to the device, --tpu-pframe the P frames,
 and --tpu-modes (or --tpu-pframe, or --tpu-iframe off) gives host I frames
 the device's intra mode decision. --device cpu runs all of it on the CPU
-(the kernels' plain PyTorch twins). --gop-devices 1 runs the sequence
-encoders instead (parallel/gop_device.py): all-intra when --intra-every is
-1 (mixed with --tpu-iframe mixed), else fixed GOPs of --intra-every
-frames. Per-frame statistics (bytes, ms, MB-type histogram) print with
---stats.
+(the kernels' plain PyTorch twins). --gop-devices N runs the sequence
+encoders instead (parallel/gop_device.py) over N devices: all-intra when
+--intra-every is 1 (mixed with --tpu-iframe mixed), else fixed GOPs of
+--intra-every frames (--deblock is ignored there, as in the JAX CLI).
+--tile-devices N runs parallel/tile.TileIntraEncoder (all-I16), each frame
+in N MB-row bands. The N devices are the first N cards (fewer where fewer
+exist), or N entries of "cpu" with --device cpu. Per-frame statistics
+(bytes, ms, MB-type histogram) print with --stats.
 
 decode runs codec/decoder.Decoder: the slice loop on the host (native C++),
 and with --deblock the in-loop filter K8 on the card (or its plain twin
@@ -39,6 +42,18 @@ def _read_frames(args, rd):
             break
 
 
+def _devices(device: str, n: int) -> list:
+    """The CLI's device list: n entries of "cpu" under --device cpu, else
+    the first n cards (fewer where fewer exist, as jax.devices()[:n])."""
+    import torch
+
+    from .ops.device import resolve_device
+
+    if resolve_device(device).type == "cpu":
+        return ["cpu"] * n
+    return [f"cuda:{i}" for i in range(min(n, torch.cuda.device_count()))]
+
+
 def _cmd_encode(args) -> int:
     from .codec.encoder import Encoder, EncoderConfig
     from .vio.y4m import Y4MReader
@@ -49,21 +64,27 @@ def _cmd_encode(args) -> int:
                                   "--tpu-pframe supersedes it")
     rd = Y4MReader(args.input)
     if args.gop_devices or args.tile_devices:
-        if args.tile_devices or args.gop_devices > 1:
-            raise NotImplementedError("multi-device encoding is not ported yet")
         from .parallel.gop_device import GopIntraEncoder, GopIpppEncoder
+        from .parallel.tile import TileIntraEncoder
 
+        if args.tile_devices and args.intra_every > 1:
+            raise NotImplementedError(
+                "--tile-devices with P frames (parallel/tile_p.py) is not ported "
+                "yet: ROADMAP.md lists it as the next slice")
+        devices = _devices(args.device, args.tile_devices or args.gop_devices)
         frames = list(_read_frames(args, rd))
         t0 = time.time()
-        if args.intra_every == 1:
+        if args.tile_devices:
+            enc = TileIntraEncoder(rd.width, rd.height, args.qp, devices=devices)
+        elif args.intra_every == 1:
             enc = GopIntraEncoder(rd.width, rd.height, args.qp,
                                   mode="mixed" if args.tpu_iframe == "mixed" else "i16",
-                                  device=args.device)
+                                  devices=devices)
         else:
             enc = GopIpppEncoder(
                 rd.width, rd.height, args.qp, gop_len=args.intra_every,
                 window_size=args.window_size, maxdiff=args.maxdiff,
-                lossy_prefilter=not args.no_prefilter, device=args.device)
+                lossy_prefilter=not args.no_prefilter, devices=devices)
         stream = enc.encode_sequence(frames)
         dt = time.time() - t0
         with open(args.output, "wb") as f:
@@ -180,9 +201,10 @@ def main(argv=None) -> int:
                         "recon, slice entropy)")
     e.add_argument("--gop-devices", type=int, default=0, metavar="N",
                    help="the sequence encoders on N devices (all-intra or "
-                        "fixed-GOP IPPP; scene cut off); only N = 1 is ported")
+                        "fixed-GOP IPPP; scene cut off)")
     e.add_argument("--tile-devices", type=int, default=0, metavar="N",
-                   help="MB-row bands over N devices (not ported yet)")
+                   help="all-intra, each frame in MB-row bands over N devices "
+                        "(with P frames: not ported yet)")
     e.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     e.add_argument("--stats", action="store_true")
     e.set_defaults(fn=_cmd_encode)

@@ -8,6 +8,12 @@ of them, and the nC context needs only the final TotalCoeff of the left and
 top MBs, known in bulk. So no wavefront is needed: the symbols of all MBs
 are computed at once (ops/cavlc_bulk.py) and packed into the slice payload
 on the device.
+
+For an MB-row band of a frame (parallel/tile.py), chroma_setup,
+i16_slice_entropy and mixed_slice_entropy take `top_ctx`, the final
+TotalCoeff and CBP state of the MB row above the band, which its first row
+reads in its nC contexts (None: the band's top is the frame's), and
+`valid`, which gates the padded MBs of an uneven band to zero bits.
 """
 
 from __future__ import annotations
@@ -42,9 +48,16 @@ def _nc(a_ok, b_ok, nA, nB):
                        torch.where(a_ok, nA, torch.where(b_ok, nB, 0)))
 
 
-def _nc_luma_grid(tc, cbp, wmb: int, hmb: int):
+def _top_halo(x_T, halo, wmb: int, dim: int):
+    """x_T, the top-MB copy of a per-MB array along `dim`, with its first MB
+    row (the don't-cares above the first row) replaced by `halo`."""
+    return torch.cat([halo, x_T.narrow(dim, wmb, x_T.shape[dim] - wmb)], dim)
+
+
+def _nc_luma_grid(tc, cbp, wmb: int, hmb: int, top=None):
     """(nmb, 16) per-block luma nC (residual.cpp:251-294 derivation with the
-    allNeighbouringZero CBP gating); tc (nmb, 16), cbp (nmb,)."""
+    allNeighbouringZero CBP gating); tc (nmb, 16), cbp (nmb,). top: None,
+    or (tc (wmb, 16), cbp (wmb,)) of the MB row above the first row."""
     nmb = wmb * hmb
     mb = torch.arange(nmb, device=tc.device)
     left_edge = mb % wmb == 0
@@ -52,6 +65,9 @@ def _nc_luma_grid(tc, cbp, wmb: int, hmb: int):
     always = torch.ones(nmb, dtype=torch.bool, device=tc.device)
     tc_L, tc_T = _shift_left_top(tc, wmb, 0)
     cbp_L, cbp_T = _shift_left_top(cbp, wmb, 0)
+    if top is not None:
+        tc_T, cbp_T = _top_halo(tc_T, top[0], wmb, 0), _top_halo(cbp_T, top[1], wmb, 0)
+        top_edge = ~always  # the first row's top neighbours are the halo's
     cols = []
     for a_same, a_blk, b_same, b_blk in LUMA_NBR:
         tca, cbpa = (tc, cbp) if a_same else (tc_L, cbp_L)
@@ -64,8 +80,9 @@ def _nc_luma_grid(tc, cbp, wmb: int, hmb: int):
     return torch.stack(cols, dim=-1)
 
 
-def _nc_chroma_grid(tc_c, cbp_c, wmb: int, hmb: int):
-    """(2, nmb, 4) chroma AC nC (cbp_chroma & 2 gating)."""
+def _nc_chroma_grid(tc_c, cbp_c, wmb: int, hmb: int, top=None):
+    """(2, nmb, 4) chroma AC nC (cbp_chroma & 2 gating). top: None, or
+    (tc_c (2, wmb, 4), cbp_c (wmb,)) of the MB row above the first row."""
     nmb = wmb * hmb
     mb = torch.arange(nmb, device=tc_c.device)
     left_edge = mb % wmb == 0
@@ -73,6 +90,9 @@ def _nc_chroma_grid(tc_c, cbp_c, wmb: int, hmb: int):
     always = torch.ones(nmb, dtype=torch.bool, device=tc_c.device)
     tc_L, tc_T = _shift_left_top(tc_c, wmb, 1)
     cbp_L, cbp_T = _shift_left_top(cbp_c, wmb, 0)
+    if top is not None:
+        tc_T, cbp_T = _top_halo(tc_T, top[0], wmb, 1), _top_halo(cbp_T, top[1], wmb, 0)
+        top_edge = ~always  # the first row's top neighbours are the halo's
     cols = []
     for a_same, a_blk, b_same, b_blk in CHROMA_NBR:
         tca, cbpa = (tc_c, cbp_c) if a_same else (tc_L, cbp_L)
@@ -85,12 +105,13 @@ def _nc_chroma_grid(tc_c, cbp_c, wmb: int, hmb: int):
     return torch.stack(cols, dim=-1)
 
 
-def chroma_setup(cdc, cac, wmb: int, hmb: int):
+def chroma_setup(cdc, cac, wmb: int, hmb: int, top_ctx=None):
     """Chroma side of a slice's entropy, the same for every MB type:
     cbp_chroma (nmb,), the final chroma TC state tc_chroma (2, nmb, 4), each
     MB's chroma residual bits (nmb,), and the gated symbol streams cdc_vals
     / cdc_lens (2, nmb, ·) and cac_vals / cac_lens (2, nmb, 4, ·). cdc
-    (2, nmb, 4), cac (2, nmb, 4, 15) int32."""
+    (2, nmb, 4), cac (2, nmb, 4, 15) int32. top_ctx: None, or the chroma
+    state (tc_chroma (2, wmb, 4), cbp_chroma (wmb,)) of the MB row above."""
     nmb = wmb * hmb
     has_cdc = cdc.reshape(2, nmb, -1).ne(0).any(dim=-1).any(dim=0)
     has_cac = cac.reshape(2, nmb, -1).ne(0).any(dim=-1).any(dim=0)
@@ -98,7 +119,7 @@ def chroma_setup(cdc, cac, wmb: int, hmb: int):
     cdc_blk = block_symbols_bulk(cdc, 4)  # (2, nmb, ·)
     cac_blk = block_symbols_bulk(cac, 15)  # (2, nmb, 4, ·)
     tc_chroma = torch.where((cbp_c == 2)[None, :, None], cac_blk["tc"], 0).to(I32)
-    nc_c = _nc_chroma_grid(tc_chroma, cbp_c, wmb, hmb)
+    nc_c = _nc_chroma_grid(tc_chroma, cbp_c, wmb, hmb, top_ctx)
     cdc_vals, cdc_lens = finalize_symbols(
         cdc_blk, torch.full((2, nmb), 4, dtype=I32, device=cdc.device))
     cac_vals, cac_lens = finalize_symbols(cac_blk, nc_to_ctx(nc_c))
@@ -124,19 +145,32 @@ def _chroma_symbols(ch, nmb: int):
                            dim=-1) for k in ("vals", "lens"))
 
 
+def _pack(vals, lens, valid):
+    """pack_symbols of per-MB (nmb, ·) symbol streams, the MBs where `valid`
+    (nmb,) bool is False written with no bits (None: every MB)."""
+    if valid is not None:
+        lens = torch.where(valid[:, None], lens, 0)
+    return pack_symbols(vals.reshape(-1), lens.reshape(-1).to(I32))
+
+
 def i16_slice_entropy(mode16, cmode, i16dc, i16ac, cdc, cac,
-                      wmb: int, hmb: int):
+                      wmb: int, hmb: int, top_ctx=None, valid=None):
     """Whole-slice macroblock_layer bits of an all-I16 frame.
 
     mode16/cmode (nmb,), i16dc (nmb, 16), i16ac (nmb, 16, 15), cdc
     (2, nmb, 4), cac (2, nmb, 4, 15), int32. Returns dict: words (int64,
     MSB of words[0] = first payload bit), nbits (0-d int64), mb_type,
     cbp_luma, cbp_chroma (nmb,), tc_luma (nmb, 16), tc_chroma (2, nmb, 4).
+    For an MB-row band: top_ctx, None or the final state (tc_luma (wmb, 16),
+    cbp_luma (wmb,), tc_chroma (2, wmb, 4), cbp_chroma (wmb,)) of the MB row
+    above it, as this function returns it for that row; valid, None or
+    (nmb,) bool, False at the padded MBs of an uneven band, which are
+    written with no bits.
     """
     nmb = wmb * hmb
     # CBP (setCodedBlockPattern, rbsp_encoding.cpp:21-105)
     cbp_l = torch.where(i16ac.reshape(nmb, -1).any(dim=-1), 15, 0).to(I32)
-    ch = chroma_setup(cdc, cac, wmb, hmb)
+    ch = chroma_setup(cdc, cac, wmb, hmb, None if top_ctx is None else top_ctx[2:])
     cbp_c = ch["cbp_chroma"]
     mb_type = (1 + mode16 + 4 * cbp_c + torch.where(cbp_l == 15, 12, 0)).to(I32)
 
@@ -149,7 +183,7 @@ def i16_slice_entropy(mode16, cmode, i16dc, i16ac, cdc, cac,
     dc_only[:, 0] = dc_blk["tc"]
     tc_luma = torch.where((cbp_l == 15)[:, None], ac_blk["tc"], dc_only)
 
-    nc_l = _nc_luma_grid(tc_luma, cbp_l, wmb, hmb)
+    nc_l = _nc_luma_grid(tc_luma, cbp_l, wmb, hmb, None if top_ctx is None else top_ctx[:2])
     # coeff_token contexts; the DC block uses the nC of luma block 0
     dc_vals, dc_lens = finalize_symbols(dc_blk, nc_to_ctx(nc_l[:, 0]))
     ac_vals, ac_lens = finalize_symbols(ac_blk, nc_to_ctx(nc_l))
@@ -166,7 +200,7 @@ def i16_slice_entropy(mode16, cmode, i16dc, i16ac, cdc, cac,
                       ac_vals.reshape(nmb, -1), c_vals], dim=-1)
     lens = torch.cat([torch.stack([h0l, h1l, one], dim=-1).to(I32), dc_lens,
                       ac_lens.reshape(nmb, -1), c_lens], dim=-1)
-    words, nbits = pack_symbols(vals.reshape(-1), lens.reshape(-1))
+    words, nbits = _pack(vals, lens, valid)
     return {
         "words": words,
         "nbits": nbits,
@@ -180,7 +214,7 @@ def i16_slice_entropy(mode16, cmode, i16dc, i16ac, cdc, cac,
 
 def mixed_slice_entropy(choice4, mode16, cmode, i16dc, i16ac, lv4, prev_flags,
                         rem_modes, cbp_luma, tc_luma, cdc, cac,
-                        wmb: int, hmb: int):
+                        wmb: int, hmb: int, top_ctx=None, valid=None):
     """Whole-slice macroblock_layer bits of a mixed I4x4/I16 frame.
 
     choice4 (nmb,) bool, prev_flags (nmb, 16) bool, rem_modes (nmb, 16),
@@ -188,11 +222,11 @@ def mixed_slice_entropy(choice4, mode16, cmode, i16dc, i16ac, lv4, prev_flags,
     wavefront (K6); the level arrays hold both candidates' levels, and
     choice4 selects the winner's. mode16/cmode (nmb,), cdc (2, nmb, 4),
     cac (2, nmb, 4, 15), int32. Returns the dict of i16_slice_entropy plus
-    nz_luma (nmb, 16) bool.
+    nz_luma (nmb, 16) bool. top_ctx, valid: as i16_slice_entropy's.
     """
     nmb = wmb * hmb
     dev = choice4.device
-    ch = chroma_setup(cdc, cac, wmb, hmb)
+    ch = chroma_setup(cdc, cac, wmb, hmb, None if top_ctx is None else top_ctx[2:])
     cbp_c = ch["cbp_chroma"]
     mb_type = torch.where(choice4, 0, 1 + mode16 + 4 * cbp_c
                           + torch.where(cbp_luma == 15, 12, 0)).to(I32)
@@ -201,7 +235,8 @@ def mixed_slice_entropy(choice4, mode16, cmode, i16dc, i16ac, lv4, prev_flags,
     dc_blk = block_symbols_bulk(i16dc, 16)
     ac_blk = block_symbols_bulk(i16ac, 15)
     l4_blk = block_symbols_bulk(lv4, 16)
-    nc_l = _nc_luma_grid(tc_luma, cbp_luma, wmb, hmb)
+    nc_l = _nc_luma_grid(tc_luma, cbp_luma, wmb, hmb,
+                         None if top_ctx is None else top_ctx[:2])
     dc_vals, dc_lens = finalize_symbols(dc_blk, nc_to_ctx(nc_l[:, 0]))
     ac_vals, ac_lens = finalize_symbols(ac_blk, nc_to_ctx(nc_l))
     l4_vals, l4_lens = finalize_symbols(l4_blk, nc_to_ctx(nc_l))
@@ -238,7 +273,7 @@ def mixed_slice_entropy(choice4, mode16, cmode, i16dc, i16ac, lv4, prev_flags,
     lens = torch.cat([h0l[:, None], pm_lens,
                       torch.stack([h1l, h2l, qdl], dim=-1).to(I32), dc_lens,
                       luma_lens.reshape(nmb, -1), c_lens], dim=-1)
-    words, nbits = pack_symbols(vals.reshape(-1), lens.reshape(-1).to(I32))
+    words, nbits = _pack(vals, lens, valid)
     nz_luma = torch.where(choice4[:, None], lv4.ne(0).any(dim=-1),
                           i16ac.ne(0).any(dim=2) | i16dc.ne(0).any(dim=1)[:, None])
     return {

@@ -6,7 +6,9 @@ residual| at the real QP, intra.cpp:819) of each of the 4 Intra16x16 modes,
 and for every 4x4 block each of the 9 Intra4x4 modes, predicted from the
 SOURCE neighbours with availability gating, and the first mode of least
 SATD. `intra16_mode_decision` is its I16 half (i16_only=True), all that the
-all-I16 and IPPP paths need.
+all-I16 and IPPP paths need. Both take `top_row`, the source row above the
+plane (the last source row of the MB-row band above, parallel/tile.py), or
+None where the plane's top is the frame's.
 """
 
 from __future__ import annotations
@@ -45,10 +47,11 @@ def _first_min(cost):
     return idx, best
 
 
-def intra16_mode_decision(y, qp: int):
-    """y: (H, W) int32 source luma. Returns (mode16 (nmb,) int32,
-    satd16 (nmb,) int32 of the chosen mode)."""
-    p33 = neighbours(y, 16)
+def intra16_mode_decision(y, qp: int, top_row=None):
+    """y: (H, W) int32 source luma; top_row: None, or the (W,) int32 source
+    row above it. Returns (mode16 (nmb,) int32, satd16 (nmb,) int32 of the
+    chosen mode)."""
+    p33 = neighbours(y, 16, top_row)
     preds = intra.predict_16x16_all_modes(p33)  # (4, nmb, 16, 16)
     satd = _satd(mb_blocks(to_mbs(y, 16)[None] - preds), qp).sum(
         dim=-1, dtype=torch.int32)  # (4, nmb)
@@ -61,9 +64,10 @@ def intra16_mode_decision(y, qp: int):
     return _first_min(satd + gate)
 
 
-def _p13_source(y):
+def _p13_source(y, top_row=None):
     """(nmb, 16, 13) Intra4x4 neighbour samples of every block of every MB
-    (Z-scan order) from the source plane, -1 outside the frame. The
+    (Z-scan order) from the source plane, -1 outside the frame (top_row:
+    None, or the source row above the plane, read in its place). The
     above-right samples are replaced by the last top sample where the
     reference has none yet (intra.cpp:345-370): at the frame's right
     edge, in the MB's right column below its top row, and for blocks 3
@@ -71,6 +75,8 @@ def _p13_source(y):
     h, w = y.shape
     hb, wb = h // 4, w // 4
     yp = torch.nn.functional.pad(y, (1, 4, 1, 0), value=-1)
+    if top_row is not None:
+        yp[0, 1:w + 1] = top_row
     corner = yp[0:h:4, 0:w:4]  # (hb, wb)
     left = yp[1:h + 1, 0:w:4].reshape(hb, 4, wb).transpose(1, 2)
     trow = yp[0:h:4, 1:w + 5].reshape(hb, wb + 1, 4)
@@ -88,12 +94,13 @@ def _p13_source(y):
     return p13[:, const(_Z_OF_RASTER, dev)]
 
 
-def intra_mode_decision(y, qp: int):
-    """The full decision. y: (H, W) int32 source luma. Returns dict:
-    mode16 (nmb,), satd16 (nmb,), mode4 (nmb, 16) Z-scan, satd4 (nmb,)
-    (the sum of the 16 chosen blocks' SATD), all int32."""
-    mode16, satd16 = intra16_mode_decision(y, qp)
-    p13 = _p13_source(y)
+def intra_mode_decision(y, qp: int, top_row=None):
+    """The full decision. y: (H, W) int32 source luma; top_row: as
+    intra16_mode_decision's. Returns dict: mode16 (nmb,), satd16 (nmb,),
+    mode4 (nmb, 16) Z-scan, satd4 (nmb,) (the sum of the 16 chosen blocks'
+    SATD), all int32."""
+    mode16, satd16 = intra16_mode_decision(y, qp, top_row)
+    p13 = _p13_source(y, top_row)
     preds = intra.predict_4x4_all_modes(p13)  # (9, nmb, 16, 4, 4)
     satd = _satd(mb_blocks(to_mbs(y, 16))[None] - preds, qp)  # (9, nmb, 16)
     ok = {"t": p13[..., 5] != -1, "l": p13[..., 1] != -1,

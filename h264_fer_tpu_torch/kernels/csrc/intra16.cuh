@@ -139,16 +139,18 @@ struct ChromaScratch {
 // ((t >> 3) & 7, t & 7) of plane t >> 6. cbs / crs: the MB's top-left Cb /
 // Cr source sample (row stride ss), in the source planes or in shared
 // memory. Reads the neighbours from, and writes the MB to, the uint8 recon
-// planes (Wc samples wide), whose earlier MBs are final. Where cdc / cac are not null (pointing at this MB's entry
+// planes (Wc samples wide), whose earlier MBs are final. has_top: row 0 has
+// a top neighbour, the plane row above it (a band's halo, written before the
+// launch). Where cdc / cac are not null (pointing at this MB's entry
 // of the (2, nmb, 4) / (2, nmb, 4, 15) level arrays), writes the quantised
 // levels: cdc[plane][raster index] of the 2x2 DC block, cac[plane][raster
 // block][zig-zag index - 1].
 __device__ void chroma_mb(const uint8_t* __restrict__ cbs,
                           const uint8_t* __restrict__ crs, int ss, uint8_t* cbrec,
-                          uint8_t* crrec, int Wc, int r, int c, int mode,
-                          int qpc, const QpTab& tab, ChromaScratch& s,
+                          uint8_t* crrec, int Wc, int r, int c, bool has_top,
+                          int mode, int qpc, const QpTab& tab, ChromaScratch& s,
                           int32_t* cdc, int32_t* cac, int nmb, int t, int bar) {
-  const bool top_ok = r > 0, left_ok = c > 0, corner_ok = top_ok && left_ok;
+  const bool top_ok = r > 0 || has_top, left_ok = c > 0, corner_ok = top_ok && left_ok;
   const int cx0 = c * 8, cy0 = r * 8;
   const int p = t >> 6, cy = (t >> 3) & 7, cx = t & 7;
   const uint8_t* csrc = p ? crs : cbs;

@@ -33,9 +33,11 @@ struct MbNbr {
 
 // Fill nb for MB (r, c) of the row-major uint8 plane rec (W samples wide,
 // wmb MBs), by threads tid of nthreads; the caller synchronises after.
+// has_top: row 0 has a top neighbour, the plane row above it (a band's
+// halo, written before the launch).
 __device__ void load_nbr(const uint8_t* rec, int W, int wmb, int r, int c,
-                         MbNbr& nb, int tid, int nthreads) {
-  const bool left_ok = c > 0, top_ok = r > 0;
+                         bool has_top, MbNbr& nb, int tid, int nthreads) {
+  const bool left_ok = c > 0, top_ok = r > 0 || has_top;
   const bool tr_ok = top_ok && c + 1 < wmb;
   const int x0 = c * 16, y0 = r * 16;
   for (int i = tid; i < 37; i += nthreads) {

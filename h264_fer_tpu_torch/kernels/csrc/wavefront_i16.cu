@@ -32,6 +32,17 @@
 // frame, enqueued no faster than the host issues them) would pay that
 // chain in launches.
 //
+// The band forms (wavefront_i16_band_levels, wavefront_chroma_band_levels)
+// replace the XLA loop _banded_i16_wavefront (h264_fer_tpu/parallel/
+// tile.py:57, fori_loop at :240) and the band= form of
+// wavefront_chroma_impl (wavefront.py:237-330): the same kernels over one
+// MB-row band of a frame, whose row 0 reads its top neighbours from the
+// row above the band in the recon planes (has_top), the band above's last
+// recon row, copied there before the launch. The JAX form exchanges that
+// row a segment per wave between devices; here the band above has
+// finished the frame before the band below launches (the bands pipeline
+// across frames, parallel/tile.py), so no launch waits on another.
+//
 // Design of K1, K1t and K7: one launch per frame on csrc/mb_dataflow.cuh.
 // A persistent grid takes the MBs by ticket in diagonal order (d = r + c,
 // then r) and waits on the I16 wait set, left, top and top-left: no
@@ -48,6 +59,7 @@
 // 128 threads, one per sample of Cb and Cr, so a step of its chain is one
 // flag hop plus one MB's chroma code.
 
+#include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -68,11 +80,15 @@ struct Frame {
   uint8_t *yrec, *cbrec, *crrec;        // written in the launch: no __ldg
   Levels lv;
   int wmb, nmb, qp, qpc;
+  bool has_top;  // row 0 reads the recon row above the planes (a band's halo)
   QpTab luma, chroma;
 };
 
 constexpr int kThreads = 384;
 
+// kBand: the band entry point's instance, which reads f.has_top; the frame
+// entry points' instance compiles as it did before bands (top_ok = r > 0).
+template <bool kBand>
 __global__ void __launch_bounds__(kThreads)
 i16_kernel(Frame f, Dataflow df) {
   __shared__ __align__(16) uint8_t s_src[256];     // the source MB's luma
@@ -88,7 +104,7 @@ i16_kernel(Frame f, Dataflow df) {
     if (mb < 0) return;
     const int r = mb / f.wmb, c = mb - r * f.wmb;
     const int x0 = c * 16, y0 = r * 16;
-    const bool top_ok = r > 0, left_ok = c > 0;
+    const bool top_ok = r > 0 || (kBand && f.has_top), left_ok = c > 0;
 
     // ---- before the wait: the source MB and its modes (read-only) --------
     if (t >= 32 && t < 48) {  // warp 1: a luma row of 16 each
@@ -107,11 +123,11 @@ i16_kernel(Frame f, Dataflow df) {
     // ---- after the wait: code the MB --------------------------------------
     if (t < 256) {
       if (t < 16) {
-        top[t] = top_ok ? f.yrec[(size_t)(y0 - 1) * W + x0 + t] : -1;
+        top[t] = top_ok ? f.yrec[(ptrdiff_t)(y0 - 1) * W + x0 + t] : -1;
       } else if (t < 32) {
         left[t - 16] = left_ok ? f.yrec[(size_t)(y0 + t - 16) * W + x0 - 1] : -1;
       } else if (t == 32) {
-        corner = top_ok && left_ok ? f.yrec[(size_t)(y0 - 1) * W + x0 - 1] : -1;
+        corner = top_ok && left_ok ? f.yrec[(ptrdiff_t)(y0 - 1) * W + x0 - 1] : -1;
       }
       group_sync(1, 256);
       const int v = i16_luma_mb(top, left, corner, left_ok, top_ok, s_mode, s_src, 16,
@@ -119,8 +135,8 @@ i16_kernel(Frame f, Dataflow df) {
                                 f.lv.ac ? f.lv.ac + mb * 240 : nullptr, t, 1);
       f.yrec[(size_t)(y0 + (t >> 4)) * W + x0 + (t & 15)] = (uint8_t)v;
     } else {
-      chroma_mb(s_csrc[0], s_csrc[1], 8, f.cbrec, f.crrec, Wc, r, c, s_cmode, f.qpc,
-                f.chroma, cs, f.lv.cdc ? f.lv.cdc + mb * 4 : nullptr,
+      chroma_mb(s_csrc[0], s_csrc[1], 8, f.cbrec, f.crrec, Wc, r, c, kBand && f.has_top,
+                s_cmode, f.qpc, f.chroma, cs, f.lv.cdc ? f.lv.cdc + mb * 4 : nullptr,
                 f.lv.cac ? f.lv.cac + mb * 60 : nullptr, f.nmb, t - 256, 2);
     }
     dataflow_publish(df, mb);
@@ -136,6 +152,7 @@ struct ChromaFrame {
   uint8_t *cbrec, *crrec;        // written in the launch: no __ldg
   int32_t *cdc, *cac;            // (2, nmb, 4), (2, nmb, 4, 15); null: no levels
   int wmb, nmb, qpc;
+  bool has_top;  // row 0 reads the recon row above the planes (a band's halo)
   QpTab chroma;
 };
 
@@ -165,8 +182,8 @@ chroma_kernel(ChromaFrame f, Dataflow df) {
     dataflow_wait<kIntraSet>(df, r, c, f.wmb);  // left, top, top-left: chroma
 
     // ---- after the wait: code the MB ----------------------------------------
-    chroma_mb(s_csrc[0], s_csrc[1], 8, f.cbrec, f.crrec, Wc, r, c, s_cmode, f.qpc,
-              f.chroma, cs, f.cdc ? f.cdc + mb * 4 : nullptr,
+    chroma_mb(s_csrc[0], s_csrc[1], 8, f.cbrec, f.crrec, Wc, r, c, f.has_top, s_cmode,
+              f.qpc, f.chroma, cs, f.cdc ? f.cdc + mb * 4 : nullptr,
               f.cac ? f.cac + mb * 60 : nullptr, f.nmb, t, 1);
     dataflow_publish(df, mb);  // the MB's chroma is final
   }
@@ -186,16 +203,18 @@ QpTab make_tab(const int* qtab) {
 int launch_i16(const uint8_t* ysrc, const uint8_t* cbsrc, const uint8_t* crsrc,
                const int32_t* modes, const int32_t* cmodes, uint8_t* yrec,
                uint8_t* cbrec, uint8_t* crrec, Levels lv, const int32_t* order,
-               int32_t* sched, int wmb, int hmb, int qp, int qpc, const int* qtab,
-               int blocks, cudaStream_t stream, int* launched) {
+               int32_t* sched, int wmb, int hmb, bool band, bool has_top, int qp,
+               int qpc, const int* qtab, int blocks, cudaStream_t stream,
+               int* launched) {
   *launched = 0;
   const int nmb = wmb * hmb;
   const Frame f{ysrc, cbsrc, crsrc, modes, cmodes, yrec, cbrec, crrec, lv,
-                wmb, nmb, qp, qpc, make_tab(qtab), make_tab(qtab + 6)};
+                wmb, nmb, qp, qpc, has_top, make_tab(qtab), make_tab(qtab + 6)};
   const Dataflow df{order, sched, nmb};
-  const int grid = dataflow_grid(i16_kernel, kThreads, 0, nmb, blocks);
+  const auto kernel = band ? i16_kernel<true> : i16_kernel<false>;
+  const int grid = dataflow_grid(kernel, kThreads, 0, nmb, blocks);
   if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
-  i16_kernel<<<grid, kThreads, 0, stream>>>(f, df);
+  kernel<<<grid, kThreads, 0, stream>>>(f, df);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   *launched = 1;
@@ -206,12 +225,13 @@ int launch_i16(const uint8_t* ysrc, const uint8_t* cbsrc, const uint8_t* crsrc,
 // when accepted.
 int launch_chroma(const uint8_t* cbsrc, const uint8_t* crsrc, const int32_t* cmodes,
                   uint8_t* cbrec, uint8_t* crrec, int32_t* cdc, int32_t* cac,
-                  const int32_t* order, int32_t* sched, int wmb, int hmb, int qpc,
-                  const int* qtab, int blocks, cudaStream_t stream, int* launched) {
+                  const int32_t* order, int32_t* sched, int wmb, int hmb, bool has_top,
+                  int qpc, const int* qtab, int blocks, cudaStream_t stream,
+                  int* launched) {
   *launched = 0;
   const int nmb = wmb * hmb;
   const ChromaFrame f{cbsrc, crsrc, cmodes, cbrec, crrec, cdc, cac,
-                      wmb, nmb, qpc, make_tab(qtab)};
+                      wmb, nmb, qpc, has_top, make_tab(qtab)};
   const Dataflow df{order, sched, nmb};
   const int grid = dataflow_grid(chroma_kernel, kChromaThreads, 0, nmb, blocks);
   if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
@@ -240,7 +260,7 @@ extern "C" int wavefront_i16_frame(const uint8_t* ysrc, const uint8_t* cbsrc,
                                    int blocks, cudaStream_t stream, int* launched) {
   return launch_i16(ysrc, cbsrc, crsrc, modes, cmodes, yrec, cbrec, crrec,
                     Levels{nullptr, nullptr, nullptr, nullptr}, order, sched, wmb,
-                    hmb, qp, qpc, qtab, blocks, stream, launched);
+                    hmb, false, false, qp, qpc, qtab, blocks, stream, launched);
 }
 
 // K1t: K1 that also writes every MB's levels as they leave the quantiser
@@ -254,8 +274,25 @@ extern "C" int wavefront_i16_frame_levels(
     const int32_t* order, int32_t* sched, int wmb, int hmb, int qp, int qpc,
     const int* qtab, int blocks, cudaStream_t stream, int* launched) {
   return launch_i16(ysrc, cbsrc, crsrc, modes, cmodes, yrec, cbrec, crrec,
-                    Levels{i16dc, ac, cdc, cac}, order, sched, wmb, hmb, qp, qpc,
-                    qtab, blocks, stream, launched);
+                    Levels{i16dc, ac, cdc, cac}, order, sched, wmb, hmb, false, false, qp,
+                    qpc, qtab, blocks, stream, launched);
+}
+
+// K1t-band: K1t over one band of hmb MB rows (the device form of the XLA
+// loop _banded_i16_wavefront, h264_fer_tpu/parallel/tile.py:57). The
+// arguments of wavefront_i16_frame_levels for the band's planes, and
+// has_top: when 1, row 0 takes its top and corner samples from the row
+// above yrec, cbrec and crrec (yrec - W, cbrec - W / 2, crrec - W / 2),
+// which hold the band above's last recon rows.
+extern "C" int wavefront_i16_band_levels(
+    const uint8_t* ysrc, const uint8_t* cbsrc, const uint8_t* crsrc,
+    const int32_t* modes, const int32_t* cmodes, uint8_t* yrec, uint8_t* cbrec,
+    uint8_t* crrec, int32_t* i16dc, int32_t* ac, int32_t* cdc, int32_t* cac,
+    const int32_t* order, int32_t* sched, int wmb, int hmb, int has_top, int qp,
+    int qpc, const int* qtab, int blocks, cudaStream_t stream, int* launched) {
+  return launch_i16(ysrc, cbsrc, crsrc, modes, cmodes, yrec, cbrec, crrec,
+                    Levels{i16dc, ac, cdc, cac}, order, sched, wmb, hmb, true,
+                    has_top != 0, qp, qpc, qtab, blocks, stream, launched);
 }
 
 // K7: reconstructs the intra chroma of a frame in one launch, the chroma
@@ -270,7 +307,7 @@ extern "C" int wavefront_chroma_frame(const uint8_t* cbsrc, const uint8_t* crsrc
                                       const int* qtab, int blocks, cudaStream_t stream,
                                       int* launched) {
   return launch_chroma(cbsrc, crsrc, cmodes, cbrec, crrec, nullptr, nullptr, order,
-                       sched, wmb, hmb, qpc, qtab, blocks, stream, launched);
+                       sched, wmb, hmb, false, qpc, qtab, blocks, stream, launched);
 }
 
 // K7 writing every MB's chroma levels as they leave the quantiser, the
@@ -282,5 +319,19 @@ extern "C" int wavefront_chroma_frame_levels(
     int wmb, int hmb, int qpc, const int* qtab, int blocks, cudaStream_t stream,
     int* launched) {
   return launch_chroma(cbsrc, crsrc, cmodes, cbrec, crrec, cdc, cac, order, sched, wmb,
-                       hmb, qpc, qtab, blocks, stream, launched);
+                       hmb, false, qpc, qtab, blocks, stream, launched);
+}
+
+// K7-band: K7 with its levels over one band of hmb MB rows (the band= form
+// of wavefront_chroma_impl, h264_fer_tpu/kernels/wavefront.py:237-330). The
+// arguments of wavefront_chroma_frame_levels for the band's planes, and
+// has_top: when 1, row 0 takes its top and corner samples from the row
+// above cbrec and crrec, which hold the band above's last recon rows.
+extern "C" int wavefront_chroma_band_levels(
+    const uint8_t* cbsrc, const uint8_t* crsrc, const int32_t* cmodes, uint8_t* cbrec,
+    uint8_t* crrec, int32_t* cdc, int32_t* cac, const int32_t* order, int32_t* sched,
+    int wmb, int hmb, int has_top, int qpc, const int* qtab, int blocks,
+    cudaStream_t stream, int* launched) {
+  return launch_chroma(cbsrc, crsrc, cmodes, cbrec, crrec, cdc, cac, order, sched, wmb,
+                       hmb, has_top != 0, qpc, qtab, blocks, stream, launched);
 }

@@ -22,6 +22,14 @@
 // path is 2 * (hmb - 1) + wmb MBs long (254 at 1080p), with at most
 // wmb / 2 + 1 (61) MBs ready at once.
 //
+// The band form (wavefront_mixed_band) replaces the band= form of that
+// loop (wavefront_mixed.py:74-404, with m4_halo=): the same kernel over one
+// MB-row band, whose row 0 reads its top neighbours' state from one MB row
+// above the band in the state arrays: the band above's last recon row, its
+// classes, TotalCoeffs and CBP, and its pre-decided Intra4x4 modes, copied
+// there before the launch (the bands pipeline across frames,
+// parallel/tile.py, so the band above has finished the frame).
+//
 // Design: one launch per frame (csrc/mb_dataflow.cuh): a persistent grid
 // of 288-thread blocks takes the MBs in knight order by ticket, and each MB
 // starts as soon as its neighbours have published, not when the whole
@@ -164,6 +172,7 @@ struct Frame {
   int32_t* cbp_luma;            // (nmb,) out, and state
   int32_t* tc_luma;             // (nmb, 16) out, and state
   int wmb, qp;
+  bool has_top;  // row 0 reads the state one MB row above (a band's halo)
   QpTab tab;
 };
 
@@ -193,7 +202,7 @@ __global__ void __launch_bounds__(kThreads) mixed_kernel(Frame f, Dataflow df) {
     if (mb < 0) return;
     const int r = mb / f.wmb, c = mb - r * f.wmb;
     const int x0 = 16 * c, y0 = 16 * r;
-    const bool left_ok = c > 0, top_ok = r > 0;
+    const bool left_ok = c > 0, top_ok = r > 0 || f.has_top;
     const int mb_l = mb - 1, mb_t = mb - f.wmb;  // read only where left_ok / top_ok
 
     // ---- what does not depend on the neighbours, before the wait --------
@@ -209,7 +218,7 @@ __global__ void __launch_bounds__(kThreads) mixed_kernel(Frame f, Dataflow df) {
     dataflow_wait(df, r, c, f.wmb);
 
     // ---- the neighbours' state (written in this launch) ------------------
-    load_nbr(f.yrec, W, f.wmb, r, c, nb, t, kThreads);
+    load_nbr(f.yrec, W, f.wmb, r, c, f.has_top, nb, t, kThreads);
     if (t >= 64 && t < 80) tc_l[t - 64] = left_ok ? f.tc_luma[16 * mb_l + t - 64] : 0;
     if (t >= 80 && t < 96) tc_t[t - 80] = top_ok ? f.tc_luma[16 * mb_t + t - 80] : 0;
     if (t == 96) cbp_l = left_ok ? f.cbp_luma[mb_l] : 0;
@@ -324,6 +333,37 @@ __global__ void __launch_bounds__(kThreads) mixed_kernel(Frame f, Dataflow df) {
 
 }  // namespace
 
+namespace {
+
+// One launch of mixed_kernel, *launched 1 when accepted.
+int launch_mixed(const uint8_t* ysrc, const int32_t* mode16, const int32_t* mode4,
+                 const int32_t* cmode, const int32_t* cbp_c, const int32_t* chroma_bits,
+                 const int32_t* tabs, const int32_t* pred4, uint8_t* yrec, bool* choice4,
+                 int32_t* i16dc, int32_t* i16ac, int32_t* lv4, bool* prev_flags,
+                 int32_t* rem_modes, int32_t* cbp_luma, int32_t* tc_luma,
+                 const int32_t* order, int32_t* sched, int wmb, int hmb, bool has_top,
+                 int qp, const int* qtab, int blocks, cudaStream_t stream,
+                 int* launched) {
+  *launched = 0;
+  Frame f{ysrc, mode16, mode4, cmode, cbp_c, chroma_bits, tabs, pred4, yrec, choice4,
+          i16dc, i16ac, lv4, prev_flags, rem_modes, cbp_luma, tc_luma, wmb, qp, has_top,
+          {}};
+  for (int i = 0; i < 3; ++i) {
+    f.tab.lq[i] = qtab[i];
+    f.tab.ls[i] = qtab[3 + i];
+  }
+  const Dataflow df{order, sched, wmb * hmb};
+  const int grid = dataflow_grid(mixed_kernel, kThreads, 0, wmb * hmb, blocks);
+  if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
+  mixed_kernel<<<grid, kThreads, 0, stream>>>(f, df);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  *launched = 1;
+  return 0;
+}
+
+}  // namespace
+
 // Codes the luma of a mixed I frame in one launch on `stream`: a
 // persistent grid of `blocks` blocks (0: as many as fit on the card; at
 // most nmb) taking the MBs in the knight order `order` (nmb,) through the
@@ -344,19 +384,30 @@ extern "C" int wavefront_mixed_frame(
     int32_t* cbp_luma, int32_t* tc_luma, const int32_t* order, int32_t* sched,
     int wmb, int hmb, int qp, const int* qtab, int blocks, cudaStream_t stream,
     int* launched) {
-  *launched = 0;
-  Frame f{ysrc, mode16, mode4, cmode, cbp_c, chroma_bits, tabs, pred4, yrec, choice4,
-          i16dc, i16ac, lv4, prev_flags, rem_modes, cbp_luma, tc_luma, wmb, qp, {}};
-  for (int i = 0; i < 3; ++i) {
-    f.tab.lq[i] = qtab[i];
-    f.tab.ls[i] = qtab[3 + i];
-  }
-  const Dataflow df{order, sched, wmb * hmb};
-  const int grid = dataflow_grid(mixed_kernel, kThreads, 0, wmb * hmb, blocks);
-  if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
-  mixed_kernel<<<grid, kThreads, 0, stream>>>(f, df);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  *launched = 1;
-  return 0;
+  return launch_mixed(ysrc, mode16, mode4, cmode, cbp_c, chroma_bits, tabs, pred4, yrec,
+                      choice4, i16dc, i16ac, lv4, prev_flags, rem_modes, cbp_luma,
+                      tc_luma, order, sched, wmb, hmb, false, qp, qtab, blocks, stream,
+                      launched);
+}
+
+// K6-band: K6 over one band of hmb MB rows (the band= form of
+// wavefront_mixed_luma_impl, h264_fer_tpu/kernels/wavefront_mixed.py:54,
+// with m4_halo=). The arguments of wavefront_mixed_frame for the band, and
+// has_top: when 1, row 0 reads its top neighbours from one MB row before
+// the band in yrec (its last sample row: yrec - W), mode4 (mode4 - 16 wmb),
+// choice4, cbp_luma (- wmb) and tc_luma (- 16 wmb), which hold the band
+// above's last row: its recon, pre-decided Intra4x4 modes, classes, CBP and
+// TotalCoeffs.
+extern "C" int wavefront_mixed_band(
+    const uint8_t* ysrc, const int32_t* mode16, const int32_t* mode4,
+    const int32_t* cmode, const int32_t* cbp_c, const int32_t* chroma_bits,
+    const int32_t* tabs, const int32_t* pred4, uint8_t* yrec, bool* choice4,
+    int32_t* i16dc, int32_t* i16ac, int32_t* lv4, bool* prev_flags, int32_t* rem_modes,
+    int32_t* cbp_luma, int32_t* tc_luma, const int32_t* order, int32_t* sched,
+    int wmb, int hmb, int has_top, int qp, const int* qtab, int blocks,
+    cudaStream_t stream, int* launched) {
+  return launch_mixed(ysrc, mode16, mode4, cmode, cbp_c, chroma_bits, tabs, pred4, yrec,
+                      choice4, i16dc, i16ac, lv4, prev_flags, rem_modes, cbp_luma,
+                      tc_luma, order, sched, wmb, hmb, has_top != 0, qp, qtab, blocks,
+                      stream, launched);
 }

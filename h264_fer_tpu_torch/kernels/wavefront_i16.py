@@ -31,6 +31,17 @@ quantiser; `chroma_recon` the recon planes alone. Their plain twins are
 and `chroma_recon_plain`. K1 reconstructs chroma by the same rule (chroma
 mode given per MB, chroma QP, 2x2 DC path).
 
+`i16_band` (K1t-band) and `chroma_band` (K7-band) are K1t and K7 over one
+MB-row band of a frame: the device forms of the XLA loop
+_banded_i16_wavefront (h264_fer_tpu/parallel/tile.py:57, fori_loop at :240)
+and of wavefront_chroma_impl's band= form (wavefront.py:237-330). Their
+`top` is the band above's last recon rows, which the band's first MB row
+reads as its top neighbours (the C entry points wavefront_i16_band_levels
+and wavefront_chroma_band_levels, with the halo copied into the row above
+the band's recon planes); their plain twins are `i16_frame_plain` and
+`chroma_frame_plain` with the same `top`. Their launches count on
+`i16_band.launches` and `chroma_band.launches`.
+
 The plain wavefronts and the levels run the per-MB functions
 `_i16_luma_code` and `_chroma_code` on MBs whose neighbours are final.
 """
@@ -97,11 +108,15 @@ def _diagonals(hmb: int, wmb: int, dev):
         yield r, d - r, r * wmb + d - r
 
 
-def _recon_planes(p: int, h: int, w: int, dev):
+def _recon_planes(p: int, h: int, w: int, dev, top=None):
     """p int32 recon planes of h x w samples with a -1 border on top and
     left, the unavailable samples: sample (y, x) is at (y + 1, x + 1). The
-    diagonals fill the rest."""
-    return torch.full((p, h + 1, w + 1), -1, dtype=torch.int32, device=dev)
+    diagonals fill the rest. top: None, or the p rows (w,) above the planes
+    (a band's halo), which fill the top border."""
+    pad = torch.full((p, h + 1, w + 1), -1, dtype=torch.int32, device=dev)
+    if top is not None:
+        pad[:, 0, 1:] = torch.stack(tuple(top))
+    return pad
 
 
 def _step(pad, r, c, n: int, code):
@@ -115,15 +130,17 @@ def _step(pad, r, c, n: int, code):
     pad[:, (ry + 1 + i)[:, :, None], (cx + 1 + i)[:, None, :]] = code(nbr)
 
 
-def i16_recon_plain(y, cb, cr, modes, cmodes, qp: int, qpc: int):
+def i16_recon_plain(y, cb, cr, modes, cmodes, qp: int, qpc: int, top=None):
     """Plain PyTorch K1: uint8 planes (H, W), (H/2, W/2) and int32 modes
-    (nmb,) → uint8 recon planes. One step per anti-diagonal d = r + c."""
+    (nmb,) → uint8 recon planes. One step per anti-diagonal d = r + c.
+    top: None, or the recon rows (y (W,), cb (W/2,), cr (W/2,)) above the
+    planes, when they are an MB-row band below another."""
     h, w = y.shape
     ysrc = to_mbs(y.to(torch.int32), 16)
     csrc = torch.stack([to_mbs(cb.to(torch.int32), 8),
                         to_mbs(cr.to(torch.int32), 8)])
-    ypad = _recon_planes(1, h, w, y.device)
-    cpad = _recon_planes(2, h // 2, w // 2, y.device)
+    ypad = _recon_planes(1, h, w, y.device, None if top is None else top[:1])
+    cpad = _recon_planes(2, h // 2, w // 2, y.device, None if top is None else top[1:])
     for r, c, mb in _diagonals(h // 16, w // 16, y.device):
         _step(ypad, r, c, 16,
               lambda p: _i16_luma_code(ysrc[mb], p[0], modes[mb], qp)[0][None])
@@ -133,14 +150,15 @@ def i16_recon_plain(y, cb, cr, modes, cmodes, qp: int, qpc: int):
     return (ypad[0, 1:, 1:].to(u8), cpad[0, 1:, 1:].to(u8), cpad[1, 1:, 1:].to(u8))
 
 
-def chroma_recon_plain(cb, cr, cmodes, qpc: int):
-    """Plain PyTorch K7: the chroma half of K1, the non-banded
-    wavefront_chroma_impl (h264_fer_tpu/kernels/wavefront.py:222). uint8
-    planes (H/2, W/2), int32 chroma modes (nmb,) → uint8 recon planes."""
+def chroma_recon_plain(cb, cr, cmodes, qpc: int, top=None):
+    """Plain PyTorch K7: the chroma half of K1, wavefront_chroma_impl
+    (h264_fer_tpu/kernels/wavefront.py:222). uint8 planes (H/2, W/2), int32
+    chroma modes (nmb,) → uint8 recon planes. top: None, or the recon rows
+    (cb (W/2,), cr (W/2,)) above the planes (its band= form)."""
     h, w = cb.shape
     csrc = torch.stack([to_mbs(cb.to(torch.int32), 8),
                         to_mbs(cr.to(torch.int32), 8)])
-    cpad = _recon_planes(2, h, w, cb.device)
+    cpad = _recon_planes(2, h, w, cb.device, top)
     for r, c, mb in _diagonals(h // 8, w // 8, cb.device):
         _step(cpad, r, c, 8,
               lambda p: _chroma_code(csrc[:, mb], p, cmodes[mb], qpc)[0])
@@ -176,20 +194,33 @@ def _check_planes(y, cb, cr, modes, cmodes):
     return wmb, hmb
 
 
-def _launch(wrapper, symbol, y, cb, cr, modes, cmodes, levels, qps, blocks):
+def _launch(wrapper, symbol, y, cb, cr, modes, cmodes, levels, qps, blocks,
+            band=False, top=None):
     """One launch of a kernel of csrc/wavefront_i16.cu (C entry point
     `symbol`) on CUDA tensors; returns the uint8 recon planes. y and modes
     None: K7 (chroma only); levels: the int32 level arrays the kernel
-    writes (() for none); qps (qp, qpc), or (qpc,) for K7."""
+    writes (() for none); qps (qp, qpc), or (qpc,) for K7. band: a band
+    entry point, whose recon planes have one more row above them, filled
+    with the halo rows `top` (one per plane) unless top is None."""
     wmb, hmb = _check_planes(y, cb, cr, modes, cmodes)
     planes = tuple(t for t in (y, cb, cr) if t is not None)
-    rec = tuple(torch.empty_like(t) for t in planes)
     dev = cb.device
+    if band:
+        bufs = tuple(torch.empty((t.shape[0] + 1, t.shape[1]), dtype=torch.uint8,
+                                 device=dev) for t in planes)
+        if top is not None:
+            for buf, row in zip(bufs, top):
+                buf[0].copy_(row)
+        rec = tuple(buf[1:] for buf in bufs)
+        has_top = (int(top is not None),)
+    else:
+        rec = tuple(torch.empty_like(t) for t in planes)
+        has_top = ()
     order, sched = dataflow.schedule(dataflow.diagonal_order(wmb, hmb), dev)
     build.launch(wrapper, "wavefront_i16", symbol,
                  (*planes, *(t for t in (modes, cmodes) if t is not None), *rec, *levels,
-                  order, sched, wmb, hmb, *qps, np.concatenate([qtab(q) for q in qps]),
-                  blocks), dev)
+                  order, sched, wmb, hmb, *has_top, *qps,
+                  np.concatenate([qtab(q) for q in qps]), blocks), dev)
     return rec
 
 
@@ -234,34 +265,41 @@ def chroma_recon(cb, cr, cmodes, qpc: int, *, blocks=None):
                    (qpc,), grid)
 
 
-def chroma_levels_from_recon(cb, cr, rcb, rcr, cmodes, qpc: int):
+def chroma_levels_from_recon(cb, cr, rcb, rcr, cmodes, qpc: int, top=None):
     """Chroma levels of an intra frame from its chroma reconstruction
     (source and recon planes of any integer dtype): (cdc (2, nmb, 4),
-    cac (2, nmb, 4, 15)) int32."""
+    cac (2, nmb, 4, 15)) int32. top: None, or the recon rows (cb, cr) above
+    the planes (a band's halo)."""
     i32 = torch.int32
     csrc = torch.stack([to_mbs(cb.to(i32), 8), to_mbs(cr.to(i32), 8)])
-    p17 = torch.stack([neighbours(rcb.to(i32), 8), neighbours(rcr.to(i32), 8)])
+    top = (None, None) if top is None else top
+    p17 = torch.stack([neighbours(rcb.to(i32), 8, top[0]),
+                       neighbours(rcr.to(i32), 8, top[1])])
     return _chroma_code(csrc, p17, cmodes, qpc)[1:]
 
 
 def i16_levels_from_recon(y, cb, cr, ry, rcb, rcr, modes, cmodes,
-                          qp: int, qpc: int):
+                          qp: int, qpc: int, top=None):
     """Coefficient levels of an all-I16 frame from its reconstruction.
 
     Source planes and recon planes (any integer dtype) and the modes.
     Returns (i16dc (nmb, 16), ac (nmb, 16, 15), cdc (2, nmb, 4),
-    cac (2, nmb, 4, 15)) int32, as i16_levels_from_recon_impl."""
+    cac (2, nmb, 4, 15)) int32, as i16_levels_from_recon_impl. top: None,
+    or the recon rows (y, cb, cr) above the planes (a band's halo)."""
     i32 = torch.int32
     _, i16dc, ac = _i16_luma_code(to_mbs(y.to(i32), 16),
-                                  neighbours(ry.to(i32), 16), modes, qp)
-    return (i16dc, ac, *chroma_levels_from_recon(cb, cr, rcb, rcr, cmodes, qpc))
+                                  neighbours(ry.to(i32), 16, None if top is None else top[0]),
+                                  modes, qp)
+    return (i16dc, ac, *chroma_levels_from_recon(
+        cb, cr, rcb, rcr, cmodes, qpc, None if top is None else top[1:]))
 
 
-def chroma_frame_plain(cb, cr, cmodes, qpc: int):
+def chroma_frame_plain(cb, cr, cmodes, qpc: int, top=None):
     """Plain PyTorch K7 with its levels: plain K7, then the levels from its
-    recon. Returns (recon_cb, recon_cr, cdc, cac)."""
-    rcb, rcr = chroma_recon_plain(cb, cr, cmodes, qpc)
-    return (rcb, rcr, *chroma_levels_from_recon(cb, cr, rcb, rcr, cmodes, qpc))
+    recon. Returns (recon_cb, recon_cr, cdc, cac). top: as
+    chroma_recon_plain's."""
+    rcb, rcr = chroma_recon_plain(cb, cr, cmodes, qpc, top)
+    return (rcb, rcr, *chroma_levels_from_recon(cb, cr, rcb, rcr, cmodes, qpc, top))
 
 
 def chroma_frame(cb, cr, cmodes, qpc: int, *, blocks=None):
@@ -274,9 +312,7 @@ def chroma_frame(cb, cr, cmodes, qpc: int, *, blocks=None):
     grid = dataflow.check_blocks(blocks)
     if not _device(cb):
         return chroma_frame_plain(cb, cr, cmodes, qpc)
-    nmb, dev, i32 = cmodes.numel(), cb.device, torch.int32
-    levels = (torch.empty((2, nmb, 4), dtype=i32, device=dev),
-              torch.empty((2, nmb, 4, 15), dtype=i32, device=dev))
+    levels = _levels(cmodes.numel(), cb.device, False)
     rcb, rcr = _launch(chroma_frame, "wavefront_chroma_frame_levels", None, cb, cr, None,
                        cmodes, levels, (qpc,), grid)
     return (rcb, rcr, *levels)
@@ -287,11 +323,12 @@ def chroma_frame(cb, cr, cmodes, qpc: int, *, blocks=None):
 chroma_frame.launches = 0
 
 
-def i16_frame_plain(y, cb, cr, modes, cmodes, qp: int, qpc: int):
-    """Plain PyTorch K1t: plain K1, then the levels from its recon."""
-    ry, rcb, rcr = i16_recon_plain(y, cb, cr, modes, cmodes, qp, qpc)
+def i16_frame_plain(y, cb, cr, modes, cmodes, qp: int, qpc: int, top=None):
+    """Plain PyTorch K1t: plain K1, then the levels from its recon. top:
+    as i16_recon_plain's (the plain K1t-band)."""
+    ry, rcb, rcr = i16_recon_plain(y, cb, cr, modes, cmodes, qp, qpc, top)
     i16dc, ac, cdc, cac = i16_levels_from_recon(
-        y, cb, cr, ry, rcb, rcr, modes, cmodes, qp, qpc)
+        y, cb, cr, ry, rcb, rcr, modes, cmodes, qp, qpc, top)
     return ry, i16dc, ac, rcb, rcr, cdc, cac
 
 
@@ -304,11 +341,7 @@ def i16_frame(y, cb, cr, modes, cmodes, qp: int, qpc: int, *, blocks=None):
     grid = dataflow.check_blocks(blocks)
     if not _device(y):
         return i16_frame_plain(y, cb, cr, modes, cmodes, qp, qpc)
-    nmb, dev, i32 = modes.numel(), y.device, torch.int32
-    levels = (torch.empty((nmb, 16), dtype=i32, device=dev),
-              torch.empty((nmb, 16, 15), dtype=i32, device=dev),
-              torch.empty((2, nmb, 4), dtype=i32, device=dev),
-              torch.empty((2, nmb, 4, 15), dtype=i32, device=dev))
+    levels = _levels(modes.numel(), y.device, True)
     ry, rcb, rcr = _launch(i16_frame, "wavefront_i16_frame_levels", y, cb, cr, modes,
                            cmodes, levels, (qp, qpc), grid)
     i16dc, ac, cdc, cac = levels
@@ -317,3 +350,64 @@ def i16_frame(y, cb, cr, modes, cmodes, qp: int, qpc: int, *, blocks=None):
 
 # kernel launches so far, counted as i16_recon's
 i16_frame.launches = 0
+
+
+def _levels(nmb: int, dev, luma: bool):
+    """Empty int32 level arrays of nmb MBs as K1t (luma) or K7 writes them:
+    (i16dc, ac, cdc, cac), or (cdc, cac)."""
+    shapes = ((nmb, 16), (nmb, 16, 15)) if luma else ()
+    return tuple(torch.empty(s, dtype=torch.int32, device=dev)
+                 for s in shapes + ((2, nmb, 4), (2, nmb, 4, 15)))
+
+
+def _check_top(top, planes) -> None:
+    """Raise ValueError unless `top` is None or holds one uint8 row per
+    plane, as wide as the plane, on its device."""
+    if top is None:
+        return
+    if len(top) != len(planes):
+        raise ValueError(f"top: {len(top)} rows for {len(planes)} planes")
+    for row, plane in zip(top, planes):
+        build.check_tensor("top row", row, plane.shape[1:], torch.uint8, plane.device)
+
+
+def i16_band(y, cb, cr, modes, cmodes, qp: int, qpc: int, top=None, *, blocks=None):
+    """K1t-band: i16_frame over one MB-row band. top: None for a band with
+    no MB row above it, else the band above's last recon rows (y (W,), cb
+    (W/2,), cr (W/2,)) uint8 on the band's device, which the band's first
+    MB row reads as its top neighbours. Returns i16_frame's tuple for the
+    band. CUDA tensors go to the kernel (the C entry point
+    wavefront_i16_band_levels, one launch, counted on i16_band.launches),
+    CPU tensors to i16_frame_plain(top=top). blocks: as i16_recon's."""
+    grid = dataflow.check_blocks(blocks)
+    _check_top(top, (y, cb, cr))
+    if not _device(y):
+        return i16_frame_plain(y, cb, cr, modes, cmodes, qp, qpc, top)
+    levels = _levels(modes.numel(), y.device, True)
+    ry, rcb, rcr = _launch(i16_band, "wavefront_i16_band_levels", y, cb, cr, modes,
+                           cmodes, levels, (qp, qpc), grid, band=True, top=top)
+    i16dc, ac, cdc, cac = levels
+    return ry, i16dc, ac, rcb, rcr, cdc, cac
+
+
+i16_band.launches = 0
+
+
+def chroma_band(cb, cr, cmodes, qpc: int, top=None, *, blocks=None):
+    """K7-band: chroma_frame over one MB-row band. top: None, or the band
+    above's last chroma recon rows (cb (W/2,), cr (W/2,)) uint8 on the
+    band's device. Returns chroma_frame's tuple for the band. CUDA tensors
+    go to the kernel (wavefront_chroma_band_levels, counted on
+    chroma_band.launches), CPU tensors to chroma_frame_plain(top=top).
+    blocks: as i16_recon's."""
+    grid = dataflow.check_blocks(blocks)
+    _check_top(top, (cb, cr))
+    if not _device(cb):
+        return chroma_frame_plain(cb, cr, cmodes, qpc, top)
+    levels = _levels(cmodes.numel(), cb.device, False)
+    rcb, rcr = _launch(chroma_band, "wavefront_chroma_band_levels", None, cb, cr, None,
+                       cmodes, levels, (qpc,), grid, band=True, top=top)
+    return (rcb, rcr, *levels)
+
+
+chroma_band.launches = 0

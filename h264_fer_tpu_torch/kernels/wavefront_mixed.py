@@ -19,6 +19,15 @@ knight waves d = 2r + c; each MB codes the I16 candidate, the I4x4
 candidate (kernels/wavefront_i4x4.i4x4_mb_code), the CAVLC sizes of both,
 and keeps the strictly smaller. Chroma does not depend on the choice: the
 caller passes each MB's cbp_chroma and exact chroma residual bits.
+
+`mixed_luma_band` (K6-band) is K6 over one MB-row band of a frame, the
+device form of the loop's band= form with m4_halo= (wavefront_mixed.py:
+74-404): its `top` is the band above's last MB row as K6 left it (recon
+row 15, classes, TotalCoeffs, CBP) and that row's pre-decided Intra4x4
+modes, which the band's first row reads as its top neighbours (the C entry
+point wavefront_mixed_band, with the halo copied one MB row before the
+band in the kernel's state arrays; launches counted on
+mixed_luma_band.launches). Its plain twin is `mixed_luma_plain(top=top)`.
 """
 
 from __future__ import annotations
@@ -71,23 +80,37 @@ def _bits(blk, nc):
     return ct + blk["rest_bits"]
 
 
-def mixed_luma_plain(y, mode16, mode4, cmode, cbp_c, chroma_bits, qp: int):
+def mixed_luma_plain(y, mode16, mode4, cmode, cbp_c, chroma_bits, qp: int,
+                     top=None):
     """Plain PyTorch K6. y (H, W) uint8 source; mode16, cmode, cbp_c,
     chroma_bits (nmb,) and mode4 (nmb, 16) int32. Returns the dict of
     wavefront_mixed_luma_impl (KEYS): recon_y (H, W) uint8, choice4 (nmb,)
     bool, i16dc (nmb, 16), i16ac (nmb, 16, 15), lv4 (nmb, 16, 16),
     prev_flags (nmb, 16) bool, rem_modes (nmb, 16), cbp_luma (nmb,),
-    tc_luma (nmb, 16)."""
+    tc_luma (nmb, 16). top: None, or the halo of the MB-row band above
+    (mixed_luma_band's), which then stands as a coded MB row 0 above the
+    frame: the waves skip it and the outputs leave it out."""
     h, w = y.shape
-    hmb, wmb = h // 16, w // 16
+    wmb = w // 16
+    r0 = int(top is not None)  # MB rows of state above the band
+    hmb = h // 16 + r0
     nmb = hmb * wmb
     dev = y.device
-    src = to_mbs(y.to(I32), 16).reshape(hmb, wmb, 16, 16)
+
+    def ext(x):  # x with r0 MB rows of zeros, or the halo, before it
+        return torch.cat([x.new_zeros((r0 * wmb, *x.shape[1:])), x])
+
+    mode16, cmode, cbp_c, chroma_bits = map(ext, (mode16, cmode, cbp_c, chroma_bits))
+    src = ext(to_mbs(y.to(I32), 16)).reshape(hmb, wmb, 16, 16)
     rec = torch.zeros_like(src)
     # per-MB state and outputs, by raster MB index
     choice = torch.zeros(nmb, dtype=torch.bool, device=dev)
     tcl = torch.zeros((nmb, 16), dtype=I32, device=dev)
     cbpl = torch.zeros(nmb, dtype=I32, device=dev)
+    if top is not None:
+        rec[0, :, 15] = top["recon"].to(I32).reshape(wmb, 16)
+        choice[:wmb], tcl[:wmb], cbpl[:wmb] = top["choice4"], top["tc_luma"], top["cbp_luma"]
+        mode4 = torch.cat([top["mode4"], mode4])
     out = {"i16dc": torch.zeros((nmb, 16), dtype=I32, device=dev),
            "i16ac": torch.zeros((nmb, 16, 15), dtype=I32, device=dev),
            "lv4": torch.zeros((nmb, 16, 16), dtype=I32, device=dev),
@@ -97,7 +120,12 @@ def mixed_luma_plain(y, mode16, mode4, cmode, cbp_c, chroma_bits, qp: int):
     quad = torch.arange(16, device=dev) // 4
     maxc = const(np.array([16] + [15] * 16 + [16] * 16, np.int32), dev)
     for r, c, mb in knight_waves(hmb, wmb, dev):
+        if r0:  # the halo row is coded already
+            keep = r >= r0
+            r, c, mb = r[keep], c[keep], mb[keep]
         n = mb.shape[0]
+        if n == 0:
+            continue
         nb = mb_neighbours(rec, r, c)
         left_ok, top_ok = c > 0, r > 0
         mb_l = torch.where(left_ok, mb - 1, mb)  # clamped: masked below
@@ -171,22 +199,40 @@ def mixed_luma_plain(y, mode16, mode4, cmode, cbp_c, chroma_bits, qp: int):
         for key, val in (("i16dc", i16dc), ("i16ac", i16ac), ("lv4", lv4),
                          ("prev_flags", pf), ("rem_modes", rm)):
             out[key][mb] = val
-    return {"recon_y": from_mbs(rec.reshape(-1, 16, 16), hmb, wmb).to(torch.uint8),
-            "choice4": choice, **out, "cbp_luma": cbpl, "tc_luma": tcl}
+    recon = from_mbs(rec[r0:].reshape(-1, 16, 16), hmb - r0, wmb).to(torch.uint8)
+    state = {"choice4": choice, **out, "cbp_luma": cbpl, "tc_luma": tcl}
+    return {"recon_y": recon, **{k: v[r0 * wmb:] for k, v in state.items()}}
 
 
-def mixed_luma(y, mode16, mode4, cmode, cbp_c, chroma_bits, qp: int, *,
-               blocks=None):
-    """K6: mixed_luma_plain's function. CUDA tensors (y uint8, the rest
-    int32, contiguous) go to the kernel (one launch per frame), CPU tensors
-    to the plain version. blocks: the kernel's grid size (None: as many
-    blocks as fit on the card at once); any size gives the same result."""
-    args = (y, mode16, mode4, cmode, cbp_c, chroma_bits)
-    grid = dataflow.check_blocks(blocks)
-    if y.device.type == "cpu":
-        return mixed_luma_plain(*args, qp)
-    if y.device.type != "cuda":
-        raise ValueError(f"unsupported device {y.device}")
+# the halo of mixed_luma_band: the band above's last MB row, (shape per
+# MB, dtype), by key
+TOP_KEYS = {"recon": ((16,), torch.uint8), "choice4": ((), torch.bool),
+            "tc_luma": ((16,), I32), "cbp_luma": ((), I32), "mode4": ((16,), I32)}
+
+
+def _check_top(top, wmb: int, device) -> dict:
+    """The halo dict `top` of mixed_luma_band, each entry as (wmb, ...) by
+    TOP_KEYS (recon may come as its (wmb * 16,) sample row); raises
+    ValueError for a missing key, a wrong shape, dtype or device."""
+    out = {}
+    for key, (shape, dtype) in TOP_KEYS.items():
+        if key not in top:
+            raise ValueError(f"top: no {key!r}")
+        row = top[key]
+        if row.numel() == wmb * int(np.prod(shape)):
+            row = row.reshape(wmb, *shape)
+        build.check_tensor(f"top {key}", row, (wmb, *shape), dtype, device)
+        out[key] = row
+    return out
+
+
+def _launch(wrapper, symbol, args, qp: int, grid: int, band: bool, top=None):
+    """One launch of csrc/wavefront_mixed.cu's entry point `symbol` on the
+    CUDA tensors args (y, mode16, mode4, cmode, cbp_c, chroma_bits); returns
+    the output dict (KEYS). band: the band entry point, whose state arrays
+    (recon, choice4, tc_luma, cbp_luma, and a copy of mode4) hold one MB
+    row before the band, filled from the halo `top` unless it is None."""
+    y, mode16, mode4, cmode, cbp_c, chroma_bits = args
     h, w = y.shape
     if h % 16 or w % 16:
         raise ValueError(f"frame {w}x{h} is not a whole number of MBs")
@@ -201,23 +247,83 @@ def mixed_luma(y, mode16, mode4, cmode, cbp_c, chroma_bits, qp: int, *,
         build.check_tensor(name, t, shape, dtype, dev)
     if y.data_ptr() % 16:
         raise ValueError("y: the kernel copies it in 16-byte chunks")
-    out = {"recon_y": torch.empty_like(y),
-           "choice4": torch.empty(nmb, dtype=torch.bool, device=dev),
+    pre = wmb if band else 0  # MBs of halo state before the band's
+    bufs = {"recon": torch.empty((h + int(band), w), dtype=torch.uint8, device=dev),
+            "choice4": torch.empty(pre + nmb, dtype=torch.bool, device=dev),
+            "cbp_luma": torch.empty(pre + nmb, dtype=I32, device=dev),
+            "tc_luma": torch.empty((pre + nmb, 16), dtype=I32, device=dev)}
+    if band:
+        bufs["mode4"] = torch.empty((pre + nmb, 16), dtype=I32, device=dev)
+        bufs["mode4"][pre:] = mode4
+        mode4 = bufs["mode4"][pre:]
+        if top is not None:
+            for key, row in _check_top(top, wmb, dev).items():
+                dst = bufs[key][0] if key == "recon" else bufs[key][:pre]
+                dst.copy_(row.reshape(dst.shape))
+    out = {"recon_y": bufs["recon"][int(band):],
+           "choice4": bufs["choice4"][pre:],
            "i16dc": torch.empty((nmb, 16), dtype=I32, device=dev),
            "i16ac": torch.empty((nmb, 16, 15), dtype=I32, device=dev),
            "lv4": torch.empty((nmb, 16, 16), dtype=I32, device=dev),
            "prev_flags": torch.empty((nmb, 16), dtype=torch.bool, device=dev),
            "rem_modes": torch.empty((nmb, 16), dtype=I32, device=dev),
-           "cbp_luma": torch.empty(nmb, dtype=I32, device=dev),
-           "tc_luma": torch.empty((nmb, 16), dtype=I32, device=dev)}
+           "cbp_luma": bufs["cbp_luma"][pre:],
+           "tc_luma": bufs["tc_luma"][pre:]}
     order, sched = dataflow.schedule(dataflow.knight_order(wmb, hmb), dev)
-    build.launch(mixed_luma, "wavefront_mixed", "wavefront_mixed_frame",
-                 (*args, const(TABLES, dev), const(PRED4_TABLE, dev),
-                  *(out[k] for k in KEYS), order,
-                  sched, wmb, hmb, qp, qtab(qp), grid), dev)
+    build.launch(wrapper, "wavefront_mixed", symbol,
+                 (y, mode16, mode4, cmode, cbp_c, chroma_bits, const(TABLES, dev),
+                  const(PRED4_TABLE, dev), *(out[k] for k in KEYS), order, sched, wmb,
+                  hmb, *((int(top is not None),) if band else ()), qp, qtab(qp), grid),
+                 dev)
     return out
+
+
+def _kernel(y) -> bool:
+    """False for a CPU tensor (the plain twin runs), True for a CUDA one;
+    raises for any other device."""
+    if y.device.type == "cpu":
+        return False
+    if y.device.type != "cuda":
+        raise ValueError(f"unsupported device {y.device}")
+    return True
+
+
+def mixed_luma(y, mode16, mode4, cmode, cbp_c, chroma_bits, qp: int, *,
+               blocks=None):
+    """K6: mixed_luma_plain's function. CUDA tensors (y uint8, the rest
+    int32, contiguous) go to the kernel (one launch per frame), CPU tensors
+    to the plain version. blocks: the kernel's grid size (None: as many
+    blocks as fit on the card at once); any size gives the same result."""
+    args = (y, mode16, mode4, cmode, cbp_c, chroma_bits)
+    grid = dataflow.check_blocks(blocks)
+    if not _kernel(y):
+        return mixed_luma_plain(*args, qp)
+    return _launch(mixed_luma, "wavefront_mixed_frame", args, qp, grid, band=False)
 
 
 # kernel launches so far, as counted by the C entry point (one per accepted
 # launch, one per frame)
 mixed_luma.launches = 0
+
+
+def mixed_luma_band(y, mode16, mode4, cmode, cbp_c, chroma_bits, qp: int, top=None, *,
+                    blocks=None):
+    """K6-band: mixed_luma over one MB-row band. top: None for a band with
+    no MB row above it, else the band above's last MB row on the band's
+    device, a dict (TOP_KEYS) of recon (wmb * 16,) uint8 (its sample row
+    15), choice4 (wmb,) bool, tc_luma (wmb, 16) and cbp_luma (wmb,) int32 as
+    K6 left them, and mode4 (wmb, 16) int32, its pre-decided Intra4x4
+    modes. CUDA tensors go to the kernel (wavefront_mixed_band, one launch,
+    counted on mixed_luma_band.launches), CPU tensors to
+    mixed_luma_plain(top=top). blocks: as mixed_luma's."""
+    args = (y, mode16, mode4, cmode, cbp_c, chroma_bits)
+    grid = dataflow.check_blocks(blocks)
+    if top is not None:
+        _check_top(top, y.shape[1] // 16, y.device)
+    if not _kernel(y):
+        return mixed_luma_plain(*args, qp, top)
+    return _launch(mixed_luma_band, "wavefront_mixed_band", args, qp, grid, band=True,
+                   top=top)
+
+
+mixed_luma_band.launches = 0

@@ -28,6 +28,31 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def resolve_devices(devices) -> list:
+    """The torch.devices of a device list, each CUDA entry with its index:
+    every visible card for None. A device may appear more than once (each
+    entry is a lane of its own: n entries of "cuda:0" run n shares or bands
+    on one card, n of "cpu" on the CPU). Raises ValueError for an empty
+    list, a list that mixes CPU and CUDA entries or a card that is not
+    there, and RuntimeError for CUDA without a card."""
+    if devices is None:
+        resolve_device("cuda")
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devs = [torch.device(d) for d in devices]
+    if not devs:
+        raise ValueError("the device list is empty")
+    if len({d.type for d in devs}) > 1:
+        raise ValueError(f"the device list mixes CPU and CUDA: {devs}")
+    devs = [resolve_device(d) for d in devs]
+    if devs[0].type == "cuda":
+        devs = [torch.device("cuda", torch.cuda.current_device() if d.index is None
+                             else d.index) for d in devs]
+        missing = [d for d in devs if d.index >= torch.cuda.device_count()]
+        if missing:
+            raise ValueError(f"no such card: {missing}")
+    return devs
+
+
 @functools.lru_cache(maxsize=256)
 def _const(data: bytes, dtype: str, shape: tuple, device: torch.device):
     arr = np.frombuffer(data, dtype=np.dtype(dtype)).reshape(shape)

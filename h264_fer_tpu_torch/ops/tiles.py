@@ -49,13 +49,16 @@ def from_mbs(mbs, hm: int, wm: int):
     return mbs.reshape(hm, wm, n, n).transpose(1, 2).reshape(hm * n, wm * n)
 
 
-def neighbours(plane, n: int):
+def neighbours(plane, n: int, top=None):
     """Corner / left column / top row of every n x n MB of `plane`, with -1
     outside the frame: (nmb, 2n+1) in the corner, left, top layout of
-    ops/intra."""
+    ops/intra. top: None, or the (W,) row above the plane (an MB-row band's
+    halo), which the first MB row then reads."""
     h, w = plane.shape
     hm, wm = h // n, w // n
     pp = torch.nn.functional.pad(plane, (1, 0, 1, 0), value=-1)
+    if top is not None:
+        pp[0, 1:] = top
     corner = pp[0:h:n, 0:w:n]
     lefts = pp[1 : h + 1, 0:w:n].reshape(hm, n, wm).transpose(1, 2)
     tops = pp[0:h:n, 1 : w + 1].reshape(hm, wm, n)

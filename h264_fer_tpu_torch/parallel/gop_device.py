@@ -1,17 +1,29 @@
-"""Sequence encoders on one device: frames in, Annex-B bytes out.
+"""Sequence encoders over a list of devices: frames in, Annex-B bytes out.
 
-The counterparts of the single-device branches of
-h264_fer_tpu/parallel/gop_device.GopIntraEncoder (mode "i16" or "mixed") and
-GopIpppEncoder. Every frame is uploaded (pinned host buffer, non-blocking
-copy) and its device program queued before any payload is read back; the
-host then reads all payload sizes in one transfer and the used words of all
-payloads in a second one, and writes SPS/PPS once and one NAL per frame
-with the serial encoder's slice-header sequence, so the stream is
-byte-identical to the reference's. Payload buffers are sized for the worst
-case, so there are no capacity tiers and no retries.
+The counterparts of h264_fer_tpu/parallel/gop_device.GopIntraEncoder (mode
+"i16" or "mixed"), GopIpppEncoder and measure_scaling. As the reference's
+encoders take a list of JAX devices, these take `devices`, a list of
+devices that this one process drives. An entry may appear more than once:
+each entry is a lane (`Lane`), on a card a CUDA stream of its own, so
+["cuda:0"] * 2 runs two shares on one card and ["cpu"] * n is what the CPU
+tests pass. IDR frames (all-intra) and GOPs (IPPP) are independent, so
+they split into contiguous shares, one per lane. Every lane uploads its
+frames (pinned host buffer, non-blocking copy) and queues their device
+programs on its stream before any payload is read back; the host then
+reads each lane's payloads (every size in one transfer, the used words of
+all payloads in a second one) and writes SPS/PPS once and one NAL per frame
+in the serial order, with the serial encoder's slice-header sequence, so
+the stream is byte-identical to the one-device stream and to the
+reference's. The reference pads a batch to a multiple of its device count
+and encodes the padding; shares of unequal size need no padding here.
+Payload buffers are sized for the worst case, so there are no capacity
+tiers and no retries.
 """
 
 from __future__ import annotations
+
+import contextlib
+import time
 
 import numpy as np
 import torch
@@ -23,26 +35,79 @@ from ..codec.gop import device_gop_ippp
 from ..codec.iframe import device_i16_frame, device_mixed_frame
 from ..ops import transform
 from ..ops.cavlc_bulk import words_to_bytes
-from ..ops.device import DEFAULT_DEVICE, resolve_device, upload
+from ..ops.device import DEFAULT_DEVICE, resolve_devices, upload
 
 
-def _one_device(device, devices) -> torch.device:
-    if devices is not None:
-        if len(devices) != 1:
-            raise NotImplementedError("multi-device encoding is not ported yet")
-        device = devices[0]
-    return resolve_device(device)
+class Lane:
+    """One entry of a device list: its device and, on a card, a CUDA stream
+    of its own, on which the work queued under `queue()` runs."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def queue(self):
+        """Context in which work goes to the lane's stream (and its card is
+        the current device); on the CPU, a no-op."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+    def record(self):
+        """An event after the work queued on the lane so far (None on the
+        CPU)."""
+        if self.stream is None:
+            return None
+        event = torch.cuda.Event()
+        event.record(self.stream)
+        return event
+
+    def wait(self, event) -> None:
+        """Order the lane's later work after `event`, another lane's record
+        (which may be on another card)."""
+        if event is not None:
+            self.stream.wait_event(event)
+
+
+def shares(n: int, k: int) -> list:
+    """n items in k contiguous ranges, in order, whose sizes differ by at
+    most one (the first ones larger); a range is empty when k > n."""
+    base, rem = divmod(n, k)
+    bounds = np.cumsum([0] + [base + (i < rem) for i in range(k)])
+    return [range(bounds[i], bounds[i + 1]) for i in range(k)]
+
+
+def interleave(share_lists):
+    """(lane index, item) pairs taking each lane's next item in turn, so that
+    every lane has work queued early."""
+    for j in range(max((len(s) for s in share_lists), default=0)):
+        for i, s in enumerate(share_lists):
+            if j < len(s):
+                yield i, s[j]
 
 
 def read_payloads(payloads):
     """[(words (int64 numpy), nbits)] of slice payloads: dicts holding the
-    `words` and `nbits` of an entropy stage, on one device. Two transfers:
-    every size, then every payload's used words."""
+    `words` and `nbits` of an entropy stage, on one device, queued on the
+    current stream. Two transfers: every size, then every payload's used
+    words."""
+    if not payloads:
+        return []
     nbits = [int(n) for n in torch.stack([p["nbits"] for p in payloads]).cpu()]
     counts = [(n + 63) // 64 for n in nbits]
     flat = torch.cat([p["words"][:c] for p, c in zip(payloads, counts)])
     words = np.split(flat.cpu().numpy(), np.cumsum(counts)[:-1])
     return list(zip(words, nbits))
+
+
+def read_lanes(lane_list, payloads_by_lane) -> list:
+    """read_payloads of each lane's payloads on its own stream: one list of
+    lists of (words, nbits), in lane order."""
+    out = []
+    for lane, payloads in zip(lane_list, payloads_by_lane):
+        with lane.queue():
+            out.append(read_payloads(payloads))
+    return out
 
 
 class _Stream:
@@ -55,34 +120,47 @@ class _Stream:
     def headers(self) -> bytes:
         return parameter_sets(self.sps, self.pps)
 
-    def _idr_nal(self, words: np.ndarray, nbits: int, idr_pic_id: int) -> bytes:
+    def _idr_nal(self, parts, idr_pic_id: int) -> bytes:
+        """The IDR NAL of a slice whose payload is `parts`, [(words,
+        nbits)] spliced in order at bit granularity (one part per MB-row
+        band, or one for the whole frame)."""
         shd = SliceHeader(slice_type=I_SLICE, frame_num=0, idr_pic_id=idr_pic_id,
                           pic_order_cnt_lsb=0, slice_qp_delta=-14,
                           disable_deblocking_filter_idc=0 if self.deblock else 1)
         w = BitWriter()
         shd.write(w, self.sps, self.pps, nal_mod.NAL_IDR, 1)
-        w.append_bits(words_to_bytes(words, nbits), nbits)
+        for words, nbits in parts:
+            w.append_bits(words_to_bytes(words, nbits), nbits)
         w.rbsp_trailing_bits()
         return nal_mod.write_nal_unit(1, nal_mod.NAL_IDR, w.getvalue())
 
 
-class GopIntraEncoder(_Stream):
-    """All-intra sequence encoder on one device (CUDA by default).
+def _check_size(width: int, height: int) -> None:
+    if width % 16 or height % 16:
+        raise ValueError(f"frame {width}x{height} is not a whole number of MBs")
 
-    mode: "i16" (every MB Intra16x16) or "mixed" (the exact
-    I4x4-vs-I16 bit-cost choice per MB, device_mixed_frame). deblock: signal
-    the in-loop filter in the PPS and every slice header, as the JAX
-    GopIntraEncoder does; the payloads do not depend on it and no output
-    reads the filtered planes, so the filter itself does not run."""
+
+class GopIntraEncoder(_Stream):
+    """All-intra sequence encoder over a list of devices (one CUDA device by
+    default).
+
+    mode: "i16" (every MB Intra16x16) or "mixed" (the exact I4x4-vs-I16
+    bit-cost choice per MB, device_mixed_frame). deblock: signal the in-loop
+    filter in the PPS and every slice header, as the JAX GopIntraEncoder
+    does; the payloads do not depend on it and no output reads the filtered
+    planes, so the filter itself does not run. devices: a list of devices
+    (repeats allowed), each encoding a contiguous share of the frames; None
+    means [device]."""
 
     def __init__(self, width: int, height: int, qp: int, mode: str = "i16",
                  device=DEFAULT_DEVICE, deblock: bool = False,
                  devices=None) -> None:
-        if width % 16 or height % 16:
-            raise ValueError(f"frame {width}x{height} is not a whole number of MBs")
+        _check_size(width, height)
         if mode not in ("i16", "mixed"):
             raise ValueError(f"mode={mode!r}: 'i16' or 'mixed'")
-        self.device = _one_device(device, devices)
+        self.devices = resolve_devices([device] if devices is None else devices)
+        self.device = self.devices[0]
+        self.lanes = [Lane(d) for d in self.devices]
         self.deblock = bool(deblock)
         self._frame = device_mixed_frame if mode == "mixed" else device_i16_frame
         self.w, self.h, self.qp = width, height, qp
@@ -94,52 +172,66 @@ class GopIntraEncoder(_Stream):
                        deblocking_filter_control_present_flag=int(self.deblock))
 
     def _queue(self, frames):
-        """Queue every frame's device program; returns the payloads (on the
-        device, nothing read back)."""
-        outs = []
-        for f in frames:
-            y, cb, cr = (upload(p, self.device) for p in f)
-            out = self._frame(y, cb, cr, self.qp, self.qpc)
-            outs.append({"words": out["words"], "nbits": out["nbits"]})
-        return outs
+        """Queue every frame's device program, each lane its share, on its
+        own stream; returns each lane's payloads (on its device, nothing
+        read back)."""
+        split = shares(len(frames), len(self.lanes))
+        out = [[] for _ in self.lanes]
+        for i, f in interleave(split):
+            lane = self.lanes[i]
+            with lane.queue():
+                y, cb, cr = (upload(p, lane.device) for p in frames[f])
+                res = self._frame(y, cb, cr, self.qp, self.qpc)
+            out[i].append({"words": res["words"], "nbits": res["nbits"]})
+        return out
+
+    def _write(self, read, idr_base: int) -> bytes:
+        out = bytearray(self.headers())
+        for i, (words, nbits) in enumerate(read):
+            out += self._idr_nal([(words, nbits)], idr_base + i)
+        return bytes(out)
 
     def stitch(self, payloads, idr_base: int = 0) -> bytes:
         """The Annex-B stream of frames whose slice payloads are `payloads`
         (dicts holding the `words` and `nbits` of a slice entropy stage, on
-        any device). idr_base: idr_pic_id of the first frame."""
-        out = bytearray(self.headers())
-        for i, (words, nbits) in enumerate(read_payloads(payloads)):
-            out += self._idr_nal(words, nbits, idr_base + i)
-        return bytes(out)
+        one device, queued on the current stream). idr_base: idr_pic_id of
+        the first frame."""
+        return self._write(read_payloads(payloads), idr_base)
 
     def encode_sequence(self, frames, idr_base: int = 0) -> bytes:
         """frames: list of (y, cb, cr) uint8 numpy planes. Returns the full
-        Annex-B stream. idr_base: idr_pic_id of frames[0]."""
-        return self.stitch(self._queue(frames), idr_base)
+        Annex-B stream. idr_base: idr_pic_id of frames[0] (a span of a
+        longer sequence, parallel/dist.py)."""
+        read = read_lanes(self.lanes, self._queue(frames))
+        return self._write([p for lane in read for p in lane], idr_base)
 
 
 class GopIpppEncoder(_Stream):
-    """IPPP sequence encoder on one device (CUDA by default).
+    """IPPP sequence encoder over a list of devices (one CUDA device by
+    default).
 
     The sequence splits into IDR-delimited GOPs of gop_len frames (or, with
     scene_cut_source, also at every source-frame SAD cut); each GOP is one
-    device_gop_ippp program: the IDR, then the chain of P frames. The stream
-    is that of the serial Encoder(intra_every=gop_len, window_size,
-    maxdiff, lossy_prefilter) with deblock=False. window_size: the full
-    search width (a search of +-window_size // 2 full pel); maxdiff: the
-    tolerated error, -1 for the adaptive per-MB MAXDIFF; lossy_prefilter:
-    the MAXDIFF source prefilter, which runs below QP 36 only.
+    device_gop_ippp program: the IDR, then the chain of P frames. GOPs are
+    independent, so with several devices (repeats allowed) each encodes a
+    contiguous share of them. The stream is that of the serial
+    Encoder(intra_every=gop_len, window_size, maxdiff, lossy_prefilter) with
+    deblock=False. window_size: the full search width (a search of
+    +-window_size // 2 full pel); maxdiff: the tolerated error, -1 for the
+    adaptive per-MB MAXDIFF; lossy_prefilter: the MAXDIFF source prefilter,
+    which runs below QP 36 only.
     """
 
     def __init__(self, width: int, height: int, qp: int, gop_len: int,
                  window_size: int = 16, maxdiff: int = -1,
                  lossy_prefilter: bool = True, device=DEFAULT_DEVICE,
                  devices=None, scene_cut_source: bool = False) -> None:
-        if width % 16 or height % 16:
-            raise ValueError(f"frame {width}x{height} is not a whole number of MBs")
+        _check_size(width, height)
         if gop_len < 2:
             raise ValueError("gop_len < 2: use GopIntraEncoder for all-intra")
-        self.device = _one_device(device, devices)
+        self.devices = resolve_devices([device] if devices is None else devices)
+        self.device = self.devices[0]
+        self.lanes = [Lane(d) for d in self.devices]
         self.scene_cut_source = bool(scene_cut_source)
         self.w, self.h, self.qp, self.T = width, height, qp, gop_len
         self.wmb, self.hmb = width // 16, height // 16
@@ -199,31 +291,30 @@ class GopIpppEncoder(_Stream):
         return lens
 
     def _queue(self, frames, lens):
-        """Queue every GOP's device program; returns the payloads of all
-        frames in order (on the device, nothing read back)."""
-        payloads = []
-        start = 0
-        for n in lens:
-            ys, cbs, crs = ([upload(f[k], self.device) for f in frames[start: start + n]]
-                            for k in range(3))
-            payloads += device_gop_ippp(ys, cbs, crs, self.hdr_bits[: n - 1],
-                                        self.window, self.qp, self.qpc,
-                                        self.maxdiff, self.prefilter)["frames"]
-            start += n
-        return payloads
+        """Queue every GOP's device program, each lane a contiguous share of
+        the GOPs on its own stream; returns each lane's payloads of all its
+        frames in order (on its device, nothing read back)."""
+        starts = np.cumsum([0] + lens[:-1])
+        out = [[] for _ in self.lanes]
+        for i, g in interleave(shares(len(lens), len(self.lanes))):
+            lane, s, n = self.lanes[i], int(starts[g]), lens[g]
+            with lane.queue():
+                ys, cbs, crs = ([upload(f[k], lane.device) for f in frames[s: s + n]]
+                                for k in range(3))
+                out[i] += device_gop_ippp(ys, cbs, crs, self.hdr_bits[: n - 1],
+                                          self.window, self.qp, self.qpc,
+                                          self.maxdiff, self.prefilter)["frames"]
+        return out
 
-    def stitch(self, payloads, lens) -> bytes:
-        """The Annex-B stream of GOPs of `lens` frames whose slice payloads,
-        in frame order, are `payloads` (dicts holding `words` and `nbits`,
-        on any device)."""
-        read = iter(read_payloads(payloads))
+    def _write(self, read, lens) -> bytes:
+        read = iter(read)
         out = bytearray(self.headers())
         idr_id = 0
         for g, n in enumerate(lens):
             # idr_pic_id (encoder._encode_slice): 0 on the first IDR and
             # after P frames, +1 after an IDR (a GOP of one frame)
             idr_id = idr_id + 1 if g > 0 and lens[g - 1] == 1 else 0
-            out += self._idr_nal(*next(read), idr_id)
+            out += self._idr_nal([next(read)], idr_id)
             for j in range(1, n):
                 hdr, bits = self._p_hdrs[j - 1]
                 words, nbits = next(read)
@@ -234,8 +325,56 @@ class GopIpppEncoder(_Stream):
                 out += nal_mod.write_nal_unit(1, nal_mod.NAL_NOT_IDR, w.getvalue())
         return bytes(out)
 
+    def stitch(self, payloads, lens) -> bytes:
+        """The Annex-B stream of GOPs of `lens` frames whose slice payloads,
+        in frame order, are `payloads` (dicts holding `words` and `nbits`,
+        on one device, queued on the current stream)."""
+        return self._write(read_payloads(payloads), lens)
+
     def encode_sequence(self, frames) -> bytes:
         """frames: list of (y, cb, cr) uint8 numpy planes. Returns the full
         Annex-B stream."""
         lens = self._gop_lengths(frames)
-        return self.stitch(self._queue(frames, lens), lens)
+        read = read_lanes(self.lanes, self._queue(frames, lens))
+        return self._write([p for lane in read for p in lane], lens)
+
+
+def scaling_frames(width: int, height: int, n_frames: int):
+    """The frames measure_scaling encodes (the reference's content: stripes
+    plus noise from seed 3)."""
+    rng = np.random.default_rng(3)
+    frames = []
+    yy, xx = np.mgrid[0:height, 0:width]
+    for i in range(n_frames):
+        y = (((xx // 6 + yy // 4 + 5 * i) % 220)
+             + rng.integers(0, 10, (height, width))).astype(np.uint8)
+        cb = rng.integers(90, 150, (height // 2, width // 2)).astype(np.uint8)
+        cr = rng.integers(90, 150, (height // 2, width // 2)).astype(np.uint8)
+        frames.append((y, cb, cr))
+    return frames
+
+
+def measure_scaling(width: int, height: int, qp: int, n_frames: int = 8,
+                    device_counts=(1, 2, 4, 8), mode: str = "i16",
+                    reps: int = 2, devices=None) -> dict:
+    """Frames/s of GopIntraEncoder's end-to-end encode (host clock around
+    encode_sequence, which returns the stream) at several device counts:
+    {n: best of `reps` runs after a warm-up}. devices: the device list
+    (None: every visible card); count n uses its first n entries, and a
+    count beyond the list is skipped. Entries that repeat one card measure
+    how far lanes overlap on it; only distinct cards add device work."""
+    frames = scaling_frames(width, height, n_frames)
+    avail = resolve_devices(devices)
+    fps = {}
+    for n in device_counts:
+        if n > len(avail):
+            continue
+        enc = GopIntraEncoder(width, height, qp, mode=mode, devices=avail[:n])
+        enc.encode_sequence(frames)  # warm-up
+        best = 0.0
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            enc.encode_sequence(frames)
+            best = max(best, n_frames / (time.perf_counter() - t0))
+        fps[n] = best
+    return fps

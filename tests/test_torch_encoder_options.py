@@ -84,7 +84,10 @@ def test_cli_encode_ranges_and_all_intra(clip, clip_path, tmp_path):
     assert cli.main(["encode", clip_path, str(out), "--intra-every", "1",
                      "--gop-devices", "1", "--end-frame", "2", "--device", "cpu"]) == 0
     assert out.read_bytes() == GopIntraEncoder(W, H, 28, device="cpu").encode_sequence(clip[:2])
-    for extra in (["--gop-devices", "2"], ["--tile-devices", "1"], ["--tpu-me"]):
+    # --gop-devices N and all-intra --tile-devices N run (their bytes:
+    # tests/test_torch_tile.py); bands with P frames are not ported yet
+    for extra in (["--tile-devices", "1"], ["--tile-devices", "3", "--intra-every", "8"],
+                  ["--tpu-me"]):
         with pytest.raises(NotImplementedError):
             cli.main(["encode", clip_path, str(out), "--device", "cpu", *extra])
     if not torch.cuda.is_available():

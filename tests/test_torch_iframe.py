@@ -102,8 +102,11 @@ def test_gop_encoder_idr_base_and_limits(clip):
     assert [SliceHeader.parse(BitReader(u.rbsp), enc.sps, enc.pps, u.nal_unit_type,
                               u.nal_ref_idc).disable_deblocking_filter_idc
             for u in units] == [0, 0]
-    with pytest.raises(NotImplementedError):
-        GopIntraEncoder(W, H, 28, device="cpu", devices=["cpu", "cpu"])
+    # a device list may repeat an entry, but not mix CPU and CUDA, and not be
+    # empty (its streams: tests/test_torch_tile.py)
+    for devices in (["cpu", "cuda"], []):
+        with pytest.raises(ValueError):
+            GopIntraEncoder(W, H, 28, device="cpu", devices=devices)
     with pytest.raises(ValueError):
         GopIntraEncoder(W, H, 28, mode="i4x4", device="cpu")
 

@@ -107,8 +107,9 @@ def test_plain_chain_equals_encoder_stream(clip):
 
 
 def test_encoder_limits():
-    with pytest.raises(NotImplementedError):
-        GopIpppEncoder(W, H, 28, gop_len=GOP, devices=["cpu", "cpu"])
+    for devices in (["cpu", "cuda"], []):  # streams: tests/test_torch_tile.py
+        with pytest.raises(ValueError):
+            GopIpppEncoder(W, H, 28, gop_len=GOP, devices=devices)
     with pytest.raises(ValueError):
         GopIpppEncoder(W, H, 28, gop_len=1, device="cpu")
     enc = GopIpppEncoder(W, H, 28, gop_len=GOP, device="cpu")

@@ -13,6 +13,7 @@ from h264_fer_tpu_torch import entry
 from h264_fer_tpu_torch.codec.decoder import Decoder
 from h264_fer_tpu_torch.codec.encoder import Encoder, EncoderConfig
 from h264_fer_tpu_torch.parallel.gop_device import GopIntraEncoder, GopIpppEncoder
+from h264_fer_tpu_torch.parallel.tile import GopTileIntraEncoder, TileIntraEncoder
 
 torch.set_num_threads(1)
 
@@ -98,6 +99,33 @@ def test_decoder_and_cli_decode_leave_jax_out_of_sys_modules(tmp_path, fixtures_
     assert out.stdout.strip().splitlines()[-1] == "clean"
 
 
+def test_multi_device_encoders_leave_jax_out_of_sys_modules():
+    """The band encoders (both modes), the GOP-parallel encoders over a
+    device list, the multi-process spans and the dry run run on the CPU
+    without importing JAX or the JAX package."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from h264_fer_tpu_torch.parallel import dist, dryrun\n"
+        "from h264_fer_tpu_torch.parallel.gop_device import GopIpppEncoder, scaling_frames\n"
+        "from h264_fer_tpu_torch.parallel.tile import GopTileIntraEncoder, TileIntraEncoder\n"
+        "frames = scaling_frames(32, 48, 2)\n"
+        "a = TileIntraEncoder(32, 48, 28, devices=['cpu'] * 2).encode_sequence(frames)\n"
+        "b = GopTileIntraEncoder(32, 48, 28, 2, 2, devices=['cpu'] * 4,"
+        " mode='mixed').encode_sequence(frames)\n"
+        "c = GopIpppEncoder(32, 48, 28, gop_len=2, devices=['cpu'] * 2).encode_sequence(frames)\n"
+        "assert a and b and c and dist.encode_multihost(frames, 32, 48, 28, devices=['cpu'])\n"
+        "dryrun.dryrun_multichip(['cpu'] * 2, log=lambda line: None)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'h264_fer_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "clean"
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax(path):
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -123,6 +151,12 @@ def test_default_device_raises_without_cuda():
         GopIntraEncoder(176, 144, 28, mode="mixed")
     with pytest.raises(RuntimeError, match="CUDA"):
         GopIpppEncoder(176, 144, 28, gop_len=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GopIntraEncoder(176, 144, 28, devices=["cuda:0", "cuda:0"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TileIntraEncoder(176, 144, 28)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GopTileIntraEncoder(176, 144, 28, 2, 2, mode="mixed")
     with pytest.raises(RuntimeError, match="CUDA"):
         Encoder(176, 144, EncoderConfig(deblock=True))
     with pytest.raises(RuntimeError, match="CUDA"):
