@@ -129,7 +129,28 @@ Phases (any failure exits non-zero and prints no result line; each
      (torch.distributed, gloo) encode QCIF GOPs of 2 on the card through
      parallel/dist.py, and process 0's stream must equal the one-process
      stream;
-  12. the decode gate: decode each 1080p stream of phases 3, 5, 7, 9 and 10
+  12. the P-frame bands: hold K4-band (the P decision wavefront over one
+     band of MB rows, one launch) against its plain twin, bit-exact, on
+     band 1 of 4 of the 1080p IPPP content pair (phase 4's chained pair) at
+     QP 28, 40 and 46 with a real halo (the frame K4's last MB row of band
+     0), and on QCIF in 3 bands with random previous MVs beyond the search
+     limit (also with its grid forced to 1 and to 3 blocks); K4-band, K2,
+     K3 and K5 on the band's inputs (banded planes equal to the frame
+     planes' rows) must also equal the frame kernels' rows of the band;
+     time K4-band at QP 28, holding every timed call to the plain output,
+     and print the device ms of each stage of that band's P frame. Then
+     drive TileIpppEncoder(1920, 1088, 28, gop_len=8) in 4 bands of 17 MB
+     rows and in 2 of 34, and GopTileIpppEncoder (2, 2), on entries of the
+     card, each with the launch counts set to 0 just before (one K4-band,
+     K2, K3 and K5 launch per band per P frame, one K1t-band per band per
+     IDR, no frame K4 or K1t): each stream must equal phase 5's one-device
+     stream and the bands' reference planes decode from it (decode_gate,
+     spec mode, untimed); prints each one's median e2e fps of 3 after a
+     warm-up. The QCIF band streams on the card (6 frames of the clip, GOP
+     4, 3 bands, QP 28 and 40) must have the SHA-256 TILE_P_DIGESTS gives
+     them (the JAX GopIpppEncoder's streams, recomputed by
+     tests/test_torch_ippp.py);
+  13. the decode gate: decode each 1080p stream of phases 3, 5, 7, 9 and 10
      with the port's Decoder on the card (native form) and hold every
      frame, exactly, to the reconstruction the run has for it: the plain
      chain's recon (all-intra), the kernel path's reference planes as the
@@ -141,7 +162,7 @@ Phases (any failure exits non-zero and prints no result line; each
      stream's frames, median decode fps of 5 runs after a warm-up and K8
      launches per frame; the QCIF session streams decode equal on the
      card and on the CPU (plain K8);
-  13. print the kernels line (K8's row also with its launches on the host
+  14. print the kernels line (K8's row also with its launches on the host
      path and on the session stream's decode) and, last,
      {"ok": true, "device": {...}}.
      Each kernel's time is taken two ways (kernel_ms): `ms` with its
@@ -207,6 +228,15 @@ TILE_QCIF = {"i16_3": ("i16", 3), "mixed_2": ("mixed", 2)}
 TILE_DIGESTS = {
     "i16_3": "f31105fa34311b542483a57adcf9ed75e7c84bf23467d571cea9047b62b8e931",
     "mixed_2": "1e3983a1ec842e6a794152db46bb58186c33e0ce43cba13776f5d2f9da7f0a8d",
+}
+# the P-band encoder's QCIF streams: 6 frames of the clip through
+# TileIpppEncoder(qp, gop_len=4) in 3 bands (two GOPs, the last short), each
+# held to the SHA-256 of the JAX GopIpppEncoder's stream of the same frames,
+# which tests/test_torch_ippp.py recomputes
+N_TILE_P_QCIF = 6
+TILE_P_DIGESTS = {
+    "qp28": "849523586fe581a5c096d44528bb2b800de772219668d3e77e68be20578e46f5",
+    "qp40": "eb5b872a43e6acbf4f1b6fb11f130acea1d54084238298810aa5f0c192466bc0",
 }
 P_QPS = (28, 40, 46)  # SAD, SSD and 2*SSD tiers
 # bytes of each 1080p path's stream on chip_smoke's content (unchanged
@@ -686,35 +716,47 @@ DECIDE_KEYS = ("skip", "mb_type", "mv", "mvd")
 
 
 def p_kernels(plain: bool) -> dict:
-    """K2-K5 as the stage callables of p_frame_stages: the wrappers, which
-    launch the kernels on the card, or with `plain` their plain twins."""
+    """K2-K5 and K4-band as the stage callables of p_frame_stages: the
+    wrappers, which launch the kernels on the card, or with `plain` their
+    plain twins."""
     from h264_fer_tpu_torch.kernels.mc import mc_bulk, mc_bulk_plain
     from h264_fer_tpu_torch.kernels.me_int import integer_score_map, integer_score_map_plain
     from h264_fer_tpu_torch.kernels.me_qpel import qpel_refine_map_plain, qpel_refine_maps
-    from h264_fer_tpu_torch.kernels.wavefront_p import pframe_decide, pframe_decide_plain
+    from h264_fer_tpu_torch.kernels.wavefront_p import (pframe_decide, pframe_decide_band,
+                                                        pframe_decide_plain)
 
     if not plain:
         return {"me_int": integer_score_map, "me_qpel": qpel_refine_maps,
-                "wavefront_p": pframe_decide, "mc": mc_bulk}
+                "wavefront_p": pframe_decide, "wavefront_p_band": pframe_decide_band,
+                "mc": mc_bulk}
     return {"me_int": integer_score_map_plain,
             "me_qpel": lambda y, planes, c1, c2, ext, metric: (
                 qpel_refine_map_plain(y, planes, c1, ext, metric),
                 qpel_refine_map_plain(y, planes, c2, ext, metric)),
-            "wavefront_p": pframe_decide_plain, "mc": mc_bulk_plain}
+            "wavefront_p": pframe_decide_plain, "wavefront_p_band": pframe_decide_plain,
+            "mc": mc_bulk_plain}
 
 
-def p_frame_stages(torch, kern, frame, ref, qp, mc_mv=None, window=WINDOW):
+def p_frame_stages(torch, kern, frame, ref, qp, mc_mv=None, window=WINDOW, band=False,
+                   top=None):
     """One P frame through device_p_frame's stages (search window +-window,
     adaptive MAXDIFF, the prefilter below QP 36), with K2-K5 the callables
     `kern` of p_kernels. frame: (y, cb, cr) uint8 planes on one device;
     ref: (ref_y, ref_cb, ref_cr, prev_mv); mc_mv: MVs for K5 in place of
-    the decision's. Returns (fns, args, outs): each stage's callable, its
-    arguments and its output, by stage name."""
+    the decision's. With `band`, one MB-row band's P step as
+    parallel/tile_p.py runs it: frame the band's rows, ref's planes its
+    reference rows between ext + 4 luma and ext_c + 1 chroma rows of the
+    bands above and below (tile_p._window), prev_mv its MBs' rows, and
+    K4-band ("wavefront_p_band") in place of K4 with `top` its halo.
+    Returns (fns, args, outs): each stage's callable, its arguments and its
+    output, by stage name."""
     from h264_fer_tpu_torch.codec.entropy import p_slice_entropy
     from h264_fer_tpu_torch.codec.pframe import (adaptive_maxdiff, blocks_to_mbq,
                                                  me_centres, me_params,
                                                  pframe_residual_recon)
-    from h264_fer_tpu_torch.ops.interp import interpolated_planes, pad_chroma
+    from h264_fer_tpu_torch.ops.interp import (interpolated_planes,
+                                               interpolated_planes_banded, pad_chroma,
+                                               pad_chroma_banded)
     from h264_fer_tpu_torch.ops.transform import chroma_qp
 
     y, cb, cr = frame
@@ -725,9 +767,10 @@ def p_frame_stages(torch, kern, frame, ref, qp, mc_mv=None, window=WINDOW):
     ext_c = ext // 2 + 1
     metric_id, lam = me_params(qp)
     mbq = lambda x: blocks_to_mbq(x, wmb, hmb)  # noqa: E731
-    fns = {"interp": interpolated_planes, **kern,
+    fns = {"interp": interpolated_planes_banded if band else interpolated_planes, **kern,
            "residual_recon": pframe_residual_recon,
            "entropy": lambda *a: p_slice_entropy(*a, wmb=wmb, hmb=hmb)}
+    pad = pad_chroma_banded if band else pad_chroma
     args, outs = {}, {}
 
     def run(name, *a):
@@ -740,9 +783,10 @@ def p_frame_stages(torch, kern, frame, ref, qp, mc_mv=None, window=WINDOW):
     c1, c2_blk, c2, q2ok = me_centres(im, prev_mv, wmb, hmb, window)
     q1, q2 = run("me_qpel", y, planes, c1, c2_blk, ext, metric_id)
     maxdiff = adaptive_maxdiff(y, wmb, hmb, -1)
-    dec = run("wavefront_p", y, planes, mbq(im), mbq(c1), mbq(q1), c2, mbq(q2),
-              q2ok, maxdiff, wmb, hmb, window, ext, metric_id, lam)
-    pred = run("mc", planes, pad_chroma(ref_cb, ext_c), pad_chroma(ref_cr, ext_c),
+    k4 = ("wavefront_p_band",) if band else ("wavefront_p",)
+    dec = run(*k4, y, planes, mbq(im), mbq(c1), mbq(q1), c2, mbq(q2),
+              q2ok, maxdiff, wmb, hmb, window, ext, metric_id, lam, *((top,) if band else ()))
+    pred = run("mc", planes, pad(ref_cb, ext_c), pad(ref_cr, ext_c),
                dec["mv"] if mc_mv is None else mc_mv, ext, ext_c, wmb, hmb)
     levels = run("residual_recon", y, cb, cr, *pred, dec["skip"], maxdiff, wmb,
                  hmb, qp, chroma_qp(qp), qp < 36)[0]
@@ -822,19 +866,22 @@ def mc_reads(torch, planes, c_pad, mv, ext, ext_c, wmb, hmb) -> int:
             + 2 * distinct(torch, c_pad.numel(), taps))
 
 
-def p_work(torch, args, outs) -> dict:
+def p_work(torch, args, outs, k4: str = "wavefront_p") -> dict:
     """{kernel: (bytes, int32 operations)} that each of K2-K5's functions
     needs on these inputs: each input sample it reads counted once, each
     output once. Operations per sample difference 3 (subtract, abs or
     multiply, add); K3's in packed bytes, 2 per 4 samples (a per-byte
-    absolute difference, a 4-way dot product that sums it or its square)."""
+    absolute difference, a 4-way dot product that sums it or its square).
+    k4: K4's stage name ("wavefront_p_band": K4-band, its halo read once
+    too)."""
     y, plane0, _, window, _ = args["me_int"]
     h, w = y.shape
     nb, nmb = (h // 8) * (w // 8), (h // 16) * (w // 16)
     S2 = (2 * window + 1) ** 2
     _, _, c1, c2_blk, _, _ = args["me_qpel"]
-    d = args["wavefront_p"]
-    dec = outs["wavefront_p"]
+    d = args[k4]
+    dec = outs[k4]
+    top = d[15] if len(d) > 15 and d[15] is not None else ()  # K4-band's halo
     planes, cb_pad, cr_pad, mv, ext, ext_c, wmb, hmb = args["mc"]
     # K4 reads the skip test's 16x16 window at every MB and the unify
     # trial's four at every MB whose final type shows it ran (coded, type
@@ -847,9 +894,8 @@ def p_work(torch, args, outs) -> dict:
                     2 * nb * 49 * 16 * 2),
         # skip test 256 x (sub, abs, compare); 4 x 387 candidate costs of 8
         # (2 sub, 2 abs, add, mul, add, compare); a unify trial 4 x 256 x 3
-        "wavefront_p": (nbytes(d[0], *d[2:9], *kernel_outputs(dec))
-                        + 256 * (nmb + 4 * trials),
-                        nmb * (256 * 3 + 4 * (S2 + 98) * 8) + trials * 4 * 256 * 3),
+        k4: (nbytes(d[0], *d[2:9], *kernel_outputs(dec), *top) + 256 * (nmb + 4 * trials),
+             nmb * (256 * 3 + 4 * (S2 + 98) * 8) + trials * 4 * 256 * 3),
         # luma: phase index and two shifted coordinates, ~8 per sample;
         # chroma: the 4-tap bilinear and its weights, ~20 per sample
         "mc": (nbytes(mv, *outs["mc"])
@@ -1717,6 +1763,230 @@ def multi_device_phase(torch, dev, name, to_decode):
     return totals
 
 
+P_BAND_TILES = 4  # K4-band's checks: band 1 of 4 bands of 17 MB rows at 1080p
+P_BAND_KERNELS = ("me_int", "me_qpel", "wavefront_p_band", "mc")
+
+
+def band_rows(name: str, out, r0: int, hl: int, wmb: int) -> list:
+    """The rows of MB rows [r0, r0 + hl) of a frame's K2-K5 output, as a
+    list of tensors: K2's and K3's per 8x8 block, K4's per MB (DECIDE_KEYS
+    order), K5's per sample."""
+    if name in ("me_int", "me_qpel"):
+        blk = slice(4 * wmb * r0, 4 * wmb * (r0 + hl))
+        return [x[blk] for x in kernel_outputs(out)]
+    if name == "mc":
+        return [p[n * r0: n * (r0 + hl)] for p, n in zip(out, (16, 8, 8))]
+    return [x[wmb * r0: wmb * (r0 + hl)] for x in kernel_outputs(out)]
+
+
+def band_reference(ref, t: int, n_tile: int, window: int = WINDOW):
+    """Band t of n_tile's (ref_y, ref_cb, ref_cr, prev_mv) as
+    parallel/tile_p.py builds it from a frame's reference ref: each plane's
+    band rows between real rows of the bands above and below (their edge
+    rows repeated at the frame's edges), prev_mv's rows of the band."""
+    from h264_fer_tpu_torch.parallel.tile_p import _window
+
+    ext = window + 2
+    wmb, hl = ref[0].shape[1] // 16, ref[0].shape[0] // 16 // n_tile
+    wins = []
+    for p, n, vh in zip(ref[:3], (16, 8, 8), (ext + 4, ext // 2 + 2, ext // 2 + 2)):
+        bands = [p[n * hl * b: n * hl * (b + 1)] for b in range(n_tile)]
+        wins.append(_window(bands[t], bands[t - 1] if t else None,
+                            bands[t + 1] if t + 1 < n_tile else None, vh, p.device))
+    return (*wins, ref[3][wmb * hl * t: wmb * hl * (t + 1)])
+
+
+def check_p_band(torch, label, ref, src, prev_mv, qp, n_tile, t, time_it=False,
+                 blocks=()):
+    """K4-band kernel vs plain twin on band t of n_tile of one frame pair
+    (card planes ref / src, prev_mv the previous frame's MVs), with a real
+    halo: the frame K4's final MVs and types of the MB row above, as the
+    frame kernel leaves them. K4-band, K2, K3 and K5 on the band's inputs
+    (its banded planes, which must be the frame planes' rows) must also
+    equal the frame kernels' rows of the band; K4-band also with its grid
+    forced to `blocks`. Returns (K4-band's (max_abs_err, ms, plain_ms,
+    bound_ms, bound_by, queued_ms), times None unless time_it, every timed
+    call held to the plain output; with time_it the band's stages with the
+    kernels (fns, args) of p_frame_stages, else None)."""
+    from h264_fer_tpu_torch.kernels.wavefront_p import MB_SKIP, pframe_decide_band
+
+    h, w = src[0].shape
+    wmb, hl = w // 16, h // 16 // n_tile
+    r0 = t * hl
+    kern = p_kernels(plain=False)
+    _, _, frame = p_frame_stages(torch, kern, src, (*ref, prev_mv), qp)
+    top = None
+    if t:
+        row = slice(wmb * (r0 - 1), wmb * r0)
+        full = frame["wavefront_p"]
+        top = (full["mv"][row],
+               torch.where(full["skip"][row], MB_SKIP, full["mb_type"][row]).to(torch.int32))
+    band_src = tuple(p[n * r0: n * (r0 + hl)] for p, n in zip(src, (16, 8, 8)))
+    band_ref = band_reference((*ref, prev_mv), t, n_tile)
+    plain, args, outs = p_frame_stages(torch, p_kernels(plain=True), band_src, band_ref, qp,
+                                       band=True, top=top)
+    ext = WINDOW + 2
+    errs = {"interp": max_err(torch, [outs["interp"]],
+                              [frame["interp"][:, 16 * r0: 16 * (r0 + hl) + 2 * ext]])}
+    for name in P_BAND_KERNELS:
+        got = kernel_outputs(kern[name](*args[name]))
+        torch.cuda.synchronize()
+        rows = band_rows(name, frame["wavefront_p" if name == "wavefront_p_band" else name],
+                         r0, hl, wmb)
+        errs[name] = max(max_err(torch, got, kernel_outputs(outs[name])),
+                         max_err(torch, got, rows))
+    want = kernel_outputs(outs["wavefront_p_band"])
+    a = args["wavefront_p_band"]
+    for b in blocks:
+        err_b = max_err(torch, kernel_outputs(pframe_decide_band(*a, blocks=b)), want)
+        print(f"wavefront_p_band {label} band {t} of {n_tile} qp{qp} grid of {b} blocks: "
+              f"max_abs_err {err_b}", flush=True)
+        errs["wavefront_p_band"] = max(errs["wavefront_p_band"], err_b)
+    ms = plain_ms = queued_ms = stages = None
+    if time_it:
+        def check(o):
+            if max_err(torch, kernel_outputs(o), want):
+                raise AssertionError(f"K4-band != plain in a timed call at {label} qp{qp}")
+        ms, queued_ms = kernel_ms(torch, lambda: pframe_decide_band(*a), 20, check)
+        plain_ms = timed_once(torch, lambda: plain["wavefront_p_band"](*a))[1]
+        stages = p_frame_stages(torch, kern, band_src, band_ref, qp, band=True, top=top)[:2]
+    bound_ms, bound_by = bound(*p_work(torch, args, outs, "wavefront_p_band")["wavefront_p_band"])
+    print(f"P band {label} band {t} of {n_tile} ({hl} MB rows, real halo) qp{qp}: max_abs_err "
+          + ", ".join(f"{k} {v}" for k, v in errs.items())
+          + " (tolerance 0, vs plain and vs the frame's rows)"
+          + (f"; K4-band {ms:.4f} ms (queued {queued_ms:.4f}), plain {plain_ms:.1f} ms"
+             if time_it else "")
+          + f", K4-band bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    if any(errs.values()):
+        raise AssertionError(f"P band {label} band {t} qp{qp}: {errs}")
+    return (errs["wavefront_p_band"], ms, plain_ms, bound_ms, bound_by, queued_ms), stages
+
+
+def p_band_configs(dev):
+    """The P-band phase's 1080p configurations on entries of `dev`: (label,
+    entries, bands, encoder maker)."""
+    from h264_fer_tpu_torch.parallel.tile_p import GopTileIpppEncoder, TileIpppEncoder
+
+    return [
+        ("IPPP 4 bands", 4, 4,
+         lambda: TileIpppEncoder(W, H, QP, gop_len=GOP_LEN, devices=[dev] * 4)),
+        ("IPPP 2 bands", 2, 2,
+         lambda: TileIpppEncoder(W, H, QP, gop_len=GOP_LEN, devices=[dev] * 2)),
+        ("(gop 2, tile 2) IPPP", 4, 2,
+         lambda: GopTileIpppEncoder(W, H, QP, GOP_LEN, 2, 2, devices=[dev] * 4)),
+    ]
+
+
+def tile_p_qcif_streams(dev) -> dict:
+    """{name: stream} of the P-band QCIF streams: N_TILE_P_QCIF frames of the
+    clip through TileIpppEncoder(qp, gop_len=4) in 3 bands on `dev`."""
+    from h264_fer_tpu_torch.parallel.tile_p import TileIpppEncoder
+    from h264_fer_tpu_torch.vio.y4m import Y4MReader
+
+    clip = list(Y4MReader(str(repo_file(HOST_CLIP))))[:N_TILE_P_QCIF]
+    return {key: TileIpppEncoder(176, 144, qp, gop_len=4, devices=[dev] * 3).encode_sequence(clip)
+            for key, qp in (("qp28", 28), ("qp40", 40))}
+
+
+def p_band_phase(torch, dev, name, to_decode):
+    """The P-frame bands: K4-band (and K2, K3, K5 on band inputs) held
+    against plain and the frame kernels' rows at 1080p (QP 28, 40, 46) and
+    on QCIF in 3 bands; then TileIpppEncoder in 4 and 2 bands and
+    GopTileIpppEncoder (2, 2) at 1080p on entries of the card, each with
+    the launch counts set to 0 just before (one K4-band, K2, K3 and K5 per
+    band per P frame, one K1t-band per band per IDR, no frame K4 or K1t):
+    each stream must equal the one-device IPPP stream of phase 5 and the
+    bands' reference planes must decode from it (decode_gate, spec mode,
+    untimed). Prints the median e2e fps of 3 after a warm-up, the device
+    ms of each stage of one band's P frame and the profiled busy share of 4
+    frames in 4 bands; checks the QCIF band streams
+    against TILE_P_DIGESTS. Returns ({qp: K4-band's check tuple}, K4-band
+    launches)."""
+    from h264_fer_tpu_torch.kernels.mc import mc_bulk
+    from h264_fer_tpu_torch.kernels.me_int import integer_score_map
+    from h264_fer_tpu_torch.kernels.me_qpel import qpel_refine_maps
+    from h264_fer_tpu_torch.kernels.wavefront_i16 import i16_band, i16_frame
+    from h264_fer_tpu_torch.kernels.wavefront_p import pframe_decide, pframe_decide_band
+
+    # 1080p: frame 2 from frame 1 with frame 1's MVs (phase 4's chained pair)
+    pair = [tuple(torch.from_numpy(p).to(dev) for p in f) for f in content(3, W, H)]
+    nmb = (W // 16) * (H // 16)
+    zero = torch.zeros((nmb, 4, 2), dtype=torch.int32, device=dev)
+    k4b, stages = {}, None
+    for qp in P_QPS:
+        mv1 = p_frame_stages(torch, p_kernels(plain=False), pair[1], (*pair[0], zero),
+                             qp)[2]["wavefront_p"]["mv"]
+        k4b[qp], band_stages = check_p_band(torch, f"{W}x{H}", pair[1], pair[2], mv1, qp,
+                                            P_BAND_TILES, 1, time_it=qp == QP)
+        if qp == QP:
+            stages = band_stages
+    # QCIF in 3 bands: random previous MVs beyond the search limit
+    rng = np.random.default_rng(SEED + 1)
+    lim = 4 * (WINDOW + 2) - 4
+    qcif = [tuple(torch.from_numpy(p).to(dev) for p in f) for f in content(2, 176, 144)]
+    for qp in P_QPS:
+        prev = torch.from_numpy(rng.integers(-lim - 4, lim + 5, (99, 4, 2))
+                                .astype(np.int32)).to(dev)
+        for t in range(3):
+            err = check_p_band(torch, "176x144 random MVs", *qcif, prev, qp, 3, t,
+                               blocks=(1, 3) if qp == QP else ())[0][0]
+            k4b[qp] = (max(k4b[qp][0], err), *k4b[qp][1:])
+    fns, args = stages  # the entropy here without its band contexts (a few more ops)
+    times = {k: cuda_ms(torch, lambda k=k: fns[k](*args[k]), 5) for k in args}
+    print(f"P band stages (device ms, band 1 of {P_BAND_TILES}, one P frame): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+          + f", sum {sum(times.values()):.3f} on {name}", flush=True)
+
+    counted = {"pframe_decide_band": pframe_decide_band, "integer_score_map": integer_score_map,
+               "qpel_refine_maps": qpel_refine_maps, "mc_bulk": mc_bulk, "i16_band": i16_band,
+               "pframe_decide": pframe_decide, "i16_frame": i16_frame}
+    frames = content(N_IPPP, W, H)
+    n_gops = N_IPPP // GOP_LEN
+    n_p = N_IPPP - n_gops
+    launches = 0
+    for label, n, n_tile, make in p_band_configs(dev):
+        make().encode_sequence(frames[:2])  # warm-up: allocator, library loads
+        torch.cuda.synchronize()
+        enc = make()
+        for fn in counted.values():
+            fn.launches = 0
+        stream = enc.encode_sequence(frames, keep_recon=True)
+        got = {k: fn.launches for k, fn in counted.items()}
+        want = {k: n_p * n_tile for k in ("pframe_decide_band", "integer_score_map",
+                                          "qpel_refine_maps", "mc_bulk")}
+        want.update(i16_band=n_gops * n_tile, pframe_decide=0, i16_frame=0)
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, expected {want}")
+        launches += got["pframe_decide_band"]
+        if stream != to_decode["IPPP"][0]:
+            raise AssertionError(f"{label}: stream != the one-device IPPP stream")
+        recon = [tuple(torch.from_numpy(p) for p in f) for f in enc.recon]
+        decode_gate(torch, dev, f"{label} reference planes", stream, recon,
+                    {"spec_mode": True}, name, timed=False)
+        fps = e2e_fps(torch, enc, frames)
+        print(f"P bands {label} on {n} entries of {dev}: {N_IPPP} frames {W}x{H} QP{QP} GOP "
+              f"{GOP_LEN}, stream == one-device IPPP stream, reference planes == decode, "
+              f"launches {got}; e2e fps median {fps[1]:.2f} "
+              f"(runs {', '.join(f'{v:.2f}' for v in fps)}) on {name}", flush=True)
+    make = p_band_configs(dev)[0][3]  # 4 bands
+    wall, busy, top = device_busy(torch, lambda: make().encode_sequence(frames[:4]))
+    if busy > 0:
+        print(f"profiled 4-frame IPPP encode (IDR + 3 P) in 4 bands: wall {wall:.1f} ms, "
+              f"kernels {busy:.1f} ms, device busy {100 * busy / wall:.1f} % on {name}")
+        for key, ms_k, count in top:
+            print(f"  {ms_k:8.3f} ms  {count:6d} x  {key[:90]}")
+    else:
+        print("device busy share: not measured (the profiler saw no device time)")
+    t0 = time.perf_counter()
+    qcif_streams = tile_p_qcif_streams(dev)
+    for key, s in qcif_streams.items():
+        if hashlib.sha256(s).hexdigest() != TILE_P_DIGESTS[key]:
+            raise AssertionError(f"QCIF P-band stream {key} != its JAX digest")
+    print(f"QCIF P-band streams {sorted(qcif_streams)} == their JAX digests "
+          f"({time.perf_counter() - t0:.1f} s) on {name}", flush=True)
+    return k4b, launches
+
+
 def repo_file(rel: str) -> pathlib.Path:
     return pathlib.Path(__file__).resolve().parent / rel
 
@@ -1883,7 +2153,7 @@ def main() -> int:
         raise AssertionError("kernel-path stream != plain-chain stream")
     parse_stream(stream, N_FRAMES, W, H, QP)
     check_bytes("all-intra", stream)
-    # the decode gate (phase 12): the plain chain's recon of every frame
+    # the decode gate (phase 13): the plain chain's recon of every frame
     to_decode = {"all-intra": (stream, plain_recon, {})}
     qcif = content(3, 176, 144)
     s_gpu = GopIntraEncoder(176, 144, QP, device=dev).encode_sequence(qcif)
@@ -2227,7 +2497,13 @@ def main() -> int:
     print(f"multi-device phase: {time.perf_counter() - t0:.1f} s on {name}", flush=True)
 
     print(f"[phase 11 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
-    # ---- 12. decode gate ----------------------------------------------------
+    # ---- 12. P-frame bands -----------------------------------------------
+    t0 = time.perf_counter()
+    k4b, k4b_launches = p_band_phase(torch, dev, name, to_decode)
+    print(f"P-band phase: {time.perf_counter() - t0:.1f} s on {name}", flush=True)
+
+    print(f"[phase 12 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
+    # ---- 13. decode gate ----------------------------------------------------
     from h264_fer_tpu_torch.codec.decoder import Decoder
 
     decoded = {path: decode_gate(torch, dev, path, *to_decode[path], name)
@@ -2243,8 +2519,8 @@ def main() -> int:
           f"{len(decoded)} 1080p streams == their reconstruction; QCIF session "
           f"decodes card == CPU on {name}", flush=True)
 
-    print(f"[phase 12 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
-    # ---- 13. result -------------------------------------------------------
+    print(f"[phase 13 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
+    # ---- 14. result -------------------------------------------------------
     csrc = "h264_fer_tpu_torch/kernels/csrc/"
     rows = [("wavefront_i16", "h264_fer_tpu/kernels/wavefront_pallas.py:890",
              k1_launches, max(k1[q][0] for q in CHECK_QPS), k1[QP][1:]),
@@ -2276,10 +2552,12 @@ def main() -> int:
             ("wavefront_mixed_band", "h264_fer_tpu/kernels/wavefront_mixed.py:54")):
         rows.append((kname, replaces, band_launches[kname],
                      max(bk[q][kname][0] for q in CHECK_QPS), bk[QP][kname][1:]))
+    rows.append(("wavefront_p_band", "h264_fer_tpu/kernels/wavefront_p.py:177", k4b_launches,
+                 max(k4b[q][0] for q in P_QPS), k4b[QP][1:]))
     sources = {"wavefront_chroma": "wavefront_i16", "wavefront_i16_levels": "wavefront_i16",
                "wavefront_i16_levels_band": "wavefront_i16",
                "wavefront_chroma_band": "wavefront_i16",
-               "wavefront_mixed_band": "wavefront_mixed"}
+               "wavefront_mixed_band": "wavefront_mixed", "wavefront_p_band": "wavefront_p"}
     kernels = []
     for kname, replaces, n, err, timing in rows:
         if timing is None:  # a P kernel: its QP 28 run, errors over all tiers

@@ -16,8 +16,10 @@ the device's intra mode decision. --device cpu runs all of it on the CPU
 encoders instead (parallel/gop_device.py) over N devices: all-intra when
 --intra-every is 1 (mixed with --tpu-iframe mixed), else fixed GOPs of
 --intra-every frames (--deblock is ignored there, as in the JAX CLI).
---tile-devices N runs parallel/tile.TileIntraEncoder (all-I16), each frame
-in N MB-row bands. The N devices are the first N cards (fewer where fewer
+--tile-devices N runs parallel/tile.TileIntraEncoder (all-I16) when
+--intra-every is 1, else parallel/tile_p.TileIpppEncoder (GOPs of
+--intra-every frames, with --window-size, --maxdiff and --no-prefilter),
+each frame in N MB-row bands. The N devices are the first N cards (fewer where fewer
 exist), or N entries of "cpu" with --device cpu. Per-frame statistics
 (bytes, ms, MB-type histogram) print with --stats.
 
@@ -66,15 +68,17 @@ def _cmd_encode(args) -> int:
     if args.gop_devices or args.tile_devices:
         from .parallel.gop_device import GopIntraEncoder, GopIpppEncoder
         from .parallel.tile import TileIntraEncoder
+        from .parallel.tile_p import TileIpppEncoder
 
-        if args.tile_devices and args.intra_every > 1:
-            raise NotImplementedError(
-                "--tile-devices with P frames (parallel/tile_p.py) is not ported "
-                "yet: ROADMAP.md lists it as the next slice")
         devices = _devices(args.device, args.tile_devices or args.gop_devices)
         frames = list(_read_frames(args, rd))
         t0 = time.time()
-        if args.tile_devices:
+        if args.tile_devices and args.intra_every > 1:
+            enc = TileIpppEncoder(
+                rd.width, rd.height, args.qp, gop_len=args.intra_every,
+                window_size=args.window_size, maxdiff=args.maxdiff,
+                lossy_prefilter=not args.no_prefilter, devices=devices)
+        elif args.tile_devices:
             enc = TileIntraEncoder(rd.width, rd.height, args.qp, devices=devices)
         elif args.intra_every == 1:
             enc = GopIntraEncoder(rd.width, rd.height, args.qp,
@@ -203,8 +207,8 @@ def main(argv=None) -> int:
                    help="the sequence encoders on N devices (all-intra or "
                         "fixed-GOP IPPP; scene cut off)")
     e.add_argument("--tile-devices", type=int, default=0, metavar="N",
-                   help="all-intra, each frame in MB-row bands over N devices "
-                        "(with P frames: not ported yet)")
+                   help="each frame in MB-row bands over N devices (all-intra, "
+                        "or fixed-GOP IPPP; scene cut off)")
     e.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     e.add_argument("--stats", action="store_true")
     e.set_defaults(fn=_cmd_encode)

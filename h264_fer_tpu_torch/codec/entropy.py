@@ -9,11 +9,12 @@ top MBs, known in bulk. So no wavefront is needed: the symbols of all MBs
 are computed at once (ops/cavlc_bulk.py) and packed into the slice payload
 on the device.
 
-For an MB-row band of a frame (parallel/tile.py), chroma_setup,
-i16_slice_entropy and mixed_slice_entropy take `top_ctx`, the final
+For an MB-row band of a frame (parallel/tile.py, parallel/tile_p.py),
+chroma_setup and the three slice entropies take `top_ctx`, the final
 TotalCoeff and CBP state of the MB row above the band, which its first row
-reads in its nC contexts (None: the band's top is the frame's), and
-`valid`, which gates the padded MBs of an uneven band to zero bits.
+reads in its nC contexts (None: the band's top is the frame's); the intra
+ones `valid`, which gates the padded MBs of an uneven band to zero bits,
+and p_slice_entropy `run_lead`, the mb_skip_run chain across bands.
 """
 
 from __future__ import annotations
@@ -292,7 +293,7 @@ _NUM_PARTS = np.array([1, 2, 2, 4, 4], np.int32)  # per P mb_type 0..4
 
 
 def p_slice_entropy(skip, mb_type, mvd, luma_levels, cdc, cac,
-                    wmb: int, hmb: int):
+                    wmb: int, hmb: int, top_ctx=None, run_lead=None):
     """Whole-slice macroblock_layer bits of a P frame (the inter syntax of
     rbsp_encoding.cpp:179-299).
 
@@ -307,7 +308,17 @@ def p_slice_entropy(skip, mb_type, mvd, luma_levels, cdc, cac,
 
     Returns dict: words, nbits (as i16_slice_entropy), trail_bits (0-d
     int32, the length of that trailing run symbol, 0 when the slice ends on
-    a coded MB), cbp_luma, cbp_chroma, tc_luma, tc_chroma, nz_luma."""
+    a coded MB), cbp_luma, cbp_chroma, tc_luma, tc_chroma, nz_luma.
+
+    For an MB-row band (p_slice_entropy_impl's band contract,
+    tpu_entropy.py:321-330): top_ctx as i16_slice_entropy's; run_lead, None
+    for a whole slice, else the skipped MBs between the previous coded MB
+    of the bands above and the band (an int or a 0-d tensor, the
+    reference's lead_extra), added to the run of the band's first coded MB.
+    A band writes no trailing run (trail_bits 0): the slice's one trailing
+    mb_skip_run is its last symbol, which the caller writes after the last
+    band (where the reference's band holding the last coded MB writes it,
+    emit_trailing, no other symbol follows)."""
     nmb = wmb * hmb
     dev = skip.device
     coded = ~skip
@@ -319,19 +330,22 @@ def p_slice_entropy(skip, mb_type, mvd, luma_levels, cdc, cac,
     prev = torch.cat([torch.full((1,), -1, dtype=I32, device=dev), inc[:-1]])
     run = idx - prev - 1
     trail_run = nmb - 1 - inc[-1]
+    if run_lead is not None:
+        first_coded = torch.where(coded, idx, nmb).amin()
+        run = (run + torch.where(idx == first_coded, run_lead, 0)).to(I32)
 
     # CBP from the levels (setCodedBlockPattern)
     quad_any = luma_levels.reshape(nmb, 4, 64).ne(0).any(dim=-1)  # Z-scan quads
     cbp_l = (quad_any.to(I32) << torch.arange(4, dtype=I32, device=dev)).sum(
         dim=-1, dtype=I32)
-    ch = chroma_setup(cdc, cac, wmb, hmb)
+    ch = chroma_setup(cdc, cac, wmb, hmb, None if top_ctx is None else top_ctx[2:])
     cbp_c = ch["cbp_chroma"]
 
     # luma residual: 16 blocks of maxNumCoeff 16, coded where their quad is
     lv_blk = block_symbols_bulk(luma_levels, 16)
     quad_gate = quad_any.repeat_interleave(4, dim=1)  # (nmb, 16)
     tc_luma = torch.where(quad_gate, lv_blk["tc"], 0).to(I32)
-    nc_l = _nc_luma_grid(tc_luma, cbp_l, wmb, hmb)
+    nc_l = _nc_luma_grid(tc_luma, cbp_l, wmb, hmb, None if top_ctx is None else top_ctx[:2])
     lv_vals, lv_lens = finalize_symbols(lv_blk, nc_to_ctx(nc_l))
     lv_lens = torch.where(quad_gate[..., None], lv_lens, 0)
     c_vals, c_lens = _chroma_symbols(ch, nmb)
@@ -361,6 +375,8 @@ def p_slice_entropy(skip, mb_type, mvd, luma_levels, cdc, cac,
     # the trailing skip run, written when the slice ends on skips
     t_v, t_l = ue_code(trail_run)
     t_l = torch.where(trail_run > 0, t_l, 0).to(I32)
+    if run_lead is not None:  # a band: no trailing run
+        t_l = torch.zeros_like(t_l)
     words, nbits = pack_symbols(
         torch.cat([vals.reshape(-1), t_v.reshape(1).to(I32)]),
         torch.cat([lens.reshape(-1).to(I32), t_l.reshape(1)]))

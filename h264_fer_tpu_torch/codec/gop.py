@@ -17,19 +17,26 @@ from .iframe import device_i16_frame
 from .pframe import device_p_frame
 
 
-def trailing_skip_drop(skip, nbits, trail_bits, hdr_bits: int):
+def trailing_skip_drop(skip, nbits, trail_bits, hdr_bits: int, last_coded=None,
+                       base: int = 0):
     """(nmb,) bool: the MBs of a P frame's trailing skip run that decoders
     never read (encoder._encode_slice). When everything after the last
     coded MB fits in the last byte of the RBSP, a decoder stops before the
     trailing mb_skip_run, and those MBs keep the previous frame's samples
-    and MVs. hdr_bits: the bit count of the frame's slice header."""
+    and MVs. hdr_bits: the bit count of the frame's slice header.
+
+    For an MB-row band of the frame (the reference's band program,
+    tile_p.py:192-205): skip the band's MBs, nbits and trail_bits the
+    frame's totals over every band, last_coded the frame's last coded MB
+    (-1: none; None: found in `skip`, the whole frame's) and base the index
+    of the band's first MB in the frame."""
     nmb = skip.shape[0]
-    idx = torch.arange(nmb, device=skip.device)
-    coded = ~skip
-    last_coded = torch.where(coded, idx, -1).amax()
+    idx = torch.arange(nmb, device=skip.device) + base
+    if last_coded is None:
+        last_coded = torch.where(~skip, idx, -1).amax()
     total = hdr_bits + nbits
     rbsp_bytes = (total + 8) >> 3  # with the rbsp stop bit
-    drop = ((trail_bits > 0) & coded.any()
+    drop = ((trail_bits > 0) & (last_coded >= 0)
             & (((total - trail_bits) >> 3) >= rbsp_bytes - 1))
     return (idx > last_coded) & drop
 

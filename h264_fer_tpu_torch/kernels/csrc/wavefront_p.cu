@@ -43,6 +43,17 @@
 // known. Lane 0 writes the state later MBs read, the warp publishes it,
 // and lane 0 then writes the mvd, type and skip flag, which no later MB
 // reads.
+//
+// K4-band (wavefront_p_band) is the same kernel over the MB rows of one
+// band of a frame (the band= form of the XLA twin, pframe_decide_impl
+// :177-423), taking the band's own knight order: 152 steps for a band of
+// 17 MB rows at 1080p against the frame's 254. Its row 0 reads the top,
+// top-right and top-left neighbours' final MVs and types from a row of
+// state before the launch (top_mv, top_t: the band above's last MB row,
+// has_top), where the reference sends them from the band above on every
+// wave. It is the instance decide_kernel<M, true>, so that the frame's
+// instance keeps its code: reading has_top there made ptxas spill the
+// intra wavefront K1 (PERF.md).
 
 #include <climits>
 #include <cstdint>
@@ -71,6 +82,9 @@ struct Frame {
   int32_t* mvd;           // (nmb, 4, 2) out
   int32_t* state_t;       // (nmb,) type state neighbours read: kSkip or type
                           // (mv and state_t are written in the launch: no __ldg)
+  const int32_t* top_mv;  // band: (wmb, 4, 2) final MVs of the MB row above
+  const int32_t* top_t;   // band: (wmb,) its types (kSkip or type)
+  bool has_top;           // band: row 0 has that row above it
   int W, he, we, wmb, window, ext, lam;
 };
 
@@ -222,7 +236,9 @@ __device__ __forceinline__ void warp_argmin(int* best, int* bk) {
   }
 }
 
-template <int M>
+// kBand: the band entry point's instance, which reads f.top_mv / f.top_t
+// at row 0 when f.has_top; the frame's never reads them.
+template <int M, bool kBand>
 __global__ void __launch_bounds__(kThreads)
 decide_kernel(Frame f, Dataflow df) {
   // per quadrant q, candidate k in [integer shifts | c1 + offsets | c2 +
@@ -295,6 +311,12 @@ decide_kernel(Frame f, Dataflow df) {
           s.mv[q][0] = f.mv[(n * 4 + q) * 2];
           s.mv[q][1] = f.mv[(n * 4 + q) * 2 + 1];
         }
+      } else if (kBand && f.has_top && rn < 0 && cn >= 0 && cn < f.wmb) {
+        s.t = f.top_t[cn];  // the band above's last row, written before the launch
+        for (int q = 0; q < 4; ++q) {
+          s.mv[q][0] = f.top_mv[(cn * 4 + q) * 2];
+          s.mv[q][1] = f.top_mv[(cn * 4 + q) * 2 + 1];
+        }
       }
     }
     __syncwarp();
@@ -309,7 +331,9 @@ decide_kernel(Frame f, Dataflow df) {
     int px, py;
     predict(own, nbs, 0, 0, &px, &py);
     int sx = 0, sy = 0;
-    if (r > 0 && c > 0 && !(nbs[1].mv[2][0] == 0 && nbs[1].mv[2][1] == 0) &&
+    // a band's row 0 is no frame edge when it has a row above (the halo's)
+    if ((r > 0 || (kBand && f.has_top)) && c > 0 &&
+        !(nbs[1].mv[2][0] == 0 && nbs[1].mv[2][1] == 0) &&
         !(nbs[0].mv[1][0] == 0 && nbs[0].mv[1][1] == 0)) {
       sx = px;
       sy = py;
@@ -457,6 +481,33 @@ decide_kernel(Frame f, Dataflow df) {
   }
 }
 
+// One launch of decide_kernel<M, kBand> over frame f (the K4 and K4-band
+// entry points' common body).
+template <bool kBand>
+int launch_decide(const Frame& f, const int32_t* order, int32_t* sched, int nmb,
+                  int metric, int blocks, cudaStream_t stream, int* launched) {
+  *launched = 0;
+  const Dataflow df{order, sched, nmb};
+  const int S = 2 * f.window + 1;
+  // 4 x 387 distortions and MVs: 12.4 KB at window 8
+  const size_t smem = 8 * (S * S + 98) * sizeof(int);
+  void (*kernel)(Frame, Dataflow) =
+      metric == 0 ? &decide_kernel<0, kBand>
+                  : (metric == 1 ? &decide_kernel<1, kBand> : &decide_kernel<2, kBand>);
+  if (smem > 48 * 1024) {  // above window 17: opt in to more shared memory
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int grid = dataflow_grid(kernel, kThreads, smem, nmb, blocks);
+  if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<grid, kThreads, smem, stream>>>(f, df);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  *launched = 1;
+  return 0;
+}
+
 }  // namespace
 
 // Decides a whole P frame in one launch on `stream`: a persistent grid of
@@ -473,27 +524,32 @@ extern "C" int wavefront_p_frame(
     int32_t* state_t, const int32_t* order, int32_t* sched, int W, int hmb,
     int window, int ext, int metric, int lam, int blocks, cudaStream_t stream,
     int* launched) {
-  *launched = 0;
-  const int wmb = W / 16, nmb = wmb * hmb;
+  const int wmb = W / 16;
   const Frame f{src, planes, int_map, c1mv, q1map, c2mv, q2map, q2ok, maxdiff,
-                skip, mb_type, mv, mvd, state_t, W, 16 * hmb + 2 * ext,
-                W + 2 * ext, wmb, window, ext, lam};
-  const Dataflow df{order, sched, nmb};
-  const int S = 2 * window + 1;
-  // 4 x 387 distortions and MVs: 12.4 KB at window 8
-  const size_t smem = 8 * (S * S + 98) * sizeof(int);
-  void (*kernel)(Frame, Dataflow) =
-      metric == 0 ? &decide_kernel<0> : (metric == 1 ? &decide_kernel<1> : &decide_kernel<2>);
-  if (smem > 48 * 1024) {  // above window 17: opt in to more shared memory
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int grid = dataflow_grid(kernel, kThreads, smem, nmb, blocks);
-  if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
-  kernel<<<grid, kThreads, smem, stream>>>(f, df);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  *launched = 1;
-  return 0;
+                skip, mb_type, mv, mvd, state_t, nullptr, nullptr, false, W,
+                16 * hmb + 2 * ext, W + 2 * ext, wmb, window, ext, lam};
+  return launch_decide<false>(f, order, sched, wmb * hmb, metric, blocks, stream,
+                              launched);
+}
+
+// K4-band: wavefront_p_frame over one band of hmb MB rows (its planes,
+// maps and outputs; order its own knight order), and has_top: when 1, row
+// 0 reads its top, top-right and top-left neighbours' final MVs and types
+// from top_mv (wmb, 4, 2) and top_t (wmb,), the band above's last MB row,
+// which no launch writes while this one runs.
+extern "C" int wavefront_p_band(
+    const uint8_t* src, const uint8_t* planes, const int32_t* int_map,
+    const int32_t* c1mv, const int32_t* q1map, const int32_t* c2mv,
+    const int32_t* q2map, const uint8_t* q2ok, const int32_t* maxdiff,
+    uint8_t* skip, int32_t* mb_type, int32_t* mv, int32_t* mvd,
+    int32_t* state_t, const int32_t* top_mv, const int32_t* top_t,
+    const int32_t* order, int32_t* sched, int W, int hmb, int has_top,
+    int window, int ext, int metric, int lam, int blocks, cudaStream_t stream,
+    int* launched) {
+  const int wmb = W / 16;
+  const Frame f{src, planes, int_map, c1mv, q1map, c2mv, q2map, q2ok, maxdiff,
+                skip, mb_type, mv, mvd, state_t, top_mv, top_t, has_top != 0, W,
+                16 * hmb + 2 * ext, W + 2 * ext, wmb, window, ext, lam};
+  return launch_decide<true>(f, order, sched, wmb * hmb, metric, blocks, stream,
+                             launched);
 }

@@ -14,6 +14,13 @@ PyTorch: a Python loop over the diagonals with vector ops over the MBs of
 each. The only loop-carried dependency of a P slice is the MV-prediction
 chain (mode_pred.cpp:252-426); on d = c + 2r the left, top, top-right and
 top-left neighbours all lie on earlier diagonals.
+
+`pframe_decide_band` is K4-band, the same function over one MB-row band of
+a frame (parallel/tile_p.py), the counterpart of pframe_decide_impl with
+`band=` (wavefront_p.py:177-423): the band's rows in their own knight
+order, row 0 reading its top neighbours' final state from `top`, the band
+above's last MB row, where the reference sends that row's state from the
+band above on every wave. Its plain twin is pframe_decide_plain(top=top).
 """
 
 from __future__ import annotations
@@ -65,7 +72,11 @@ def _pred_part_width(mb_type: int) -> int:
 
 class _Ctx:
     """One diagonal's MBs (rs, cs, valid) and the state grids: mvq
-    (hmb + 1, wmb, 4, 2) and mbt (hmb + 1, wmb), row hmb a scratch row."""
+    (hmb + 2, wmb, 4, 2) and mbt (hmb + 2, wmb), row hmb a scratch row and
+    row hmb + 1 (row -1) the MB row above the first, which exists when
+    top_row is -1 (set on a band with a halo) and not when it is 0."""
+
+    top_row = 0
 
     def __init__(self, mvq, mbt, rs, cs, valid, wmb: int, hmb: int):
         self.mvq, self.mbt = mvq, mbt
@@ -84,7 +95,7 @@ class _Ctx:
         dr, dc, xw, yw = loc
         rn = self.rs + dr
         cn = self.cs + dc
-        exists = self.valid & (cn >= 0) & (cn < self.wmb) & (rn >= 0)
+        exists = self.valid & (cn >= 0) & (cn < self.wmb) & (rn >= self.top_row)
         cn = cn.clamp(0, self.wmb - 1)
         rn = torch.where(exists, rn, self.hmb)  # scratch row
         t = self.mbt[rn, cn]
@@ -154,7 +165,7 @@ def mb_window_gather(planes, mv, mb_x, mb_y, ext: int):
 
 def pframe_decide_plain(src_y, planes, int_map, c1mv, q1map, c2mv, q2map,
                         q2ok, maxdiff, wmb: int, hmb: int, window: int,
-                        ext: int, metric_id: int, lam: int):
+                        ext: int, metric_id: int, lam: int, top=None):
     """The P decision wavefront in plain PyTorch.
 
     src_y (H, W) and planes (16, he, we), any integer dtype; int_map
@@ -162,6 +173,10 @@ def pframe_decide_plain(src_y, planes, int_map, c1mv, q1map, c2mv, q2map,
     q2ok (nmb, 4) bool; maxdiff (nmb,). Returns dict: skip (nmb,) bool,
     mb_type (nmb,) int32 (the merged type, also at skip MBs), mv (nmb, 4, 2)
     final quadrant-major MVs, mvd (nmb, 4, 2) per-partition mvds.
+
+    For an MB-row band: top, None (the band's top is the frame's) or (mv
+    (wmb, 4, 2), t (wmb,)) int32, the final MVs and types (MB_SKIP or the
+    merged type) of the MB row above the band, which its first row reads.
     """
     dev = src_y.device
     S = 2 * window + 1
@@ -176,8 +191,13 @@ def pframe_decide_plain(src_y, planes, int_map, c1mv, q1map, c2mv, q2map,
     offx, offy = o.repeat(7), o.repeat_interleave(7)
 
     slot = torch.arange(hmb, device=dev)
-    mvq = torch.zeros((hmb + 1, wmb, 4, 2), dtype=I32, device=dev)
-    mbt = torch.zeros((hmb + 1, wmb), dtype=I32, device=dev)
+    # row hmb: the scratch row; row hmb + 1, indexed as -1: the row above
+    mvq = torch.zeros((hmb + 2, wmb, 4, 2), dtype=I32, device=dev)
+    mbt = torch.zeros((hmb + 2, wmb), dtype=I32, device=dev)
+    top_row = 0
+    if top is not None:
+        mvq[-1], mbt[-1] = top[0].to(I32), top[1].to(I32)
+        top_row = -1
     skipg = torch.zeros((hmb + 1, wmb), dtype=torch.bool, device=dev)
     mvdg = torch.zeros((hmb + 1, wmb, 4, 2), dtype=I32, device=dev)
     typg = torch.zeros((hmb + 1, wmb), dtype=I32, device=dev)
@@ -193,11 +213,14 @@ def pframe_decide_plain(src_y, planes, int_map, c1mv, q1map, c2mv, q2map,
         src_mb = src_grid[rc, cc]
 
         def ctx():
-            return _Ctx(mvq, mbt, rs, cs, valid, wmb, hmb)
+            c = _Ctx(mvq, mbt, rs, cs, valid, wmb, hmb)
+            c.top_row = top_row
+            return c
 
         # ---- P_Skip trial (mode_pred.cpp:381-426) ------------------------
-        edge = (rs == 0) | (cs == 0)
-        top_r = torch.where(rs > 0, rs - 1, hmb)
+        # a band's row 0 is no edge when it has a row above (then row -1)
+        edge = (rs == top_row) | (cs == 0)
+        top_r = torch.where(rs > top_row, rs - 1, hmb)
         left_c = (cs - 1).clamp(0, wmb - 1)
         zt = (mvq[top_r, cc, 2] == 0).all(dim=-1)
         zl = (mvq[rc, left_c, 1] == 0).all(dim=-1)
@@ -304,24 +327,68 @@ def pframe_decide(src_y, planes, int_map, c1mv, q1map, c2mv, q2map, q2ok,
     grid = dataflow.check_blocks(blocks)
     if src_y.device.type == "cpu":
         return pframe_decide_plain(*args, wmb, hmb, window, ext, metric_id, lam)
+    return _launch(pframe_decide, "wavefront_p_frame", args, (), wmb, hmb, window, ext,
+                   metric_id, lam, grid)
+
+
+# kernel launches so far, as counted by the C entry point (one per accepted
+# launch, one per frame)
+pframe_decide.launches = 0
+
+
+def pframe_decide_band(src_y, planes, int_map, c1mv, q1map, c2mv, q2map, q2ok,
+                       maxdiff, wmb: int, hmb: int, window: int, ext: int,
+                       metric_id: int, lam: int, top=None, *, blocks=None):
+    """K4-band: pframe_decide over one MB-row band of hmb MB rows (its
+    source rows, its planes, interpolated_planes_banded's, and its rows of
+    the maps). top: None for a band with no MB row above it, else (mv
+    (wmb, 4, 2), t (wmb,)) int32 on the band's device, the band above's
+    final MVs and types (MB_SKIP or the merged type) of its last MB row.
+    CUDA tensors go to the kernel (the C entry point wavefront_p_band, one
+    launch, counted on pframe_decide_band.launches), CPU tensors to
+    pframe_decide_plain(top=top). blocks: as pframe_decide's."""
+    args = (src_y, planes, int_map, c1mv, q1map, c2mv, q2map, q2ok, maxdiff)
+    grid = dataflow.check_blocks(blocks)
+    if top is not None:
+        if len(top) != 2:
+            raise ValueError(f"top: (mv, t), got {len(top)} tensors")
+        build.check_tensor("top mv", top[0], (wmb, 4, 2), I32, src_y.device)
+        build.check_tensor("top t", top[1], (wmb,), I32, src_y.device)
+    if src_y.device.type == "cpu":
+        return pframe_decide_plain(*args, wmb, hmb, window, ext, metric_id, lam, top)
+    if top is None:  # never read: has_top 0
+        top = (torch.empty((wmb, 4, 2), dtype=I32, device=src_y.device),
+               torch.empty(wmb, dtype=I32, device=src_y.device))
+        has_top = 0
+    else:
+        has_top = 1
+    return _launch(pframe_decide_band, "wavefront_p_band", args, top, wmb, hmb, window,
+                   ext, metric_id, lam, grid, has_top)
+
+
+pframe_decide_band.launches = 0
+
+
+def _launch(wrapper, symbol: str, args, top, wmb: int, hmb: int, window: int, ext: int,
+            metric_id: int, lam: int, grid: int, has_top=None):
+    """Check K4's CUDA arguments `args` and launch the C entry point
+    `symbol` (wavefront_p_frame, or wavefront_p_band with `top` and
+    has_top), counted on wrapper.launches. Returns the outputs' dict."""
+    src_y = args[0]
     if src_y.device.type != "cuda":
         raise ValueError(f"unsupported device {src_y.device}")
     dev = src_y.device
     nmb = wmb * hmb
     h, w = 16 * hmb, 16 * wmb
     S = 2 * window + 1
-    for name, t, shape, dtype in (
-            ("src_y", src_y, (h, w), torch.uint8),
-            ("planes", planes, (16, h + 2 * ext, w + 2 * ext), torch.uint8),
-            ("int_map", int_map, (nmb, 4, S * S), I32),
-            ("c1mv", c1mv, (nmb, 4, 2), I32),
-            ("q1map", q1map, (nmb, 4, 49), I32),
-            ("c2mv", c2mv, (nmb, 4, 2), I32),
-            ("q2map", q2map, (nmb, 4, 49), I32),
-            ("q2ok", q2ok, (nmb, 4), torch.bool),
-            ("maxdiff", maxdiff, (nmb,), I32)):
+    for name, t, shape, dtype in zip(
+            ("src_y", "planes", "int_map", "c1mv", "q1map", "c2mv", "q2map", "q2ok",
+             "maxdiff"), args,
+            ((h, w), (16, h + 2 * ext, w + 2 * ext), (nmb, 4, S * S), (nmb, 4, 2),
+             (nmb, 4, 49), (nmb, 4, 2), (nmb, 4, 49), (nmb, 4), (nmb,)),
+            (torch.uint8, torch.uint8, I32, I32, I32, I32, I32, torch.bool, I32)):
         build.check_tensor(name, t, shape, dtype, dev)
-    for name, t in (("src_y", src_y), ("c1mv", c1mv), ("c2mv", c2mv)):
+    for name, t in (("src_y", src_y), ("c1mv", args[3]), ("c2mv", args[5])):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: the kernel copies it in 16-byte chunks")
     skip = torch.empty(nmb, dtype=torch.bool, device=dev)
@@ -330,12 +397,8 @@ def pframe_decide(src_y, planes, int_map, c1mv, q1map, c2mv, q2map, q2ok,
     mvd = torch.empty((nmb, 4, 2), dtype=I32, device=dev)
     state_t = torch.empty(nmb, dtype=I32, device=dev)
     order, sched = dataflow.schedule(dataflow.knight_order(wmb, hmb), dev)
-    build.launch(pframe_decide, "wavefront_p", "wavefront_p_frame",
-                 (*args, skip, mb_type, mv, mvd, state_t, order, sched, w, hmb,
-                  window, ext, metric_id, lam, grid), dev)
+    band = () if has_top is None else (has_top,)
+    build.launch(wrapper, "wavefront_p", symbol,
+                 (*args, skip, mb_type, mv, mvd, state_t, *top, order, sched, w, hmb,
+                  *band, window, ext, metric_id, lam, grid), dev)
     return {"skip": skip, "mb_type": mb_type, "mv": mv, "mvd": mvd}
-
-
-# kernel launches so far, as counted by the C entry point (one per accepted
-# launch, one per frame)
-pframe_decide.launches = 0

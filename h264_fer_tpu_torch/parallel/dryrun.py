@@ -1,5 +1,5 @@
-"""End-to-end dry run of the multi-device encoders: the counterpart of parts
-1-3 of the reference's dryrun_multichip (__graft_entry__.py:30-125).
+"""End-to-end dry run of the multi-device encoders: the counterpart of the
+reference's dryrun_multichip (__graft_entry__.py:30-146).
 
     python -m h264_fer_tpu_torch.parallel.dryrun [N] [--device cpu | --cards]
 
@@ -10,10 +10,12 @@ band halos cross cards:
      band split and an odd frame count;
   2. mixed I frames, GopIntraEncoder over the list, and TileIntraEncoder
      over 2 entries with an uneven split;
-  3. GopIpppEncoder GOPs over 2 entries with an uneven GOP count.
+  3. GopIpppEncoder GOPs over 2 entries with an uneven GOP count;
+  4. banded IPPP, GopTileIpppEncoder over the (gop, tile) grid, where the
+     P frames' reference windows, MV chain, nC and skip-run halos cross
+     the band edges (run when the grid has more than one band).
 Every stream must equal the one-device stream of the same frames and decode
-through the port's Decoder to one picture per frame. (Part 4, banded IPPP,
-waits for the port of tile_p.py.)
+through the port's Decoder to one picture per frame.
 """
 
 from __future__ import annotations
@@ -45,13 +47,14 @@ def grid(n: int) -> tuple:
 
 
 def dryrun_multichip(devices, log=print) -> None:
-    """Run parts 1-3 over `devices` (a device list, repeats allowed);
+    """Run parts 1-4 over `devices` (a device list, repeats allowed);
     raises AssertionError on the first stream that differs from its
     one-device stream or does not decode."""
     from ..codec.decoder import Decoder
     from ..ops.device import resolve_devices
     from .gop_device import GopIntraEncoder, GopIpppEncoder
     from .tile import GopTileIntraEncoder, TileIntraEncoder
+    from .tile_p import GopTileIpppEncoder
 
     devices = resolve_devices(devices)
     one = devices[:1]
@@ -72,7 +75,7 @@ def dryrun_multichip(devices, log=print) -> None:
     stream = GopTileIntraEncoder(w, h, 30, n_gop, n_tile, devices).encode_sequence(frames)
     check(stream, GopIntraEncoder(w, h, 30, devices=one).encode_sequence(frames), frames,
           "(gop, tile)")
-    log(f"dryrun 1/3 OK: (gop={n_gop}, tile={n_tile}) uneven bands (hmb={h // 16}), "
+    log(f"dryrun 1/4 OK: (gop={n_gop}, tile={n_tile}) uneven bands (hmb={h // 16}), "
         f"{len(frames)} frames, {len(stream)} bytes")
 
     # 2. mixed I frames over the list, then in 2 uneven bands (hmb = 3)
@@ -86,7 +89,7 @@ def dryrun_multichip(devices, log=print) -> None:
     tiled = TileIntraEncoder(64, 48, 26, devices=two, mode="mixed").encode_sequence(mframes)
     check(tiled, GopIntraEncoder(64, 48, 26, mode="mixed", devices=one).encode_sequence(
         mframes), mframes, "mixed banded")
-    log(f"dryrun 2/3 OK: mixed I frames x{len(frames)} over {len(devices)} devices "
+    log(f"dryrun 2/4 OK: mixed I frames x{len(frames)} over {len(devices)} devices "
         f"+ mixed in 2 uneven bands, {len(mixed)} bytes")
 
     # 3. IPPP GOPs over 2 entries, the last GOP short
@@ -95,8 +98,21 @@ def dryrun_multichip(devices, log=print) -> None:
     ippp = GopIpppEncoder(w, h, 28, gop_len=gop_len, devices=two).encode_sequence(frames)
     check(ippp, GopIpppEncoder(w, h, 28, gop_len=gop_len, devices=one).encode_sequence(frames),
           frames, "IPPP")
-    log(f"dryrun 3/3 OK: IPPP GOPs (T={gop_len}) over 2 devices, {len(frames)} frames, "
+    log(f"dryrun 3/4 OK: IPPP GOPs (T={gop_len}) over 2 devices, {len(frames)} frames, "
         f"{len(ippp)} bytes")
+
+    # 4. banded IPPP over the (gop, tile) grid, two MB rows per band
+    if n_tile == 1:
+        log("dryrun 4/4 skipped: a grid of one band")
+        return
+    w, h = 64, 16 * 2 * n_tile
+    frames = content(w, h, gop_len * n_gop)
+    banded = GopTileIpppEncoder(w, h, 28, gop_len, n_gop, n_tile,
+                                devices=devices).encode_sequence(frames)
+    check(banded, GopIpppEncoder(w, h, 28, gop_len=gop_len, devices=one).encode_sequence(
+        frames), frames, "banded IPPP")
+    log(f"dryrun 4/4 OK: (gop={n_gop}, tile={n_tile}) banded IPPP, {len(frames)} frames, "
+        f"{len(banded)} bytes")
 
 
 def main(argv=None) -> int:

@@ -134,6 +134,17 @@ class _Stream:
         w.rbsp_trailing_bits()
         return nal_mod.write_nal_unit(1, nal_mod.NAL_IDR, w.getvalue())
 
+    def _p_nal(self, parts, j: int) -> bytes:
+        """The NAL of the P slice at place j of its GOP (self._p_hdrs[j - 1]
+        its header) whose payload is `parts`, as _idr_nal's."""
+        hdr, bits = self._p_hdrs[j - 1]
+        w = BitWriter()
+        w.append_bits(hdr, bits)
+        for words, nbits in parts:
+            w.append_bits(words_to_bytes(words, nbits), nbits)
+        w.rbsp_trailing_bits()
+        return nal_mod.write_nal_unit(1, nal_mod.NAL_NOT_IDR, w.getvalue())
+
 
 def _check_size(width: int, height: int) -> None:
     if width % 16 or height % 16:
@@ -307,6 +318,9 @@ class GopIpppEncoder(_Stream):
         return out
 
     def _write(self, read, lens) -> bytes:
+        """The stream of GOPs of `lens` frames; read: each frame's payload
+        parts [(words, nbits)] (one per frame, or one per MB-row band), in
+        frame order."""
         read = iter(read)
         out = bytearray(self.headers())
         idr_id = 0
@@ -314,29 +328,23 @@ class GopIpppEncoder(_Stream):
             # idr_pic_id (encoder._encode_slice): 0 on the first IDR and
             # after P frames, +1 after an IDR (a GOP of one frame)
             idr_id = idr_id + 1 if g > 0 and lens[g - 1] == 1 else 0
-            out += self._idr_nal([next(read)], idr_id)
+            out += self._idr_nal(next(read), idr_id)
             for j in range(1, n):
-                hdr, bits = self._p_hdrs[j - 1]
-                words, nbits = next(read)
-                w = BitWriter()
-                w.append_bits(hdr, bits)
-                w.append_bits(words_to_bytes(words, nbits), nbits)
-                w.rbsp_trailing_bits()
-                out += nal_mod.write_nal_unit(1, nal_mod.NAL_NOT_IDR, w.getvalue())
+                out += self._p_nal(next(read), j)
         return bytes(out)
 
     def stitch(self, payloads, lens) -> bytes:
         """The Annex-B stream of GOPs of `lens` frames whose slice payloads,
         in frame order, are `payloads` (dicts holding `words` and `nbits`,
         on one device, queued on the current stream)."""
-        return self._write(read_payloads(payloads), lens)
+        return self._write([[p] for p in read_payloads(payloads)], lens)
 
     def encode_sequence(self, frames) -> bytes:
         """frames: list of (y, cb, cr) uint8 numpy planes. Returns the full
         Annex-B stream."""
         lens = self._gop_lengths(frames)
         read = read_lanes(self.lanes, self._queue(frames, lens))
-        return self._write([p for lane in read for p in lane], lens)
+        return self._write([[p] for lane in read for p in lane], lens)
 
 
 def scaling_frames(width: int, height: int, n_frames: int):

@@ -2,8 +2,8 @@
 MB rows over a list of devices.
 
 The counterpart of h264_fer_tpu/parallel/tile.py: TileIntraEncoder and
-GopTileIntraEncoder, mode "i16" or "mixed". (Its P-frame form, tile_p.py,
-is not ported yet: ROADMAP.md.) Each entry of `devices` (repeats allowed,
+GopTileIntraEncoder, mode "i16" or "mixed" (the P-frame form:
+parallel/tile_p.py). Each entry of `devices` (repeats allowed,
 as in parallel/gop_device.py) is a lane that encodes one band of every
 frame: n_tile bands of hloc = ceil(hmb / n_tile) MB rows, the frame padded
 below with edge-replicated rows to n_tile * hloc; the padded MBs are coded,

@@ -17,6 +17,7 @@ from h264_fer_tpu.vio.y4m import Y4MReader
 from h264_fer_tpu_torch import cli
 from h264_fer_tpu_torch.codec.encoder import Encoder, EncoderConfig
 from h264_fer_tpu_torch.parallel.gop_device import GopIntraEncoder, GopIpppEncoder
+from h264_fer_tpu_torch.parallel.tile_p import TileIpppEncoder
 
 torch.set_num_threads(1)
 
@@ -84,12 +85,16 @@ def test_cli_encode_ranges_and_all_intra(clip, clip_path, tmp_path):
     assert cli.main(["encode", clip_path, str(out), "--intra-every", "1",
                      "--gop-devices", "1", "--end-frame", "2", "--device", "cpu"]) == 0
     assert out.read_bytes() == GopIntraEncoder(W, H, 28, device="cpu").encode_sequence(clip[:2])
-    # --gop-devices N and all-intra --tile-devices N run (their bytes:
-    # tests/test_torch_tile.py); bands with P frames are not ported yet
-    for extra in (["--tile-devices", "1"], ["--tile-devices", "3", "--intra-every", "8"],
-                  ["--tpu-me"]):
-        with pytest.raises(NotImplementedError):
-            cli.main(["encode", clip_path, str(out), "--device", "cpu", *extra])
+    # --tile-devices N with P frames writes TileIpppEncoder's bytes (GOPs of
+    # --intra-every frames, 100 by default: on 2 frames one GOP either way,
+    # the same bytes); --tpu-me is not ported
+    want = TileIpppEncoder(W, H, 28, gop_len=8, devices=["cpu"] * 3).encode_sequence(clip[:2])
+    for extra in (["--tile-devices", "1"], ["--tile-devices", "3", "--intra-every", "8"]):
+        assert cli.main(["encode", clip_path, str(out), "--device", "cpu", "--end-frame", "2",
+                         *extra]) == 0
+        assert out.read_bytes() == want, extra
+    with pytest.raises(NotImplementedError):
+        cli.main(["encode", clip_path, str(out), "--device", "cpu", "--tpu-me"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(["encode", clip_path, str(out)])

@@ -3,7 +3,12 @@ byte-identical to the JAX GopIpppEncoder on one device, on the QCIF clip at
 QP 28 (SAD tier, MAXDIFF prefilter on) and QP 40 (SSD tier, prefilter
 off), which the JAX decoder decodes to the port's final reconstruction of
 each GOP; and the same GOP split under scene_cut_source, with the
-idr_pic_id sequence a one-frame GOP gives."""
+idr_pic_id sequence a one-frame GOP gives. The P-frame band encoders
+(TileIpppEncoder in 3 bands of 3 MB rows, GopTileIpppEncoder over a
+(2, 3) grid) write the same JAX stream, two GOPs, the last one short, and
+chip_smoke.TILE_P_DIGESTS are its SHA-256."""
+
+import hashlib
 
 import numpy as np
 import pytest
@@ -19,6 +24,7 @@ from h264_fer_tpu_torch.bitstream.bitio import BitReader
 from h264_fer_tpu_torch.bitstream.params import SliceHeader
 from h264_fer_tpu_torch.codec.gop import device_gop_ippp
 from h264_fer_tpu_torch.parallel.gop_device import GopIpppEncoder
+from h264_fer_tpu_torch.parallel.tile_p import GopTileIpppEncoder, TileIpppEncoder
 
 torch.set_num_threads(1)
 
@@ -45,6 +51,27 @@ def streams(clip):
 def test_gop_ippp_stream_byte_identical_to_jax(streams, qp):
     ref, got = streams[qp]
     assert got == ref
+
+
+@pytest.mark.parametrize("qp", QPS)
+def test_tile_ippp_stream_byte_identical_to_jax(clip, streams, qp):
+    """Every frame in 3 MB-row bands: the reference windows, MV chain, nC
+    and skip-run contexts and the trailing-skip drop cross the band edges."""
+    enc = TileIpppEncoder(W, H, qp, gop_len=GOP, devices=["cpu"] * 3)
+    assert enc.encode_sequence(clip[:6]) == streams[qp][0]
+
+
+def test_gop_tile_ippp_stream_byte_identical_to_jax(clip, streams):
+    enc = GopTileIpppEncoder(W, H, 28, gop_len=GOP, n_gop=2, n_tile=3, devices=["cpu"] * 6)
+    assert enc.encode_sequence(clip[:6]) == streams[28][0]
+
+
+def test_tile_p_digests_are_the_jax_streams(streams):
+    """chip_smoke.py holds the card's QCIF band streams to these digests."""
+    import chip_smoke
+
+    assert chip_smoke.TILE_P_DIGESTS == {
+        f"qp{qp}": hashlib.sha256(streams[qp][0]).hexdigest() for qp in QPS}
 
 
 class _SpecDecoder(Decoder):

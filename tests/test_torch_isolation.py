@@ -100,21 +100,24 @@ def test_decoder_and_cli_decode_leave_jax_out_of_sys_modules(tmp_path, fixtures_
 
 
 def test_multi_device_encoders_leave_jax_out_of_sys_modules():
-    """The band encoders (both modes), the GOP-parallel encoders over a
-    device list, the multi-process spans and the dry run run on the CPU
-    without importing JAX or the JAX package."""
+    """The band encoders (both intra modes and IPPP), the GOP-parallel
+    encoders over a device list, the multi-process spans and the dry run
+    run on the CPU without importing JAX or the JAX package."""
     code = (
         "import sys\n"
         "import numpy as np\n"
         "from h264_fer_tpu_torch.parallel import dist, dryrun\n"
         "from h264_fer_tpu_torch.parallel.gop_device import GopIpppEncoder, scaling_frames\n"
         "from h264_fer_tpu_torch.parallel.tile import GopTileIntraEncoder, TileIntraEncoder\n"
+        "from h264_fer_tpu_torch.parallel.tile_p import TileIpppEncoder\n"
         "frames = scaling_frames(32, 48, 2)\n"
         "a = TileIntraEncoder(32, 48, 28, devices=['cpu'] * 2).encode_sequence(frames)\n"
         "b = GopTileIntraEncoder(32, 48, 28, 2, 2, devices=['cpu'] * 4,"
         " mode='mixed').encode_sequence(frames)\n"
         "c = GopIpppEncoder(32, 48, 28, gop_len=2, devices=['cpu'] * 2).encode_sequence(frames)\n"
-        "assert a and b and c and dist.encode_multihost(frames, 32, 48, 28, devices=['cpu'])\n"
+        "d = TileIpppEncoder(32, 48, 28, gop_len=2, devices=['cpu'] * 3).encode_sequence(frames)\n"
+        "assert a and b and c and d == c\n"
+        "assert dist.encode_multihost(frames, 32, 48, 28, devices=['cpu'])\n"
         "dryrun.dryrun_multichip(['cpu'] * 2, log=lambda line: None)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'h264_fer_tpu'))\n"
