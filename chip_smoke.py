@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero and prints no result line; each
 1080p path's stream must also have the byte count STREAM_BYTES gives it):
   1. print the card's name and power limit; build the CUDA kernels from
-     the eight sources in h264_fer_tpu_torch/kernels/csrc (one nvcc per
+     the nine sources in h264_fer_tpu_torch/kernels/csrc (one nvcc per
      source, sm_90a) and the native slice decoder
      h264_fer_tpu_torch/native/decoder_native.cpp (g++), all started at
      once, and print each build's time and compiler report;
@@ -105,7 +105,24 @@ Phases (any failure exits non-zero and prints no result line; each
      C++ reference encoder's bytes), and each HOST_QCIF stream (5 frames of
      the clip) must have the SHA-256 HOST_DIGESTS gives it, the digest of
      the JAX package's host Encoder's stream (tests/test_torch_host_encoder
-     .py recomputes them with JAX); each card stream must equal the CPU's;
+     .py recomputes them with JAX; three of them with me="topk", the JAX
+     Encoder's TpuMePipeline); each card stream must equal the CPU's.
+     Then the --tpu-me path: hold K2 (SAD, ext = window) + K9 (the stable
+     top-16 selection) bit-exact against their plain chain on the card
+     (ops/me.full_search_topk) on QCIF, 64x208, a flat 1080p pair where
+     every SAD ties and the 1080p P frame's own source and reference as
+     the path below recorded them, and K9 alone on random maps at windows
+     0-17 (each of its instances); drive Encoder(1920, 1088,
+     EncoderConfig(qp=28, intra_every=8, deblock=True), iframe="i16",
+     pframe="host", me="topk") (the CLI's `encode --tpu-iframe --tpu-me
+     --deblock --intra-every 8`) on 2 frames with the launch counts set to
+     0 just before (one K1t, K2 and K9 launch, one K8 per frame, no other
+     P kernel): the stream parses with the filter signalled and its
+     candidates, read from plane 0 of the P frame's interpolated planes,
+     equal the plain chain's. Times K9 both ways on that P frame's map,
+     its plain twin and one torch.topk call as the library's yardstick
+     (timed only), and prints the P frame's host seconds beside the
+     full-search host P frame's;
   11. the multi-device encoders and the band kernels: hold K1t-band,
      K7-band and K6-band against their plain twins, bit-exact, on band 1 of
      4 of a 1080p frame at QP 8, 28 and 46 with a real halo (band 0's last
@@ -151,11 +168,12 @@ Phases (any failure exits non-zero and prints no result line; each
      them (the JAX GopIpppEncoder's streams, recomputed by
      tests/test_torch_ippp.py);
   13. the decode gate: decode each 1080p stream of phases 3, 5, 7, 9 and 10
+     (both of phase 10's)
      with the port's Decoder on the card (native form) and hold every
      frame, exactly, to the reconstruction the run has for it: the plain
      chain's recon (all-intra), the kernel path's reference planes as the
      encoders recorded them (IPPP, mixed) and the session encoder's
-     reference planes (session and host, filter on: K8 runs once per
+     reference planes (session, host and --tpu-me, filter on: K8 runs once per
      decoded frame). IPPP and mixed decode in the spec-correct mode (zero chroma
      AC where a MB has no residual, as the encoders reconstruct); the
      session stream selects it by signalling the filter. Prints each
@@ -163,7 +181,9 @@ Phases (any failure exits non-zero and prints no result line; each
      launches per frame; the QCIF session streams decode equal on the
      card and on the CPU (plain K8);
   14. print the kernels line (K8's row also with its launches on the host
-     path and on the session stream's decode) and, last,
+     path and on the session stream's decode, K2's with its launches on
+     the --tpu-me path, K9's with torch.topk's time as library_ms) and,
+     last,
      {"ok": true, "device": {...}}.
      Each kernel's time is taken two ways (kernel_ms): `ms` with its
      calls issued as the host gets to them, as a path issues them, and
@@ -191,7 +211,7 @@ E2E_REPS = 5
 CHECK_QPS = (8, 28, 46)
 SEED = 7
 KERNEL_SOURCES = ("wavefront_i16", "me_int", "me_qpel", "wavefront_p", "mc",
-                  "wavefront_i4x4", "wavefront_mixed", "deblock")
+                  "wavefront_i4x4", "wavefront_mixed", "deblock", "me_topk")
 NATIVE_DECODER = "decoder_native"  # h264_fer_tpu_torch/native, built by g++
 # the IPPP main path: bench.py's e2e_ippp_encode_1080p_fps configuration
 GOP_LEN, N_IPPP, WINDOW = 8, 16, 8
@@ -205,7 +225,8 @@ N_HOST = 2
 # the host path's QCIF streams: 5 frames of the clip through
 # Encoder(iframe="host", pframe="host", **kwargs) with EncoderConfig(**cfg),
 # each held to the SHA-256 of the JAX host Encoder's stream (tpu_* off; for
-# device_modes, fed the port's intra_mode_decision), which
+# device_modes, fed the port's intra_mode_decision; for me="topk", with
+# tpu_me=TpuMePipeline(window=8), the CLI's --tpu-me), which
 # tests/test_torch_host_encoder.py recomputes
 HOST_CLIP = "tests/fixtures/clip_qcif_10f.y4m"
 HOST_REF = "tests/fixtures/ref_qcif_intra_qp28.264"  # the C++ reference's bytes
@@ -213,12 +234,20 @@ N_HOST_QCIF = 5
 HOST_QCIF = {"qp28": ({"qp": 28}, {}),
              "qp40": ({"qp": 40}, {}),
              "qp28_deblock": ({"qp": 28, "deblock": True}, {}),
-             "qp28_device_modes": ({"qp": 28}, {"device_modes": True})}
+             "qp28_device_modes": ({"qp": 28}, {"device_modes": True}),
+             "qp28_me_topk": ({"qp": 28}, {"me": "topk"}),
+             "qp40_me_topk": ({"qp": 40}, {"me": "topk"}),
+             "qp28_every3_deblock_me_topk": ({"qp": 28, "intra_every": 3, "deblock": True},
+                                             {"me": "topk"})}
 HOST_DIGESTS = {
     "qp28": "f3b260b2a7f4f6c86f00d8b41b2c93fa31187face12c60e734925a5a15e21cf8",
     "qp40": "c3460d01d9e2002775b8516c6f48da5480f22307ae5a89b0bd0a450af9d8485d",
     "qp28_deblock": "e34020ea00b5575cd8d6a56702d129d4710c9cd76b72ef02334af34d4c2f1443",
     "qp28_device_modes": "3954d4c2cec9f42df22c0e814a6b6f1b774950e421d9b742eeb1510c1c42ac03",
+    "qp28_me_topk": "9c887769442af15c8e86212a4ab02abd83121e08b43e6b6b3784b357c3791f87",
+    "qp40_me_topk": "eb2ec348594fd53e6082c1cacea2d9d5559fc3adc16fd361029351b76a418cbc",
+    "qp28_every3_deblock_me_topk":
+        "17aea80cdadb993a4e9712468a388fadb3592c002c519b9a734296c219e7f02b",
 }
 # the band encoders' QCIF streams: 3 frames of the clip at QP 28 through
 # TileIntraEncoder(mode, n bands), each held to the SHA-256 of the JAX
@@ -239,11 +268,12 @@ TILE_P_DIGESTS = {
     "qp40": "eb5b872a43e6acbf4f1b6fb11f130acea1d54084238298810aa5f0c192466bc0",
 }
 P_QPS = (28, 40, 46)  # SAD, SSD and 2*SSD tiers
-# bytes of each 1080p path's stream on chip_smoke's content (unchanged
-# since the session path was added; the kernels and plain twins are
+# bytes of each 1080p path's stream on chip_smoke's content (the first four
+# unchanged since the session path was added; host_me_topk, the --tpu-me
+# path's 2 frames, since it was; the kernels and plain twins are
 # bit-exact, so a kernel redesign must leave them so)
 STREAM_BYTES = {"all-intra": 3_227_147, "IPPP": 7_478_701, "mixed": 3_202_684,
-                "session": 7_081_712}
+                "session": 7_081_712, "host_me_topk": 844_436}
 # H100 SXM at 700 W: HBM3 rate (data sheet), and the int32 rate of the CUDA
 # cores (H100 whitepaper: 132 SMs x 64 int32 lanes x 1.98 GHz boost); K1's
 # work is int32.
@@ -2074,6 +2104,126 @@ def host_path(torch, dev, frames):
     return stream, recon, launches, tuple(last_state), frame_s, k8_s, enc.stats
 
 
+TOPK = 16  # the device ME candidates per 8x8 block (--tpu-me, encoder_host.ME_TOPK)
+
+
+def check_me_topk(torch, label, src, ref, time_it=False, window=WINDOW, topk=TOPK):
+    """K2 (metric 0, ext = window) + K9 against the plain chain (K2's and
+    K9's plain twins, on the card), bit-exact: ops/me.full_search_topk of
+    src against ref ((H, W) uint8 on the card). With time_it, times K9 on
+    K2's map both ways (kernel_ms, every timed call held to plain), its
+    plain twin (a stable sort) and, as the library's yardstick, one
+    torch.topk(map, topk, largest=False) call (timed only: its order of
+    ties is not K9's). Returns ((max_abs_err, ms, plain_ms, bound_ms,
+    bound_by, queued_ms, library_ms), the plain candidates)."""
+    from h264_fer_tpu_torch.kernels.me_int import integer_score_map, integer_score_map_plain
+    from h264_fer_tpu_torch.kernels.me_topk import topk_candidates, topk_candidates_plain
+    from h264_fer_tpu_torch.ops.interp import edge_pad
+    from h264_fer_tpu_torch.ops.me import full_search_topk
+
+    plane0 = edge_pad(ref, window).contiguous()
+    want = topk_candidates_plain(integer_score_map_plain(src, plane0, window, window, 0),
+                                 window, topk)
+    err = max_err(torch, full_search_topk(src, ref, window, topk), want)
+    smap = integer_score_map(src, plane0, window, window, 0)
+    err = max(err, max_err(torch, topk_candidates(smap, window, topk), want))
+    torch.cuda.synchronize()
+    ms = plain_ms = queued_ms = lib_ms = None
+    if time_it:
+        ms, queued_ms = kernel_ms(torch, lambda: topk_candidates(smap, window, topk), 20,
+                                  same_as(torch, want, f"me_topk {label}"))
+        plain_ms = cuda_ms(torch, lambda: topk_candidates_plain(smap, window, topk), 5)
+        lib_ms = cuda_ms(torch, lambda: torch.topk(smap, topk, dim=1, largest=False), 20)
+    # each map entry read once, each candidate written once; at least one
+    # comparison per entry
+    bound_ms, bound_by = bound(nbytes(smap, *want), smap.numel())
+    print(f"me_topk {label} window {window} topk {topk}: max_abs_err {err} (tolerance 0)"
+          + (f", kernel {ms:.4f} ms (queued {queued_ms:.4f}), plain {plain_ms:.3f} ms, "
+             f"torch.topk {lib_ms:.4f} ms" if time_it else "")
+          + f", bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    if err != 0:
+        raise AssertionError(f"K2 + K9 != the plain chain at {label}")
+    return (err, ms, plain_ms, bound_ms, bound_by, queued_ms, lib_ms), want
+
+
+def check_k9_maps(torch, dev) -> int:
+    """K9 alone against its plain twin on random maps with ties everywhere,
+    negative scores and the int32 extremes, at windows that pick each of
+    the kernel's instances (4, 10 and 36 keys per lane, and the row re-read
+    every round) and topk up to the whole row. Returns the largest error."""
+    from h264_fer_tpu_torch.kernels.me_topk import topk_candidates, topk_candidates_plain
+
+    rng = np.random.default_rng(SEED)
+    err = 0
+    for window, topks in ((0, (1,)), (4, (4, 81)), (8, (1, 16, 33, 289)), (16, (16, 40)),
+                          (17, (16,))):
+        ss = (2 * window + 1) ** 2
+        m = np.concatenate([rng.integers(-3, 4, (300, ss)), rng.integers(0, 16321, (300, ss)),
+                            rng.choice([-2**31, 2**31 - 1, 0], (40, ss))]).astype(np.int32)
+        m = torch.from_numpy(m).to(dev)
+        for topk in topks:
+            e = max_err(torch, topk_candidates(m, window, topk),
+                        topk_candidates_plain(m, window, topk))
+            if e:
+                raise AssertionError(f"K9 != plain on a random map, window {window} topk {topk}")
+            err = max(err, e)
+    print(f"me_topk random maps (windows 0, 4, 8, 16, 17): max_abs_err {err}", flush=True)
+    return err
+
+
+def me_topk_path(torch, dev, frames):
+    """Phase 10's --tpu-me run at 1080p (the CLI's `encode --tpu-iframe
+    --tpu-me --deblock --intra-every 8`): Encoder(..., iframe="i16",
+    pframe="host", me="topk") on `frames` with the launch counts set to 0
+    just before; one K1t, K2 and K9 launch and one K8 per frame, no other P
+    kernel; the stream parses with the filter signalled. Returns (stream,
+    the reference planes after each frame on the card, launches, per frame
+    the seconds, the encoder's stats, and the recorded (src, plane0, ext,
+    window, candidates) of the P frame's search)."""
+    from h264_fer_tpu_torch.codec import encoder_host
+    from h264_fer_tpu_torch.codec.encoder import Encoder, EncoderConfig
+    from h264_fer_tpu_torch.kernels.deblock import deblock_frame
+    from h264_fer_tpu_torch.kernels.mc import mc_bulk
+    from h264_fer_tpu_torch.kernels.me_int import integer_score_map
+    from h264_fer_tpu_torch.kernels.me_qpel import qpel_refine_maps
+    from h264_fer_tpu_torch.kernels.me_topk import topk_candidates
+    from h264_fer_tpu_torch.kernels.wavefront_i16 import i16_frame, i16_recon
+    from h264_fer_tpu_torch.kernels.wavefront_p import pframe_decide
+
+    cfg = EncoderConfig(qp=QP, intra_every=SESSION_INTRA_EVERY, deblock=True)
+    enc = Encoder(W, H, cfg, iframe="i16", pframe="host", me="topk", device=dev)
+    searched, search = [], encoder_host.candidates
+
+    def recorded(src, plane0, ext, window, topk):
+        out = search(src, plane0, ext, window, topk)
+        searched.append((src, plane0, ext, window, out))
+        return out
+
+    counted = (i16_frame, i16_recon, integer_score_map, topk_candidates, deblock_frame,
+               qpel_refine_maps, pframe_decide, mc_bulk)
+    torch.cuda.synchronize()
+    for fn in counted:
+        fn.launches = 0
+    recon, frame_s = [], []
+    with mock.patch.object(encoder_host, "candidates", recorded):
+        stream = enc.headers()
+        for f in frames:
+            t0 = time.perf_counter()
+            stream += enc.encode_frame(*f)
+            frame_s.append(time.perf_counter() - t0)
+            recon.append(tuple(torch.from_numpy(p).to(dev) for p in enc.reconstructed()))
+    launches = {fn.__name__: fn.launches for fn in counted}
+    n_p = sum(not st["idr"] for st in enc.stats)
+    want = {"i16_frame": len(frames) - n_p, "i16_recon": 0, "integer_score_map": n_p,
+            "topk_candidates": n_p, "deblock_frame": len(frames), "qpel_refine_maps": 0,
+            "pframe_decide": 0, "mc_bulk": 0}
+    if launches != want or len(searched) != n_p:
+        raise AssertionError(f"--tpu-me path launches {launches} ({len(searched)} searches), "
+                             f"expected {want}")
+    parse_session_stream(stream, enc.stats, W, H, QP)
+    return stream, recon, launches, frame_s, enc.stats, searched
+
+
 def main() -> int:
     import torch
 
@@ -2486,6 +2636,33 @@ def main() -> int:
     print(f"host QCIF: all-intra == the C++ reference's prefix, {len(HOST_QCIF)} streams == "
           f"their JAX digests, card == CPU ({time.perf_counter() - t0:.1f} s) on {name}",
           flush=True)
+    # the --tpu-me path: K2 (SAD) + K9 against the plain chain, then the
+    # host P frame searching the device's candidates
+    t0 = time.perf_counter()
+    k9_errs = [check_k9_maps(torch, dev)]
+    for label, w, h in (("176x144", 176, 144), ("64x208", 64, 208)):
+        y0, y1 = (torch.from_numpy(f[0]).to(dev) for f in content(2, w, h))
+        k9_errs.append(check_me_topk(torch, label, y1, y0)[0][0])
+    flat = torch.full((H, W), 128, dtype=torch.uint8, device=dev)
+    k9_errs.append(check_me_topk(torch, f"{W}x{H} flat", flat, torch.full_like(flat, 121))[0][0])
+    me_stream, me_recon, me_launches, me_s, me_stats, searched = me_topk_path(
+        torch, dev, content(N_HOST, W, H))
+    check_bytes("host_me_topk", me_stream)
+    to_decode["host_me_topk"] = (me_stream, me_recon, {"deblock": True})
+    src, plane0, ext, window, got = searched[-1]
+    k9, want = check_me_topk(torch, f"{W}x{H} host P frame", src,
+                             plane0[ext:-ext, ext:-ext].contiguous(), time_it=True)
+    if window != WINDOW or max_err(torch, got, want):
+        raise AssertionError("the --tpu-me path's candidates (plane 0 of its planes, ext "
+                             f"{ext}) != the plain chain's")
+    k9_errs.append(k9[0])
+    full_p = [fs for fs, st in zip(frame_s, stats) if not st["idr"]]
+    print(f"--tpu-me path: {N_HOST} frames {W}x{H} QP{QP} deblock, i16 IDR + host P on "
+          f"the device's top-{TOPK} candidates, {len(me_stream)} bytes, parses; launches "
+          f"{me_launches}; the path's candidates == the plain chain's; P frame "
+          f"{me_s[-1]:.2f} s host (the full-search host P frame above: "
+          f"{', '.join(f'{v:.2f}' for v in full_p)} s); stats {me_stats[-1]['mb_types']} "
+          f"({time.perf_counter() - t0:.1f} s) on {name}", flush=True)
 
     print(f"[phase 10 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- 11. multi-device encoders and the band kernels ------------------
@@ -2507,7 +2684,7 @@ def main() -> int:
     from h264_fer_tpu_torch.codec.decoder import Decoder
 
     decoded = {path: decode_gate(torch, dev, path, *to_decode[path], name)
-               for path in ("all-intra", "IPPP", "mixed", "session", "host")}
+               for path in ("all-intra", "IPPP", "mixed", "session", "host", "host_me_topk")}
     for i, qstream in enumerate(qcif_sessions):  # K8 on the card == its plain twin
         on_card, on_cpu = (list(Decoder(True, device=d).decode_annexb(qstream))
                            for d in (dev, "cpu"))
@@ -2554,6 +2731,9 @@ def main() -> int:
                      max(bk[q][kname][0] for q in CHECK_QPS), bk[QP][kname][1:]))
     rows.append(("wavefront_p_band", "h264_fer_tpu/kernels/wavefront_p.py:177", k4b_launches,
                  max(k4b[q][0] for q in P_QPS), k4b[QP][1:]))
+    rows.append(("me_topk", "h264_fer_tpu/ops/me.py:56", me_launches["topk_candidates"],
+                 max(k9_errs), k9[1:6]))
+    library = {"me_topk": k9[6]}
     sources = {"wavefront_chroma": "wavefront_i16", "wavefront_i16_levels": "wavefront_i16",
                "wavefront_i16_levels_band": "wavefront_i16",
                "wavefront_chroma_band": "wavefront_i16",
@@ -2569,10 +2749,12 @@ def main() -> int:
             "source": f"{csrc}{sources.get(kname, kname)}.cu",
             "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "queued_ms": queued_ms})
+            "library_ms": library.get(kname), "queued_ms": queued_ms})
         if kname == "deblock":  # K8 also runs on the host path and the decode path
             kernels[-1]["host_launches"] = host_launches
             kernels[-1]["decode_launches"] = decoded["session"][2]
+        if kname == "me_int":  # K2 also searches the --tpu-me path's candidates
+            kernels[-1]["me_topk_path_launches"] = me_launches["integer_score_map"]
     print(name)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

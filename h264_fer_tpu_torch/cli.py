@@ -11,17 +11,20 @@ host, the reference encoder's exact per-MB path (codec/encoder_host.py),
 with the in-loop filter K8 on the card under --deblock. --tpu-iframe [i16
 or mixed] moves the I frames to the device, --tpu-pframe the P frames,
 and --tpu-modes (or --tpu-pframe, or --tpu-iframe off) gives host I frames
-the device's intra mode decision. --device cpu runs all of it on the CPU
-(the kernels' plain PyTorch twins). --gop-devices N runs the sequence
-encoders instead (parallel/gop_device.py) over N devices: all-intra when
---intra-every is 1 (mixed with --tpu-iframe mixed), else fixed GOPs of
---intra-every frames (--deblock is ignored there, as in the JAX CLI).
---tile-devices N runs parallel/tile.TileIntraEncoder (all-I16) when
---intra-every is 1, else parallel/tile_p.TileIpppEncoder (GOPs of
---intra-every frames, with --window-size, --maxdiff and --no-prefilter),
-each frame in N MB-row bands. The N devices are the first N cards (fewer where fewer
-exist), or N entries of "cpu" with --device cpu. Per-frame statistics
-(bytes, ms, MB-type histogram) print with --stats.
+the device's intra mode decision. --tpu-me gives host P frames the
+device's top-16 integer candidates per 8x8 block (ops/me.py). --device cpu
+runs all of it on the CPU (the kernels' plain PyTorch twins).
+--gop-devices N runs the sequence encoders instead
+(parallel/gop_device.py) over N devices: all-intra when --intra-every is
+1 (mixed with --tpu-iframe mixed), else fixed GOPs of --intra-every frames
+(--deblock is ignored there, as in the JAX CLI). --tile-devices N runs
+parallel/tile.TileIntraEncoder (all-I16) when --intra-every is 1, else
+parallel/tile_p.TileIpppEncoder (GOPs of --intra-every frames, with
+--window-size, --maxdiff and --no-prefilter), each frame in N MB-row
+bands. Both ignore --tpu-me, as the JAX CLI does. The N devices are the
+first N cards (fewer where fewer exist), or N entries of "cpu" with
+--device cpu. Per-frame statistics (bytes, ms, MB-type histogram) print
+with --stats.
 
 decode runs codec/decoder.Decoder: the slice loop on the host (native C++),
 and with --deblock the in-loop filter K8 on the card (or its plain twin
@@ -60,10 +63,6 @@ def _cmd_encode(args) -> int:
     from .codec.encoder import Encoder, EncoderConfig
     from .vio.y4m import Y4MReader
 
-    if args.tpu_me:
-        raise NotImplementedError("--tpu-me (ops/me.TpuMePipeline) is not ported: "
-                                  "ROADMAP.md lists it under 'Not to port'; "
-                                  "--tpu-pframe supersedes it")
     rd = Y4MReader(args.input)
     if args.gop_devices or args.tile_devices:
         from .parallel.gop_device import GopIntraEncoder, GopIpppEncoder
@@ -115,7 +114,7 @@ def _cmd_encode(args) -> int:
                   pframe="device" if args.tpu_pframe else "host",
                   device_modes=iframe == "host" and bool(
                       args.tpu_modes or args.tpu_iframe or args.tpu_pframe),
-                  device=args.device)
+                  me="topk" if args.tpu_me else "full", device=args.device)
     t0 = time.time()
     n = 0
     with open(args.output, "wb") as f:
@@ -195,7 +194,8 @@ def main(argv=None) -> int:
     e.add_argument("--tpu-modes", action="store_true",
                    help="intra mode pre-decision on the device for host I frames")
     e.add_argument("--tpu-me", action="store_true",
-                   help="motion search candidates on the device (not ported)")
+                   help="integer motion search candidates on the device for "
+                        "host P frames (top 16 SAD per 8x8 block)")
     e.add_argument("--tpu-iframe", nargs="?", const="i16",
                    choices=["off", "i16", "mixed"], default=None,
                    help="device I frames: i16 (Intra_16x16 only) or mixed (the "

@@ -14,7 +14,11 @@ runs on the host or on the device, as the JAX encoder's flags choose:
   codec.pframe.device_p_frame, then the trailing-skip drop (codec.gop)
   and, with cfg.deblock, the filter K8 on the whole frame; or
   pframe="host" (tpu_pframe off) through codec.encoder_host, which drops
-  and filters (K8) in the same order.
+  and filters (K8) in the same order. me="topk" (tpu_me, the CLI's
+  --tpu-me) gives the host P frames' integer search the device's top-16
+  SAD candidates per 8x8 block (ops/me.py, K2 and K9), over
+  ±window_size // 2. Device P frames never read them: their bytes are the
+  same either way, so they search none.
 
 It keeps the reference's session logic: the IDR choice (intra_every, and
 the scene cut by frame SAD against the reconstruction or, with
@@ -82,12 +86,15 @@ class Encoder:
     encoder). pframe: "device" or "host". device_modes: with iframe="host",
     the Intra16x16 and Intra4x4 modes come from the device's decision,
     read back once per IDR, and only the bit-cost arbitration runs per MB.
+    me: "full" (the host P frames' own integer search) or "topk" (the
+    device's candidates; JAX's TpuMePipeline(window=window_size // 2)).
     encode_frame takes uint8 numpy planes y (H, W), cb and cr (H/2, W/2)
     and returns the frame's slice NAL."""
 
     def __init__(self, width: int, height: int, cfg: EncoderConfig,
                  iframe: str = "i16", pframe: str = "device",
-                 device_modes: bool = False, device=DEFAULT_DEVICE) -> None:
+                 device_modes: bool = False, me: str = "full",
+                 device=DEFAULT_DEVICE) -> None:
         if width % 16 or height % 16:
             raise ValueError(f"frame {width}x{height} is not a whole number of MBs")
         if not 0 <= cfg.qp <= 51:
@@ -96,6 +103,8 @@ class Encoder:
             raise ValueError(f"iframe={iframe!r}: 'i16', 'mixed' or 'host'")
         if pframe not in ("device", "host"):
             raise ValueError(f"pframe={pframe!r}: 'device' or 'host'")
+        if me not in ("full", "topk"):
+            raise ValueError(f"me={me!r}: 'full' or 'topk'")
         if device_modes and iframe != "host":
             raise ValueError("device_modes feeds host I frames; device I frames "
                              "decide their own modes")
@@ -120,7 +129,7 @@ class Encoder:
         self.curr_frame_count = 0
         self.stats = []  # per frame: bytes, ms, idr, mb_types
         # the host frames' per-MB encoder and state
-        self.host = (HostEncoder(width, height, cfg, self.qpc, self.device)
+        self.host = (HostEncoder(width, height, cfg, self.qpc, self.device, me)
                      if iframe == "host" or self._pframe_host else None)
         # with device P frames, on the device: the reference planes (the
         # last frame as decoders hold it, filtered), the previous source

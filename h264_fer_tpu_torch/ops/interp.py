@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 
-def _edge_pad(x, n: int, rows: bool = True):
+def edge_pad(x, n: int, rows: bool = True):
     """x (any dtype) with its edge columns, and unless `rows` is False its
     edge rows, replicated n times on every side."""
     h, w = x.shape
@@ -79,7 +79,7 @@ def interpolated_planes(ref, ext: int = 0):
     prediction sample of integer position (x, y) at that frac."""
     h, w = ref.shape
     # ext for the MV range, 3 taps, 1 for the x+1 / y+1 averages
-    return _planes(_edge_pad(ref.to(torch.int32), ext + 4), h, w, ext)
+    return _planes(edge_pad(ref.to(torch.int32), ext + 4), h, w, ext)
 
 
 def interpolated_planes_banded(ref_v, ext: int = 0):
@@ -91,13 +91,13 @@ def interpolated_planes_banded(ref_v, ext: int = 0):
     band (interpolated_planes_banded_jax)."""
     pad = ext + 4
     hv, w = ref_v.shape
-    return _planes(_edge_pad(ref_v.to(torch.int32), pad, rows=False), hv - 2 * pad, w, ext)
+    return _planes(edge_pad(ref_v.to(torch.int32), pad, rows=False), hv - 2 * pad, w, ext)
 
 
 def pad_chroma(ref_c, ext_c: int):
     """The chroma plane edge-padded by ext_c + 1 on every side, for the
     bilinear MC window reads (pad_chroma_jax); keeps the dtype."""
-    return _edge_pad(ref_c, ext_c + 1)
+    return edge_pad(ref_c, ext_c + 1)
 
 
 def pad_chroma_banded(ref_cv, ext_c: int):
@@ -105,7 +105,7 @@ def pad_chroma_banded(ref_cv, ext_c: int):
     rows of the bands above and below around the band's own: padded only
     horizontally (the reference's band program, tile_p.py:128-133), the row
     window of pad_chroma(frame, ext_c) that covers the band."""
-    return _edge_pad(ref_cv, ext_c + 1, rows=False)
+    return edge_pad(ref_cv, ext_c + 1, rows=False)
 
 
 def mc_macroblock_from_planes(planes, cb_pad, cr_pad, mb_x: int, mb_y: int, mv,

@@ -87,14 +87,21 @@ def test_cli_encode_ranges_and_all_intra(clip, clip_path, tmp_path):
     assert out.read_bytes() == GopIntraEncoder(W, H, 28, device="cpu").encode_sequence(clip[:2])
     # --tile-devices N with P frames writes TileIpppEncoder's bytes (GOPs of
     # --intra-every frames, 100 by default: on 2 frames one GOP either way,
-    # the same bytes); --tpu-me is not ported
+    # the same bytes), and ignores --tpu-me as the JAX CLI does
     want = TileIpppEncoder(W, H, 28, gop_len=8, devices=["cpu"] * 3).encode_sequence(clip[:2])
-    for extra in (["--tile-devices", "1"], ["--tile-devices", "3", "--intra-every", "8"]):
+    for extra in (["--tile-devices", "1"], ["--tile-devices", "3", "--intra-every", "8"],
+                  ["--tile-devices", "3", "--intra-every", "8", "--tpu-me"]):
         assert cli.main(["encode", clip_path, str(out), "--device", "cpu", "--end-frame", "2",
                          *extra]) == 0
         assert out.read_bytes() == want, extra
-    with pytest.raises(NotImplementedError):
-        cli.main(["encode", clip_path, str(out), "--device", "cpu", "--tpu-me"])
+    # --tpu-me: host P frames on the device's top-16 candidates (the JAX
+    # Encoder's tpu_me; tests/test_torch_host_encoder.py holds the stream)
+    assert cli.main(["encode", clip_path, str(out), "--device", "cpu", "--end-frame", "3",
+                     "--tpu-me"]) == 0
+    enc = Encoder(W, H, EncoderConfig(), iframe="host", pframe="host", me="topk", device="cpu")
+    assert out.read_bytes() == enc.encode_sequence(clip[:3])
+    assert out.read_bytes() != Encoder(W, H, EncoderConfig(), iframe="host", pframe="host",
+                                       device="cpu").encode_sequence(clip[:3])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(["encode", clip_path, str(out)])

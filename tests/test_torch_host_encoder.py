@@ -3,12 +3,15 @@ host Encoder (tpu_* off) and the C++ reference encoder's bytes, on the CPU.
 
 The JAX host path is numpy, so no JAX program compiles here; where the JAX
 Encoder takes device modes, a stand-in for its TpuIntraPipeline feeds it
-the port's intra_mode_decision. Covered: the CAVLC writing half and the
+the port's intra_mode_decision; where it takes the device's ME candidates
+(--tpu-me), its own TpuMePipeline computes them (a small JAX compile).
+Covered: the CAVLC writing half and the
 numpy forward transforms on random input; the all-intra stream (the C++
 reference's prefix); the IPPP streams at QP 28 and 40, with the filter
 (K8's plain twin against codec/loopfilter), without qpel and with the
-search options; the per-MB state chain frame by frame; device_modes; the
-two hand-offs between host and device frames; the CLI's default encode
+search options; the device's top-K ME candidates (QP 28, QP 40, periodic
+IDRs with the filter); the per-MB state chain frame by frame;
+device_modes; the hand-offs between host and device frames; the CLI's default encode
 against the JAX CLI's; and chip_smoke.py's committed digests."""
 
 import hashlib
@@ -22,6 +25,7 @@ from h264_fer_tpu import cli as jax_cli
 from h264_fer_tpu.bitstream.bitio import BitWriter as JaxBitWriter
 from h264_fer_tpu.codec.encoder import Encoder as JaxEncoder
 from h264_fer_tpu.codec.encoder import EncoderConfig as JaxEncoderConfig
+from h264_fer_tpu.ops.me import TpuMePipeline
 from h264_fer_tpu.ops import cavlc as jax_cavlc
 from h264_fer_tpu.ops import transform as jax_transform
 from h264_fer_tpu.vio.y4m import Y4MReader
@@ -59,9 +63,13 @@ def clip(fixtures_dir):
     return list(Y4MReader(str(fixtures_dir / "clip_qcif_10f.y4m")))[:chip_smoke.N_HOST_QCIF]
 
 
-def _jax_encoder(cfg: dict, device_modes: bool = False):
+def _jax_encoder(cfg: dict, device_modes: bool = False, me: str = "full"):
+    """The JAX Encoder with host frames; device_modes feeds it the port's
+    modes, me="topk" its TpuMePipeline (the JAX CLI's --tpu-me)."""
+    window = cfg.get("window_size", 16) // 2
     return JaxEncoder(W, H, JaxEncoderConfig(**cfg),
-                      tpu_pipeline=PortModes(cfg["qp"]) if device_modes else None)
+                      tpu_pipeline=PortModes(cfg["qp"]) if device_modes else None,
+                      tpu_me=TpuMePipeline(window=window) if me == "topk" else None)
 
 
 @pytest.fixture(scope="module")
@@ -71,7 +79,7 @@ def jax_runs(clip):
     cases = {"intra_qp28": ({"qp": 28, "intra_every": 1}, {}), **chip_smoke.HOST_QCIF}
     out = {}
     for name, (cfg, kw) in cases.items():
-        enc = _jax_encoder(cfg, kw.get("device_modes", False))
+        enc = _jax_encoder(cfg, **kw)
         out[name] = (enc.encode_sequence(clip[:3] if name == "intra_qp28" else clip),
                      enc.reconstructed())
     return out
@@ -170,9 +178,10 @@ def test_all_intra_stream_is_cpp_reference_prefix(fixtures_dir, port_runs, jax_r
 @pytest.mark.parametrize("name", list(chip_smoke.HOST_QCIF))
 def test_host_stream_equals_jax(name, port_runs, jax_runs):
     """IPPP on 5 frames: QP 28 (SAD tier), QP 40 (SSD tier), QP 28 with the
-    filter (plain K8 on the host state against codec/loopfilter), and with
-    device modes: the port's stream and last reconstruction are the JAX
-    host Encoder's."""
+    filter (plain K8 on the host state against codec/loopfilter), with
+    device modes, and with the device's ME candidates (QP 28, QP 40, and
+    an IDR every 3 frames with the filter): the port's stream and last
+    reconstruction are the JAX host Encoder's."""
     stream, recon = port_runs[name]
     assert stream == jax_runs[name][0]
     for a, b in zip(recon, jax_runs[name][1]):
@@ -222,11 +231,22 @@ def test_handoff_device_mixed_i_then_host_p(clip, jax_runs):
     assert port.encode_sequence(clip) == jax_runs["qp28_device_modes"][0]
 
 
+def test_handoff_device_mixed_i_then_host_p_with_candidates(clip):
+    """Device mixed I frames, host P frames on the device's ME candidates:
+    the JAX host stream fed the same modes and its own candidates."""
+    port = Encoder(W, H, EncoderConfig(qp=28), iframe="mixed", pframe="host", me="topk",
+                   device="cpu")
+    assert port.encode_sequence(clip) == \
+        _jax_encoder({"qp": 28}, device_modes=True, me="topk").encode_sequence(clip)
+
+
 def test_frame_choices_are_validated():
     with pytest.raises(ValueError):
         Encoder(W, H, EncoderConfig(), iframe="i16", device_modes=True, device="cpu")
     with pytest.raises(ValueError):
         Encoder(W, H, EncoderConfig(), pframe="cpu", device="cpu")
+    with pytest.raises(ValueError):
+        Encoder(W, H, EncoderConfig(), me="tpu", device="cpu")
 
 
 @pytest.mark.parametrize("extra", [[], ["--deblock"]], ids=["plain", "deblock"])
