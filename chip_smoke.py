@@ -112,17 +112,19 @@ Phases (any failure exits non-zero and prints no result line; each
      (ops/me.full_search_topk) on QCIF, 64x208, a flat 1080p pair where
      every SAD ties and the 1080p P frame's own source and reference as
      the path below recorded them, and K9 alone on random maps at windows
-     0-17 (each of its instances); drive Encoder(1920, 1088,
-     EncoderConfig(qp=28, intra_every=8, deblock=True), iframe="i16",
-     pframe="host", me="topk") (the CLI's `encode --tpu-iframe --tpu-me
-     --deblock --intra-every 8`) on 2 frames with the launch counts set to
-     0 just before (one K1t, K2 and K9 launch, one K8 per frame, no other
-     P kernel): the stream parses with the filter signalled and its
-     candidates, read from plane 0 of the P frame's interpolated planes,
-     equal the plain chain's. Times K9 both ways on that P frame's map,
-     its plain twin and one torch.topk call as the library's yardstick
-     (timed only), and prints the P frame's host seconds beside the
-     full-search host P frame's;
+     0-17 (each of its instances) and on adversarial rows (k9_rows: the
+     32-bit keys' range limit and a step above, rows of one value, the
+     least scores in one lane), rows of both key forms; drive
+     Encoder(1920, 1088, EncoderConfig(qp=28, intra_every=8,
+     deblock=True), iframe="i16", pframe="host", me="topk") (the CLI's
+     `encode --tpu-iframe --tpu-me --deblock --intra-every 8`) on 2
+     frames with the launch counts set to 0 just before (one K1t, K2 and
+     K9 launch, one K8 per frame, no other P kernel): the stream parses
+     with the filter signalled and its candidates, read from plane 0 of
+     the P frame's interpolated planes, equal the plain chain's. Times K9
+     both ways on that P frame's map, its plain twin and one torch.topk
+     call as the library's yardstick (timed only), and prints the P
+     frame's host seconds beside the full-search host P frame's;
   11. the multi-device encoders and the band kernels: hold K1t-band,
      K7-band and K6-band against their plain twins, bit-exact, on band 1 of
      4 of a 1080p frame at QP 8, 28 and 46 with a real halo (band 0's last
@@ -2146,28 +2148,74 @@ def check_me_topk(torch, label, src, ref, time_it=False, window=WINDOW, topk=TOP
     return (err, ms, plain_ms, bound_ms, bound_by, queued_ms, lib_ms), want
 
 
+def k9_rows(window: int, rng) -> np.ndarray:
+    """Adversarial (n, S*S) int32 rows for K9 at `window`: rows whose range
+    sits exactly at the limit of K9's 32-bit keys (2^(32 - sbits) - 1,
+    sbits = ceil(log2(S*S))) and a step above it (64-bit keys), rows of one
+    value (0, -7, the int32 extremes), and rows whose least scores all lie
+    in one lane's shifts l + 32 k (lanes 0, 31 and one at random;
+    descending in k, ties in pairs; once more shifted negative), so that
+    one lane pops until its list is empty."""
+    ss = (2 * window + 1) ** 2
+    lim = (1 << (32 - (ss - 1).bit_length())) - 1
+    rows = []
+    if ss > 1:
+        for step in (0, 1):
+            base = int(rng.integers(-2**31, 2**31 - 1 - lim - step))
+            row = base + rng.integers(0, lim + 1, ss)
+            ends = rng.choice(ss, 2, replace=False)
+            row[ends[0]], row[ends[1]] = base, base + lim + step
+            rows.append(row)
+    rows += [np.full(ss, v) for v in (0, -7, -2**31, 2**31 - 1)]
+    for lane in (0, 31, int(rng.integers(32))):
+        row = rng.integers(100, 16321, ss)
+        own = np.arange(lane, ss, 32)
+        row[own] = (len(own) - 1 - np.arange(len(own))) // 2
+        rows += [row, row - 150]
+    return np.stack(rows).astype(np.int32)
+
+
+def k9_narrow_rows(m: np.ndarray, window: int) -> np.ndarray:
+    """(n,) bool: the rows of the (n, S*S) map that K9 keys in 32 bits,
+    (score - row min) << sbits | shift with sbits = ceil(log2(S*S)): those
+    whose range (largest minus least score) fits in 32 - sbits bits. The
+    others take 64-bit keys."""
+    sbits = ((2 * window + 1) ** 2 - 1).bit_length()
+    m = m.astype(np.int64)
+    return m.max(1) - m.min(1) < 1 << (32 - sbits)
+
+
 def check_k9_maps(torch, dev) -> int:
     """K9 alone against its plain twin on random maps with ties everywhere,
-    negative scores and the int32 extremes, at windows that pick each of
-    the kernel's instances (4, 10 and 36 keys per lane, and the row re-read
-    every round) and topk up to the whole row. Returns the largest error."""
+    negative scores and the int32 extremes, and on k9_rows' adversarial
+    rows, at windows that pick each of the kernel's instances (4, 10 and 36
+    keys per lane, 10 with S fixed at window 8's 17, and the row re-read
+    every round) and topk up to the whole row. At every window but 0 (one
+    shift: every row packs) some rows take each key form, 32 and 64 bits.
+    Returns the largest error."""
     from h264_fer_tpu_torch.kernels.me_topk import topk_candidates, topk_candidates_plain
 
     rng = np.random.default_rng(SEED)
-    err = 0
-    for window, topks in ((0, (1,)), (4, (4, 81)), (8, (1, 16, 33, 289)), (16, (16, 40)),
-                          (17, (16,))):
+    err, forms = 0, []
+    for window, topks in ((0, (1,)), (4, (4, 81)), (7, (16, 225)), (8, (1, 16, 33, 289)),
+                          (16, (16, 40)), (17, (16,))):
         ss = (2 * window + 1) ** 2
         m = np.concatenate([rng.integers(-3, 4, (300, ss)), rng.integers(0, 16321, (300, ss)),
-                            rng.choice([-2**31, 2**31 - 1, 0], (40, ss))]).astype(np.int32)
+                            rng.choice([-2**31, 2**31 - 1, 0], (40, ss)),
+                            k9_rows(window, rng)]).astype(np.int32)
+        narrow = int(k9_narrow_rows(m, window).sum())
         m = torch.from_numpy(m).to(dev)
+        forms.append(f"window {window} {narrow} / {len(m) - narrow}")
+        if window and not 0 < narrow < len(m):
+            raise AssertionError(f"K9's rows at window {window} take one key form only")
         for topk in topks:
             e = max_err(torch, topk_candidates(m, window, topk),
                         topk_candidates_plain(m, window, topk))
             if e:
                 raise AssertionError(f"K9 != plain on a random map, window {window} topk {topk}")
             err = max(err, e)
-    print(f"me_topk random maps (windows 0, 4, 8, 16, 17): max_abs_err {err}", flush=True)
+    print(f"me_topk random and adversarial maps (rows keyed 32 / 64 bits: {', '.join(forms)}):"
+          f" max_abs_err {err}", flush=True)
     return err
 
 

@@ -7,15 +7,17 @@ run from the root of this checkout, OTHER_CHECKOUT being, for example, the
 parent commit unpacked with `git archive`. Each turn is a process of its
 own started in one checkout's root (the two share module names); it builds
 that checkout's kernels, times K2, K3, K4, K5, K6, K4x4, K1t, K1, K7
-(through chroma_frame: recon and levels) and K8 (on the session encoder's
-P-frame state) with CUDA events at 1920x1088, QP 28, on chip_smoke.py's
-inputs (K2-K5 on the chained P frame), and reports a checksum of each
-kernel's outputs, so that the turns also show both checkouts compute the
-same function. Each kernel is timed two ways, with the same code in both
-checkouts: "queued", its calls issued behind a kernel that spins the card
-(the device's time for the work, back to back), and "paced", its calls
-issued one after another as the host gets to them (what the path sees
-when the host issues more slowly than the card runs).
+(through chroma_frame: recon and levels), K8 (on the session encoder's
+P-frame state) and K9 (the top-16 of K2's SAD map, metric 0 at window 8,
+of the content pair's second luma plane against the first, edge-padded)
+with CUDA events at 1920x1088, QP 28, on chip_smoke.py's inputs (K2-K5 on
+the chained P frame), and reports a checksum of each kernel's outputs, so
+that the turns also show both checkouts compute the same function. Each
+kernel is timed two ways, with the same code in both checkouts: "queued",
+its calls issued behind a kernel that spins the card (the device's time
+for the work, back to back), and "paced", its calls issued one after
+another as the host gets to them (what the path sees when the host
+issues more slowly than the card runs).
 Prints one line per turn and two per kernel.
 """
 
@@ -38,6 +40,8 @@ from h264_fer_tpu_torch.kernels.wavefront_i4x4 import i4x4_luma
 from h264_fer_tpu_torch.kernels.me_qpel import qpel_refine_maps
 from h264_fer_tpu_torch.kernels.wavefront_i16 import chroma_frame, i16_frame, i16_recon
 from h264_fer_tpu_torch.kernels.deblock import deblock_frame
+from h264_fer_tpu_torch.kernels.me_topk import topk_candidates
+from h264_fer_tpu_torch.ops.interp import edge_pad
 from h264_fer_tpu_torch.codec.encoder import Encoder, EncoderConfig
 from h264_fer_tpu_torch.ops.transform import chroma_qp
 dev = torch.device("cuda")
@@ -55,6 +59,8 @@ enc = Encoder(cs.W, cs.H, EncoderConfig(qp=cs.QP), device=dev)
 for f in cs.content(2, cs.W, cs.H):
     enc.encode_frame(*f)
 state = cs.encoder_state(enc)  # the P frame's state before the filter
+sad_map = integer_score_map(pair[1][0], edge_pad(pair[0][0], cs.WINDOW).contiguous(),
+                            cs.WINDOW, cs.WINDOW, 0)
 
 
 def timed(fn, reps, queued):
@@ -86,6 +92,7 @@ runs = {
     "K1": (lambda: i16_recon(y, cb, cr, m16, cm, cs.QP, qpc), 20),
     "K7": (lambda: chroma_frame(cb, cr, cm, qpc), 20),
     "K8": (lambda: deblock_frame(*state, cs.QP, qpc), 20),
+    "K9": (lambda: topk_candidates(sad_map, cs.WINDOW, cs.TOPK), 20),
 }
 out = {}
 for name, (fn, reps) in runs.items():

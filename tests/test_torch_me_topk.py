@@ -4,15 +4,19 @@ on the CPU: the same candidates in the same order, ties included, on
 correlated, flat, periodic and tall content at window 8 / topk 16 and
 window 4 / topk 4 (one JAX compile per frame size and setting); K9's plain
 twin against a stable numpy argsort; a numpy model of the K9 kernel's warp
-(keys in lanes, rounds of the least key not below the last winner, the
-two-stage warp minimum, the stores every 32 rounds) against the twin; the
-interpolated planes' plane 0 against the padded reference; the wrappers'
-refusals."""
+(the key form each row takes, each lane's sorting network, the pops of the
+heads' warp minimum, the stores every 32 rounds; the re-read rounds of wide
+maps) against the twin; the network against every 0-1 input; the 32-bit
+keys' range limit; the interpolated planes' plane 0 against the padded
+reference; the wrappers' refusals."""
+
+import collections
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from h264_fer_tpu.ops.me import TpuMePipeline as JaxTpuMePipeline
 from h264_fer_tpu.ops.me import full_search_topk as jax_full_search_topk
 from h264_fer_tpu_torch.kernels.me_int import integer_score_map
@@ -103,61 +107,171 @@ def test_plain_twin_is_a_stable_argsort(window, topk, hi):
     assert sads.dtype == mvx.dtype == mvy.dtype == np.int32
 
 
+def _network(n: int):
+    """csrc/me_topk.cu's sort_keys for n keys: Batcher's odd-even merge
+    sort, the comparators (i, j), i < j, in the kernel's loop order."""
+    out, lp = [], 0
+    while (1 << lp) < n:
+        p = 1 << lp
+        for lk in range(lp, -1, -1):
+            k = 1 << lk
+            for j in range(k % p, n - k, 2 * k):
+                for i in range(min(k, n - j - k)):
+                    if (i + j) // (2 * p) == (i + j + k) // (2 * p):
+                        out.append((i + j, i + j + k))
+        lp += 1
+    return out
+
+
+def _key_form(score, idx, lo, hi, sbits):
+    """The kernel's key form for a row of least score lo and largest hi:
+    (32-bit?, keys of the (32, width) scores at shifts idx, the pad above
+    every key, decode(key) -> (score, shift), the warp minimum of 32 lane
+    keys)."""
+    u64 = np.uint64
+    if hi - lo <= 0xFFFFFFFF >> sbits:
+        def decode(k):
+            return lo + (int(k) >> sbits), int(k) & ((1 << sbits) - 1)
+
+        return True, ((score - lo) << sbits | idx).astype(u64), u64(0xFFFFFFFF), decode, np.min
+
+    def decode(k):  # the high half's sign bit flipped back, as an int32
+        return int(np.uint32((int(k) >> 32) ^ 0x80000000).astype(np.int32)), int(k) & 0xFFFFFFFF
+
+    def warp_min(keys):  # the high halves' minimum, then the low halves' of its lanes
+        top = (keys >> u64(32)).min()
+        return top << u64(32) | np.where(keys >> u64(32) == top, keys & u64(0xFFFFFFFF),
+                                         u64(0xFFFFFFFF)).min()
+
+    key = (((score & 0xFFFFFFFF) ^ 0x80000000).astype(u64) << u64(32)) | idx.astype(u64)
+    return False, key, u64(0xFFFFFFFFFFFFFFFF), decode, warp_min
+
+
 def _k9_warp_model(m: np.ndarray, window: int, topk: int, nk: int):
-    """csrc/me_topk.cu's warp for each row of m, in numpy: lane l holds the
-    keys of shifts l + 32 k (k < nk; nk 0 re-reads the row every round),
-    key = (score ^ 2^31) << 32 | shift; round r takes the least key not
-    below lo as the minimum of the high halves, then of the low halves of
-    the lanes holding that high half; lane r % 32 keeps the result and the
-    lanes store every 32 rounds. Returns (3, nb, topk) and the set of
-    (row, slot) stores."""
+    """csrc/me_topk.cu's warp for each row of m, in numpy: lane l loads the
+    scores of shifts l + 32 k (k < nk; nk 0 re-reads the row every round);
+    the row's least and largest score choose the key form, 32 bits ((score
+    - min) << sbits | shift) where the range fits in 32 - sbits bits, else
+    64 ((score ^ 2^31) << 32 | shift, the warp minimum taken as the high
+    halves', then the low halves' of the lanes holding it). Held keys: each
+    lane sorts its keys by the kernel's network and keeps its least as its
+    head, the rest and a pad in its list; round r takes the warp minimum of
+    the heads and the one lane holding it takes its list's next key as its
+    head. Re-read: round r takes the least key above the last winner.
+    Round r's winner goes to won[r % 32]; every 32 rounds (and after the
+    last) lane l decodes and stores won[l]. Returns ((3, nb, topk),
+    {(row, slot): stores}, (nb,) 32-bit rows)."""
     nb, ss = m.shape
     s = 2 * window + 1
-    full = np.uint64(0xFFFFFFFFFFFFFFFF)
+    sbits = (ss - 1).bit_length()
     out = np.zeros((3, nb, topk), np.int64)
-    stored = set()
-    lanes = np.arange(32)
+    stores, narrow = collections.Counter(), np.zeros(nb, bool)
+    width = nk if nk else (ss + 31) // 32
+    idx = np.arange(32)[:, None] + 32 * np.arange(width)[None, :]  # (32, width)
+    valid = idx < ss
     for b in range(nb):
-        width = nk if nk else (ss + 31) // 32
-        idx = lanes[:, None] + 32 * np.arange(width)[None, :]  # (32, width)
-        score = m[b, np.minimum(idx, ss - 1)].astype(np.int64)
-        key = (((score.astype(np.uint64) & np.uint64(0xFFFFFFFF)) ^ np.uint64(0x80000000))
-               << np.uint64(32)) | idx.astype(np.uint64)
-        key = np.where(idx < ss, key, full)
-        lo = np.uint64(0)
-        held = np.zeros((3, 32), np.int64)
-        for r in range(topk):
-            best = np.where(key >= lo, key, full).min(axis=1)  # lane-local, (32,)
-            hi = (best >> np.uint64(32)).min()
-            low = np.where(best >> np.uint64(32) == hi, best & np.uint64(0xFFFFFFFF),
-                           np.uint64(0xFFFFFFFF)).min()
-            lane, shift = r & 31, int(low)
-            held[:, lane] = (np.int64(np.uint32(hi) ^ np.uint32(0x80000000)).astype(np.int32),
-                             (shift % s - window) * 4, (shift // s - window) * 4)
-            if lane == 31 or r == topk - 1:
-                for ln in range(lane + 1):
-                    out[:, b, (r & ~31) + ln] = held[:, ln]
-                    stored.add((b, (r & ~31) + ln))
-            lo = ((hi << np.uint64(32)) | low) + np.uint64(1)
-    return out, stored
+        v = np.where(valid, m[b, np.minimum(idx, ss - 1)], 0).astype(np.int64)
+        lo, hi = v[valid].min(), v[valid].max()  # the two reductions
+        narrow[b], key, pad, decode, warp_min = _key_form(v, idx, lo, hi, sbits)
+        key = np.where(valid, key, pad)
+        if nk:
+            for i, j in _network(nk):
+                key[:, i], key[:, j] = (np.minimum(key[:, i], key[:, j]),
+                                        np.maximum(key[:, i], key[:, j]))
+            head, rest = key[:, 0].copy(), np.c_[key[:, 1:], np.full(32, pad)]
+            taken = np.zeros(32, int)  # keys each lane took from its list
+        last = np.uint64(0)
+        for base in range(0, topk, 32):
+            n = min(32, topk - base)
+            won = [None] * 32
+            for r in range(n):
+                if nk:
+                    won[r] = warp_min(head)
+                    (lane,) = np.flatnonzero(head == won[r])  # unique keys: one lane
+                    head[lane] = rest[lane, taken[lane]]
+                    taken[lane] += 1
+                else:
+                    won[r] = warp_min(np.where(key >= last, key, pad).min(axis=1))
+                    last = won[r] + np.uint64(1)
+            for lane in range(n):
+                sc, shift = decode(won[lane])
+                out[:, b, base + lane] = sc, (shift % s - window) * 4, (shift // s - window) * 4
+                stores[(b, base + lane)] += 1
+    return out, stores, narrow
 
 
-@pytest.mark.parametrize("window,topk,nk", [(4, 4, 4), (8, 16, 10), (8, 40, 10), (8, 289, 10),
-                                            (5, 7, 4), (16, 33, 36), (17, 16, 0)])
-def test_k9_warp_model_equals_plain(window, topk, nk):
-    """The kernel's selection and stores, modelled in numpy, give the plain
-    twin's candidates and write every slot once, on maps with wide and
-    narrow value ranges, negative scores and the int32 extremes."""
+CASES = [(4, 4, 4), (8, 16, 10), (8, 40, 10), (8, 289, 10), (5, 7, 4), (16, 33, 36), (17, 16, 0),
+         (0, 1, 4), (2, 25, 4), (8, 1, 10), (16, 16, 36), (17, 40, 0)]
+
+
+def _k9_maps(window, rng):
+    """Rows of wide and narrow value ranges, negative scores, the int32
+    extremes and chip_smoke.k9_rows' adversarial rows."""
+    ss = (2 * window + 1) ** 2
+    return np.concatenate([rng.integers(0, 16321, (3, ss)), rng.integers(-2, 3, (3, ss)),
+                           rng.choice([-2**31, 2**31 - 1, 0], (2, ss)),
+                           chip_smoke.k9_rows(window, rng)]).astype(np.int32)
+
+
+def _hold_model(window, topk, nk, seed):
     s = 2 * window + 1
     assert nk == 0 or (s * s + 31) // 32 <= nk  # the instance me_topk_select picks
-    rng = np.random.default_rng(topk + nk)
-    m = np.concatenate([rng.integers(0, 16321, (3, s * s)), rng.integers(-2, 3, (3, s * s)),
-                        rng.choice([-2**31, 2**31 - 1, 0], (2, s * s))]).astype(np.int32)
-    got, stored = _k9_warp_model(m, window, topk, nk)
+    m = _k9_maps(window, np.random.default_rng(seed))
+    got, stores, narrow = _k9_warp_model(m, window, topk, nk)
     want = topk_candidates_plain(torch.from_numpy(m), window, topk)
     for g, x in zip(got, want):
         np.testing.assert_array_equal(g, x.numpy())
-    assert stored == {(b, k) for b in range(len(m)) for k in range(topk)}
+    assert stores == {(b, k): 1 for b in range(len(m)) for k in range(topk)}
+    np.testing.assert_array_equal(narrow, chip_smoke.k9_narrow_rows(m, window))
+    assert narrow.all() if window == 0 else 0 < narrow.sum() < len(m)
+
+
+@pytest.mark.parametrize("window,topk,nk", CASES)
+def test_k9_warp_model_equals_plain(window, topk, nk):
+    """The kernel's selection and stores, modelled in numpy with one warp
+    per row, give the plain twin's candidates and write every slot once,
+    on _k9_maps' rows (the 32-bit keys' range limit and a step above, rows
+    of one value, the least scores in one lane's shifts among them); the
+    model keys in 32 bits the rows chip_smoke.k9_narrow_rows names, and at
+    every window but 0 rows take each form."""
+    _hold_model(window, topk, nk, topk + nk)
+
+
+@pytest.mark.parametrize("n,size", [(4, 5), (10, 32), (36, 268)])
+def test_k9_network_sorts(n, size):
+    """The kernel's network (its comparator count is the source's) sorts
+    every 0-1 input of n keys (n <= 10) or random ones (n = 36: 0-1 inputs,
+    permutations and keys with ties), which makes it a sorting network."""
+    net = _network(n)
+    assert len(net) == size and all(0 <= i < j < n for i, j in net)
+    if n <= 10:
+        keys = (np.arange(2**n)[:, None] >> np.arange(n)) & 1
+    else:
+        rng = np.random.default_rng(n)
+        keys = np.concatenate([rng.integers(0, 2, (3000, n)), rng.integers(0, 5, (3000, n)),
+                               np.argsort(rng.random((3000, n)), axis=1)])
+    keys = keys.copy()
+    for i, j in net:
+        keys[:, i], keys[:, j] = (np.minimum(keys[:, i], keys[:, j]),
+                                  np.maximum(keys[:, i], keys[:, j]))
+    np.testing.assert_array_equal(keys, np.sort(keys, axis=1))
+
+
+@pytest.mark.parametrize("window", [0, 4, 8, 16, 17])
+def test_k9_key_form_limit(window):
+    """chip_smoke.k9_narrow_rows: a row whose range is 2^(32 - sbits) - 1
+    (sbits = ceil(log2(S*S))) packs into 32-bit keys, a step above does
+    not, nor do the int32 extremes; rows of one value and SAD rows pack at
+    any window."""
+    ss = (2 * window + 1) ** 2
+    lim = (1 << (32 - (ss - 1).bit_length())) - 1
+    rows = [np.full(ss, -2**31), np.full(ss, 2**31 - 1), np.arange(ss) % 16321]
+    if ss > 1:
+        rows += [np.r_[-5, np.full(ss - 1, lim - 5)], np.r_[-5, np.full(ss - 1, lim - 4)],
+                 np.r_[-2**31, np.full(ss - 1, 2**31 - 1)]]
+    got = chip_smoke.k9_narrow_rows(np.stack(rows).astype(np.int32), window).tolist()
+    assert got == [True] * 3 + ([True, False, False] if ss > 1 else [])
+    assert window != 8 or lim == 2**23 - 1
 
 
 @pytest.mark.parametrize("window,ext", [(8, 10), (8, 8), (4, 6)])
