@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero and prints no result line; each
 1080p path's stream must also have the byte count STREAM_BYTES gives it):
   1. print the card's name and power limit; build the CUDA kernels from
-     the nine sources in h264_fer_tpu_torch/kernels/csrc (one nvcc per
+     the ten sources in h264_fer_tpu_torch/kernels/csrc (one nvcc per
      source, sm_90a) and the native slice decoder
      h264_fer_tpu_torch/native/decoder_native.cpp (g++), all started at
      once, and print each build's time and compiler report;
@@ -22,12 +22,14 @@ Phases (any failure exits non-zero and prints no result line; each
      1080p, counted (one launch);
   3. drive the all-intra path: GopIntraEncoder encodes 8 frames at
      1920x1088, QP 28, on the card with the launch counts set to 0 just
-     before (one K1t launch per frame, no K1); the stream must equal,
-     byte for byte, the stream of the plain chain (mode decision, plain K1t,
-     entropy) on the card, and parse back into SPS, PPS and 8 IDR slices; a
-     QCIF stream from the card must equal the CPU path's (the path the CPU
-     tests hold against the JAX reference). Prints e2e fps, device frame
-     fps and the per-stage device times;
+     before (one K1t launch and four K10 launches per frame, no K1); the
+     stream must equal, byte for byte, the stream of the plain chain (mode
+     decision, plain K1t, plain entropy) on the card, and parse back into
+     SPS, PPS and 8 IDR slices; the QCIF stream of the 10 frames of
+     tests/fixtures/clip_qcif_10f.y4m at QP 28 from the card must equal the
+     CPU path's and have the SHA-256 DEVICE_DIGESTS gives it (the JAX
+     GopIntraEncoder's stream, recomputed by tests/test_torch_iframe.py).
+     Prints e2e fps, device frame fps and the per-stage device times;
   4. hold K2 (integer search), K3 (qpel refine), K4 (P decision wavefront,
      one launch per frame) and K5 (MC, one thread per quadrant row reading
      aligned words) against their plain twins on the card, bit-exact: at
@@ -43,11 +45,13 @@ Phases (any failure exits non-zero and prints no result line; each
      encodes 16 frames with the launch counts set to 0 just before; the
      stream of the first GOP's first 4 frames (the IDR and 3 P frames) must
      equal, byte for byte, the stream of the plain chain on the card (plain
-     K1 and all four plain P twins), and the whole
+     K1, all four plain P twins and the plain entropy), and the whole
      stream parse back into SPS, PPS and per GOP an IDR and 7 P slice
-     headers; a QCIF IPPP stream from the card must equal the CPU path's.
-     Prints e2e fps, device ms per P frame for each stage and the counted
-     launches (one K1t per IDR, one K4 per P frame);
+     headers; the QCIF IPPP stream of the clip's first 6 frames (GOP 4, QP
+     28) from the card must equal the CPU path's and have its
+     DEVICE_DIGESTS digest (tests/test_torch_ippp.py). Prints e2e fps,
+     device ms per P frame for each stage and the counted launches (one
+     K1t per IDR, one K4 per P frame, four K10 per frame);
   6. hold K4x4 (Intra_4x4 recon and levels), K7 (chroma wavefront writing
      its levels) and K6 (mixed arbitration wavefront), each one dataflow
      launch per frame, against their plain twins on the card, bit-exact on
@@ -66,12 +70,15 @@ Phases (any failure exits non-zero and prints no result line; each
      plain output;
   7. drive the mixed all-intra path: GopIntraEncoder(1920, 1088, 28,
      mode="mixed") encodes 8 frames with the launch counts set to 0 just
-     before (one K6 and one K7 launch per frame, no K1 or K1t, and no
-     rebuild of the chroma levels from the recon); the first
+     before (one K6 and one K7 launch per frame, two K10 launches of the
+     chroma setup, computed once a frame, and four of the slice, no K1 or
+     K1t, and no rebuild of the chroma levels from the recon); the first
      frame's stream must equal, byte for byte, the stream of the plain
-     chain on the card, and the whole stream parse back; a QCIF mixed stream
-     from the card must equal the CPU path's. Prints e2e fps, device ms of
-     each stage of one frame and the profiled busy share;
+     chain on the card, and the whole stream parse back; the QCIF mixed
+     stream of the clip's first 2 frames at QP 28 from the card must equal
+     the CPU path's and have its DEVICE_DIGESTS digest
+     (tests/test_torch_mixed.py). Prints e2e fps, device ms of each stage
+     of one frame and the profiled busy share;
   8. hold K8 (the in-loop filter, one dataflow launch per frame) against
      its plain twin on the card, bit-exact: at 1920x1088 on an I frame's
      state at QP 16, 28 and 46 and on a P frame's state at QP 28, 36 and 46
@@ -84,13 +91,16 @@ Phases (any failure exits non-zero and prints no result line; each
   9. drive the session path: Encoder(1920, 1088, EncoderConfig(qp=28,
      intra_every=8, deblock=True)) encodes 16 frames with the launch counts
      set to 0 just before (one K1t launch per IDR, one K8 launch per frame,
-     one launch of each P kernel per P frame); the first 3 frames'
-     stream must equal, byte for byte, the plain chain's (the same encoder
-     with every kernel swapped for its plain twin), and the stream parse
-     back with the filter signalled in the PPS and every slice header; QCIF
-     session streams from the card, with i16 IDRs and with mixed IDRs, must
-     equal the CPU path's. Prints e2e fps, K8's ms and launches per frame,
-     the session's stage times and the profiled busy share;
+     one launch of each P kernel per P frame, four K10 per frame); the
+     first 3 frames' stream must equal, byte for byte, the plain chain's
+     (the same encoder with every kernel and K10 swapped for its plain
+     twin), and the stream parse back with the filter signalled in the PPS
+     and every slice header; QCIF session streams from the card, with i16
+     IDRs and with mixed IDRs, must equal the CPU path's, and the i16 one
+     (the clip's 10 frames, QP 30, intra_every 4, deblock) have its
+     DEVICE_DIGESTS digest (tests/test_torch_encoder.py). Prints e2e fps,
+     K8's ms and launches per frame, the session's stage times and the
+     profiled busy share;
   10. drive the host path, the reference encoder's exact per-MB loop on the
      host with the in-loop filter K8 on the card: Encoder(1920, 1088,
      EncoderConfig(qp=28, intra_every=8, deblock=True), iframe="host",
@@ -119,7 +129,8 @@ Phases (any failure exits non-zero and prints no result line; each
      deblock=True), iframe="i16", pframe="host", me="topk") (the CLI's
      `encode --tpu-iframe --tpu-me --deblock --intra-every 8`) on 2
      frames with the launch counts set to 0 just before (one K1t, K2 and
-     K9 launch, one K8 per frame, no other P kernel): the stream parses
+     K9 launch, four K10 for the IDR, one K8 per frame, no other P kernel
+     and no K10 on the host P frame): the stream parses
      with the filter signalled and its candidates, read from plane 0 of
      the P frame's interpolated planes, equal the plain chain's. Times K9
      both ways on that P frame's map, its plain twin and one torch.topk
@@ -135,7 +146,9 @@ Phases (any failure exits non-zero and prints no result line; each
      even and 3 uneven bands and mixed in 3 uneven bands,
      GopTileIntraEncoder (2, 2), GopIntraEncoder and GopIpppEncoder on 2
      entries, each with the band kernels' counts set to 0 just before (one
-     launch of each band kernel of its mode per band per frame); every
+     launch of each band kernel of its mode per band per frame, and K10's
+     four per slice or band, two more per band for the mixed chroma
+     setup); every
      stream must equal the one-device stream of phase 3, 5 or 7, and the
      band encoders' recon must decode from it (decode_gate, untimed).
      Prints each one's median e2e fps of 3 after a warm-up, the profiled
@@ -162,14 +175,31 @@ Phases (any failure exits non-zero and prints no result line; each
      rows and in 2 of 34, and GopTileIpppEncoder (2, 2), on entries of the
      card, each with the launch counts set to 0 just before (one K4-band,
      K2, K3 and K5 launch per band per P frame, one K1t-band per band per
-     IDR, no frame K4 or K1t): each stream must equal phase 5's one-device
+     IDR, four K10 per band, no frame K4 or K1t): each stream must equal
+     phase 5's one-device
      stream and the bands' reference planes decode from it (decode_gate,
      spec mode, untimed); prints each one's median e2e fps of 3 after a
      warm-up. The QCIF band streams on the card (6 frames of the clip, GOP
      4, 3 bands, QP 28 and 40) must have the SHA-256 TILE_P_DIGESTS gives
      them (the JAX GopIpppEncoder's streams, recomputed by
      tests/test_torch_ippp.py);
-  13. the decode gate: decode each 1080p stream of phases 3, 5, 7, 9 and 10
+  13. hold K10 (the slice entropy, four launches a slice or band; the
+     chroma setup, two) against its plain twins on the card, bit-exact on
+     every output key (the words in full): all-I16, mixed, P and the chroma
+     setup at 1920x1088 for QP 8, 28 and 46 on the levels and decisions of
+     a content frame (K1t, K7 and K6, K2-K5 on phase 4's content pair); the
+     band forms on band 1 of 4 at QP 28 with a real top_ctx (band 0's last
+     MB row of the frame's state), padded MBs (`valid` False on the band's
+     last MB row) and P's run_lead as a tensor on the card; and on QCIF,
+     64x208, 16x144 and 176x16 grids with seeded random levels that reach
+     every branch (k10_levels: both level escapes, suffixLength 6, 16 of 16
+     and 15 of 15 nonzeros, three trailing ones with more than 10 nonzeros,
+     zerosLeft > 6, every nC context), every P mb_type with extreme mvds,
+     an all-skip P frame, P frames whose last and whose first MB is
+     skipped, as whole slices and as bands (top_ctx, valid, run_lead an int
+     and a tensor). Times each form both ways at 1080p QP 28 beside its
+     plain twin, holding every timed call to the plain output;
+  14. the decode gate: decode each 1080p stream of phases 3, 5, 7, 9 and 10
      (both of phase 10's)
      with the port's Decoder on the card (native form) and hold every
      frame, exactly, to the reconstruction the run has for it: the plain
@@ -182,7 +212,7 @@ Phases (any failure exits non-zero and prints no result line; each
      stream's frames, median decode fps of 5 runs after a warm-up and K8
      launches per frame; the QCIF session streams decode equal on the
      card and on the CPU (plain K8);
-  14. print the kernels line (K8's row also with its launches on the host
+  15. print the kernels line (K8's row also with its launches on the host
      path and on the session stream's decode, K2's with its launches on
      the --tpu-me path, K9's with torch.topk's time as library_ms) and,
      last,
@@ -213,7 +243,8 @@ E2E_REPS = 5
 CHECK_QPS = (8, 28, 46)
 SEED = 7
 KERNEL_SOURCES = ("wavefront_i16", "me_int", "me_qpel", "wavefront_p", "mc",
-                  "wavefront_i4x4", "wavefront_mixed", "deblock", "me_topk")
+                  "wavefront_i4x4", "wavefront_mixed", "deblock", "me_topk",
+                  "cavlc_slice")
 NATIVE_DECODER = "decoder_native"  # h264_fer_tpu_torch/native, built by g++
 # the IPPP main path: bench.py's e2e_ippp_encode_1080p_fps configuration
 GOP_LEN, N_IPPP, WINDOW = 8, 16, 8
@@ -268,6 +299,19 @@ N_TILE_P_QCIF = 6
 TILE_P_DIGESTS = {
     "qp28": "849523586fe581a5c096d44528bb2b800de772219668d3e77e68be20578e46f5",
     "qp40": "eb5b872a43e6acbf4f1b6fb11f130acea1d54084238298810aa5f0c192466bc0",
+}
+# the one-device QCIF streams of phases 3, 5, 7 and 9 on the card, each
+# held to the SHA-256 of the JAX package's stream of the same configuration
+# (the clip's frames: all-intra GopIntraEncoder QP 28, 10 frames; IPPP
+# GopIpppEncoder QP 28 GOP 4, 6 frames; mixed GopIntraEncoder(mode="mixed")
+# QP 28, 2 frames; session Encoder QP 30 intra_every 4 deblock, 10 frames),
+# which tests/test_torch_iframe.py, test_torch_ippp.py, test_torch_mixed.py
+# and test_torch_encoder.py recompute with JAX
+DEVICE_DIGESTS = {
+    "all-intra": "94dd9f5dcac8c2d55b41d34627b18593c27fe64bdd20dcd08ddf84cdf48a89b0",
+    "IPPP": "849523586fe581a5c096d44528bb2b800de772219668d3e77e68be20578e46f5",
+    "mixed": "59b61c94414a450880e26f3e4e3622f1924ee4ee48fea9fd9e17e80a6443168b",
+    "session": "adb8099e36443387ea4f82ab11f591d3ae1ca2066e2f9f9f097f30901b6a27e7",
 }
 P_QPS = (28, 40, 46)  # SAD, SSD and 2*SSD tiers
 # bytes of each 1080p path's stream on chip_smoke's content (the first four
@@ -748,9 +792,10 @@ DECIDE_KEYS = ("skip", "mb_type", "mv", "mvd")
 
 
 def p_kernels(plain: bool) -> dict:
-    """K2-K5 and K4-band as the stage callables of p_frame_stages: the
-    wrappers, which launch the kernels on the card, or with `plain` their
-    plain twins."""
+    """K2-K5, K4-band and the slice entropy (K10) as the stage callables of
+    p_frame_stages: the wrappers, which launch the kernels on the card, or
+    with `plain` their plain twins."""
+    from h264_fer_tpu_torch.codec.entropy import p_slice_entropy, p_slice_entropy_plain
     from h264_fer_tpu_torch.kernels.mc import mc_bulk, mc_bulk_plain
     from h264_fer_tpu_torch.kernels.me_int import integer_score_map, integer_score_map_plain
     from h264_fer_tpu_torch.kernels.me_qpel import qpel_refine_map_plain, qpel_refine_maps
@@ -760,13 +805,13 @@ def p_kernels(plain: bool) -> dict:
     if not plain:
         return {"me_int": integer_score_map, "me_qpel": qpel_refine_maps,
                 "wavefront_p": pframe_decide, "wavefront_p_band": pframe_decide_band,
-                "mc": mc_bulk}
+                "mc": mc_bulk, "entropy": p_slice_entropy}
     return {"me_int": integer_score_map_plain,
             "me_qpel": lambda y, planes, c1, c2, ext, metric: (
                 qpel_refine_map_plain(y, planes, c1, ext, metric),
                 qpel_refine_map_plain(y, planes, c2, ext, metric)),
             "wavefront_p": pframe_decide_plain, "wavefront_p_band": pframe_decide_plain,
-            "mc": mc_bulk_plain}
+            "mc": mc_bulk_plain, "entropy": p_slice_entropy_plain}
 
 
 def p_frame_stages(torch, kern, frame, ref, qp, mc_mv=None, window=WINDOW, band=False,
@@ -782,7 +827,6 @@ def p_frame_stages(torch, kern, frame, ref, qp, mc_mv=None, window=WINDOW, band=
     K4-band ("wavefront_p_band") in place of K4 with `top` its halo.
     Returns (fns, args, outs): each stage's callable, its arguments and its
     output, by stage name."""
-    from h264_fer_tpu_torch.codec.entropy import p_slice_entropy
     from h264_fer_tpu_torch.codec.pframe import (adaptive_maxdiff, blocks_to_mbq,
                                                  me_centres, me_params,
                                                  pframe_residual_recon)
@@ -801,7 +845,7 @@ def p_frame_stages(torch, kern, frame, ref, qp, mc_mv=None, window=WINDOW, band=
     mbq = lambda x: blocks_to_mbq(x, wmb, hmb)  # noqa: E731
     fns = {"interp": interpolated_planes_banded if band else interpolated_planes, **kern,
            "residual_recon": pframe_residual_recon,
-           "entropy": lambda *a: p_slice_entropy(*a, wmb=wmb, hmb=hmb)}
+           "entropy": lambda *a: kern["entropy"](*a, wmb=wmb, hmb=hmb)}
     pad = pad_chroma_banded if band else pad_chroma
     args, outs = {}, {}
 
@@ -1023,9 +1067,9 @@ def check_p_small_grids(torch, dev):
 
 def plain_i16_payload(torch, dev, enc, frame):
     """One all-I16 frame through the oracle chain on the card: mode
-    decision, plain K1t (plain K1, then the levels from its recon) and
-    entropy. Returns (payload dict, recon planes)."""
-    from h264_fer_tpu_torch.codec.entropy import i16_slice_entropy
+    decision, plain K1t (plain K1, then the levels from its recon) and the
+    plain entropy. Returns (payload dict, recon planes)."""
+    from h264_fer_tpu_torch.codec.entropy import i16_slice_entropy_plain
     from h264_fer_tpu_torch.codec.intra_decision import intra16_mode_decision
     from h264_fer_tpu_torch.kernels.wavefront_i16 import i16_frame_plain
     from h264_fer_tpu_torch.ops.intra import INTRA16_TO_CHROMA_MODE
@@ -1034,7 +1078,7 @@ def plain_i16_payload(torch, dev, enc, frame):
     m16 = intra16_mode_decision(y.to(torch.int32), enc.qp)[0].to(torch.int32)
     cm = torch.from_numpy(INTRA16_TO_CHROMA_MODE).to(dev)[m16.long()]
     ry, i16dc, ac, rcb, rcr, cdc, cac = i16_frame_plain(y, cb, cr, m16, cm, enc.qp, enc.qpc)
-    return (i16_slice_entropy(m16, cm, i16dc, ac, cdc, cac, wmb=enc.wmb, hmb=enc.hmb),
+    return (i16_slice_entropy_plain(m16, cm, i16dc, ac, cdc, cac, wmb=enc.wmb, hmb=enc.hmb),
             (ry, rcb, rcr))
 
 
@@ -1144,8 +1188,9 @@ def mixed_inputs(torch, frame, qp, chroma=None):
     """The mixed frame's stages up to K6 on one frame (y, cb, cr) on a
     device: returns (decision dict, chroma modes, chroma levels (cdc, cac),
     K6's arguments). chroma: K7 as a callable (cb, cr, cmodes, qpc) →
-    (rcb, rcr, cdc, cac); chroma_frame_plain by default."""
-    from h264_fer_tpu_torch.codec.entropy import chroma_setup
+    (rcb, rcr, cdc, cac), followed by the chroma setup on K10; by default
+    the plain chain, chroma_frame_plain and chroma_setup_plain."""
+    from h264_fer_tpu_torch.codec.entropy import chroma_setup, chroma_setup_plain
     from h264_fer_tpu_torch.codec.intra_decision import intra_mode_decision
     from h264_fer_tpu_torch.kernels.wavefront_i16 import chroma_frame_plain
     from h264_fer_tpu_torch.ops.intra import INTRA16_TO_CHROMA_MODE
@@ -1156,18 +1201,18 @@ def mixed_inputs(torch, frame, qp, chroma=None):
     dec = intra_mode_decision(y.to(torch.int32), qp)
     cm = torch.from_numpy(INTRA16_TO_CHROMA_MODE).to(y.device)[dec["mode16"].long()]
     _, _, cdc, cac = (chroma or chroma_frame_plain)(cb, cr, cm, chroma_qp(qp))
-    ch = chroma_setup(cdc, cac, w // 16, h // 16)
+    ch = (chroma_setup_plain if chroma is None else chroma_setup)(cdc, cac, w // 16, h // 16)
     return dec, cm, (cdc, cac), (y, dec["mode16"], dec["mode4"], cm,
                                  ch["cbp_chroma"], ch["bits"], qp)
 
 
 def mixed_payload(dec, cm, cdc, cac, mx):
     """The slice payload of a mixed frame from its mode decision, chroma
-    modes and levels, and K6's outputs mx."""
-    from h264_fer_tpu_torch.codec.entropy import mixed_slice_entropy
+    modes and levels, and K6's outputs mx, by the plain entropy."""
+    from h264_fer_tpu_torch.codec.entropy import mixed_slice_entropy_plain
 
     hmb, wmb = (n // 16 for n in mx["recon_y"].shape)
-    return mixed_slice_entropy(
+    return mixed_slice_entropy_plain(
         mx["choice4"], dec["mode16"], cm, mx["i16dc"], mx["i16ac"], mx["lv4"],
         mx["prev_flags"], mx["rem_modes"], mx["cbp_luma"], mx["tc_luma"], cdc, cac,
         wmb=wmb, hmb=hmb)
@@ -1297,6 +1342,7 @@ def mixed_stage_times(torch, dev, frame):
     ent_args = (mx["choice4"], dec["mode16"], cm, *(mx[k] for k in (
         "i16dc", "i16ac", "lv4", "prev_flags", "rem_modes", "cbp_luma", "tc_luma")),
         cdc, cac)
+    ch = chroma_setup(cdc, cac, W // 16, H // 16)
     yi = y.to(torch.int32)
     return {
         "mode_decision": cuda_ms(torch, lambda: intra_mode_decision(yi, QP), 5),
@@ -1304,7 +1350,7 @@ def mixed_stage_times(torch, dev, frame):
         "chroma_setup": cuda_ms(torch, lambda: chroma_setup(cdc, cac, W // 16, H // 16), 5),
         "k6_mixed": cuda_ms(torch, lambda: mixed_luma(*args), 5),
         "entropy": cuda_ms(torch, lambda: mixed_slice_entropy(
-            *ent_args, wmb=W // 16, hmb=H // 16), 5),
+            *ent_args, wmb=W // 16, hmb=H // 16, chroma=ch), 5),
     }
 
 
@@ -1403,11 +1449,11 @@ def random_state(torch, dev, w, h, seed):
 
 def plain_patches():
     """Context managers that swap every kernel wrapper the session encoder
-    (i16 I frames) calls for its plain twin, where the encoder's modules
-    look it up."""
+    calls for its plain twin, where the encoder's modules look it up: K10
+    for the plain entropy too."""
     from unittest import mock
 
-    from h264_fer_tpu_torch.codec import encoder, iframe, pframe
+    from h264_fer_tpu_torch.codec import encoder, entropy, iframe, pframe
     from h264_fer_tpu_torch.kernels.deblock import deblock_frame_plain
     from h264_fer_tpu_torch.kernels.wavefront_i16 import i16_frame_plain
 
@@ -1418,7 +1464,13 @@ def plain_patches():
             mock.patch.object(pframe, "integer_score_map", plain["me_int"]),
             mock.patch.object(pframe, "qpel_refine_maps", plain["me_qpel"]),
             mock.patch.object(pframe, "pframe_decide", plain["wavefront_p"]),
-            mock.patch.object(pframe, "mc_bulk", plain["mc"])]
+            mock.patch.object(pframe, "mc_bulk", plain["mc"]),
+            mock.patch.object(pframe, "p_slice_entropy", plain["entropy"]),
+            mock.patch.object(iframe, "i16_slice_entropy", entropy.i16_slice_entropy_plain),
+            mock.patch.object(iframe, "chroma_setup", entropy.chroma_setup_plain),
+            mock.patch.object(iframe, "mixed_slice_entropy",
+                              lambda *a, chroma=None, **kw:
+                              entropy.mixed_slice_entropy_plain(*a, **kw))]
 
 
 def plain_session_stream(torch, dev, cfg, frames, counted) -> bytes:
@@ -1630,7 +1682,7 @@ def band_stage_times(torch, dev, frame):
                 "i16dc", "i16ac", "lv4", "prev_flags", "rem_modes", "cbp_luma", "tc_luma")),
                 cdc, cac)
             times["entropy"] = cuda_ms(torch, lambda: mixed_slice_entropy(
-                *ent, wmb=wmb, hmb=hloc, top_ctx=ctx), 5)
+                *ent, wmb=wmb, hmb=hloc, top_ctx=ctx, chroma=ch), 5)
         out[mode] = times
     return out
 
@@ -1693,7 +1745,8 @@ def multi_device_phase(torch, dev, name, to_decode):
                                                         scaling_frames)
 
     counted = {"wavefront_i16_levels_band": i16_band, "wavefront_chroma_band": chroma_band,
-               "wavefront_mixed_band": mixed_luma_band}
+               "wavefront_mixed_band": mixed_luma_band,
+               **{fn.__name__: fn for fn in k10_counted()}}
     totals = dict.fromkeys(counted, 0)
     frames = {"all-intra": content(N_FRAMES, W, H), "mixed": content(N_FRAMES, W, H),
               "IPPP": content(N_IPPP, W, H)}
@@ -1713,6 +1766,14 @@ def multi_device_phase(torch, dev, name, to_decode):
             keys = (("wavefront_chroma_band", "wavefront_mixed_band") if enc.mode == "mixed"
                     else ("wavefront_i16_levels_band",))
             want.update({k: N_FRAMES * n_bands for k in keys})
+            slices = N_FRAMES * n_bands  # K10: one slice entropy per band
+            want.update(k10_launches({"chroma": slices, "mixed": slices} if enc.mode == "mixed"
+                                     else {"i16": slices}))
+        elif path == "IPPP":
+            n_gops = len(frames[path]) // GOP_LEN
+            want.update(k10_launches({"i16": n_gops, "p": len(frames[path]) - n_gops}))
+        else:
+            want.update(k10_launches({"i16": len(frames[path])}))
         if got != want:
             raise AssertionError(f"{label}: band launches {got}, expected {want}")
         for k in totals:
@@ -1971,7 +2032,8 @@ def p_band_phase(torch, dev, name, to_decode):
 
     counted = {"pframe_decide_band": pframe_decide_band, "integer_score_map": integer_score_map,
                "qpel_refine_maps": qpel_refine_maps, "mc_bulk": mc_bulk, "i16_band": i16_band,
-               "pframe_decide": pframe_decide, "i16_frame": i16_frame}
+               "pframe_decide": pframe_decide, "i16_frame": i16_frame,
+               **{fn.__name__: fn for fn in k10_counted()}}
     frames = content(N_IPPP, W, H)
     n_gops = N_IPPP // GOP_LEN
     n_p = N_IPPP - n_gops
@@ -1986,7 +2048,8 @@ def p_band_phase(torch, dev, name, to_decode):
         got = {k: fn.launches for k, fn in counted.items()}
         want = {k: n_p * n_tile for k in ("pframe_decide_band", "integer_score_map",
                                           "qpel_refine_maps", "mc_bulk")}
-        want.update(i16_band=n_gops * n_tile, pframe_decide=0, i16_frame=0)
+        want.update(i16_band=n_gops * n_tile, pframe_decide=0, i16_frame=0,
+                    **k10_launches({"i16": n_gops * n_tile, "p": n_p * n_tile}))
         if got != want:
             raise AssertionError(f"{label}: launches {got}, expected {want}")
         launches += got["pframe_decide_band"]
@@ -2021,6 +2084,24 @@ def p_band_phase(torch, dev, name, to_decode):
 
 def repo_file(rel: str) -> pathlib.Path:
     return pathlib.Path(__file__).resolve().parent / rel
+
+
+def qcif_clip(n: int) -> list:
+    """The first n frames of the QCIF clip HOST_CLIP, (y, cb, cr) uint8."""
+    from h264_fer_tpu_torch.vio.y4m import Y4MReader
+
+    return list(Y4MReader(str(repo_file(HOST_CLIP))))[:n]
+
+
+def check_device_qcif(key: str, on_card: bytes, on_cpu: bytes) -> None:
+    """Raise unless the one-device QCIF stream `key` from the card equals
+    the CPU path's and has the SHA-256 DEVICE_DIGESTS gives it."""
+    if on_card != on_cpu:
+        raise AssertionError(f"QCIF {key} stream on the card != CPU path stream")
+    digest = hashlib.sha256(on_card).hexdigest()
+    if digest != DEVICE_DIGESTS[key]:
+        raise AssertionError(f"QCIF {key} stream: SHA-256 {digest} != the JAX "
+                             f"package's {DEVICE_DIGESTS[key]}")
 
 
 def host_qcif_streams(dev) -> dict:
@@ -2223,8 +2304,9 @@ def me_topk_path(torch, dev, frames):
     """Phase 10's --tpu-me run at 1080p (the CLI's `encode --tpu-iframe
     --tpu-me --deblock --intra-every 8`): Encoder(..., iframe="i16",
     pframe="host", me="topk") on `frames` with the launch counts set to 0
-    just before; one K1t, K2 and K9 launch and one K8 per frame, no other P
-    kernel; the stream parses with the filter signalled. Returns (stream,
+    just before; one K1t, K2 and K9 launch, K10's four for the IDR and one
+    K8 per frame, no other P kernel; the stream parses with the filter
+    signalled. Returns (stream,
     the reference planes after each frame on the card, launches, per frame
     the seconds, the encoder's stats, and the recorded (src, plane0, ext,
     window, candidates) of the P frame's search)."""
@@ -2248,7 +2330,7 @@ def me_topk_path(torch, dev, frames):
         return out
 
     counted = (i16_frame, i16_recon, integer_score_map, topk_candidates, deblock_frame,
-               qpel_refine_maps, pframe_decide, mc_bulk)
+               qpel_refine_maps, pframe_decide, mc_bulk, *k10_counted())
     torch.cuda.synchronize()
     for fn in counted:
         fn.launches = 0
@@ -2264,12 +2346,305 @@ def me_topk_path(torch, dev, frames):
     n_p = sum(not st["idr"] for st in enc.stats)
     want = {"i16_frame": len(frames) - n_p, "i16_recon": 0, "integer_score_map": n_p,
             "topk_candidates": n_p, "deblock_frame": len(frames), "qpel_refine_maps": 0,
-            "pframe_decide": 0, "mc_bulk": 0}
+            "pframe_decide": 0, "mc_bulk": 0, **k10_launches({"i16": len(frames) - n_p})}
     if launches != want or len(searched) != n_p:
         raise AssertionError(f"--tpu-me path launches {launches} ({len(searched)} searches), "
                              f"expected {want}")
     parse_session_stream(stream, enc.stats, W, H, QP)
     return stream, recon, launches, frame_s, enc.stats, searched
+
+
+K10_QCIF_GRIDS = (("176x144", 176, 144), ("64x208", 64, 208), ("16x144", 16, 144),
+                  ("176x16", 176, 16))
+# the tpu_entropy function each K10 form replaces, and its row in the kernels line
+K10_ROWS = {"i16": ("cavlc_slice_i16", "h264_fer_tpu/codec/tpu_entropy.py:433"),
+            "mixed": ("cavlc_slice_mixed", "h264_fer_tpu/codec/tpu_entropy.py:185"),
+            "p": ("cavlc_slice_p", "h264_fer_tpu/codec/tpu_entropy.py:298"),
+            "chroma": ("cavlc_chroma_setup", "h264_fer_tpu/codec/tpu_entropy.py:153")}
+# the positions of each form's level arrays among its function's arguments
+K10_LEVELS = {"i16": (2, 3, 4, 5), "mixed": (3, 4, 5, 10, 11), "p": (3, 4, 5),
+              "chroma": (0, 1)}
+
+
+def k10_functions():
+    """{form: (K10 dispatcher, plain twin, wrapper whose .launches count it)}."""
+    from h264_fer_tpu_torch.codec import entropy
+    from h264_fer_tpu_torch.kernels import cavlc_slice
+
+    return {"i16": (entropy.i16_slice_entropy, entropy.i16_slice_entropy_plain,
+                    cavlc_slice.i16_entropy),
+            "mixed": (entropy.mixed_slice_entropy, entropy.mixed_slice_entropy_plain,
+                      cavlc_slice.mixed_entropy),
+            "p": (entropy.p_slice_entropy, entropy.p_slice_entropy_plain,
+                  cavlc_slice.p_entropy),
+            "chroma": (entropy.chroma_setup, entropy.chroma_setup_plain,
+                       cavlc_slice.chroma_entropy)}
+
+
+def k10_counted() -> tuple:
+    """K10's four wrappers, whose .launches count its launches by form."""
+    return tuple(fn for _, _, fn in k10_functions().values())
+
+
+def k10_launches(want: dict) -> dict:
+    """{wrapper name: launches} of K10's wrappers; `want` by form, the
+    slices (or chroma setups) of a run: four launches a slice, two a
+    chroma setup, none of a form not named."""
+    names = {form: fn.__name__ for form, (_, _, fn) in k10_functions().items()}
+    return {names[f]: (2 if f == "chroma" else 4) * want.get(f, 0) for f in names}
+
+
+def k10_levels(rng, shape) -> np.ndarray:
+    """Seeded random zig-zag level lists (shape (..., L), int32) that reach
+    every branch of the CAVLC block syntax, a kind drawn per list: none;
+    sparse at a random density; every coefficient nonzero (16 of 16, 15 of
+    15); all nonzero with three trailing +-1 (more than 10 nonzeros with
+    TrailingOnes 3); magnitudes growing from the last coefficient to 2026
+    (suffixLength up to 6 and its escape); two far apart (zerosLeft > 6);
+    trailing ones alone. Amplitudes up to 3000 take both level escapes."""
+    L = shape[-1]
+    n = int(np.prod(shape[:-1]))
+    kind = rng.integers(0, 7, (n, 1))
+    amp = rng.choice([1, 2, 3, 9, 40, 300, 3000], (n, 1))
+    sign = rng.choice([-1, 1], (n, L))
+    val = sign * rng.integers(1, amp + 1, (n, L))
+    dens = rng.uniform(0.05, 0.5, (n, 1))
+    pos = np.arange(L)
+    out = np.where(kind == 1, np.where(rng.random((n, L)) < dens, val, 0), 0)
+    out = np.where(kind == 2, val, out)
+    out = np.where(kind == 3, np.where(pos >= L - 3, sign, val), out)
+    out = np.where(kind == 4, sign * (1 + 9 * (L - 1 - pos) ** 2), out)
+    far = (pos == 0) | (pos == L - 1)
+    out = np.where(kind == 5, np.where(far, val, 0), out)
+    out = np.where(kind == 6, np.where(rng.random((n, L)) < 0.2, sign, 0), out)
+    return out.reshape(shape).astype(np.int32)
+
+
+def k10_random_args(form: str, wmb: int, hmb: int, rng, skip=None) -> tuple:
+    """Seeded random numpy arguments of a K10 form's function for a grid
+    of wmb x hmb MBs (k10_levels' lists; a quarter of the MBs with no luma
+    AC and a third with no chroma AC or DC). P: skip (nmb,) bool (random
+    when None; levels zero there), every mb_type 0-4, mvds small and up to
+    +-2^15 - 1. Mixed: both classes, with CBP and the final TotalCoeffs as
+    K6 derives them from the winner's levels."""
+    nmb = wmb * hmb
+    cdc, cac = k10_levels(rng, (2, nmb, 4)), k10_levels(rng, (2, nmb, 4, 15))
+    cac[:, rng.random(nmb) < 0.3] = 0
+    cdc[:, rng.random(nmb) < 0.3] = 0
+    if form == "chroma":
+        return cdc, cac
+    modes = [rng.integers(0, 4, nmb).astype(np.int32) for _ in range(2)]
+    if form == "p":
+        skip = rng.random(nmb) < 0.4 if skip is None else skip
+        mb_type = rng.integers(0, 5, nmb).astype(np.int32)
+        mvd = np.where(rng.random((nmb, 4, 2)) < 0.8, rng.integers(-20, 21, (nmb, 4, 2)),
+                       rng.choice([-32767, -8192, 8191, 32767], (nmb, 4, 2))).astype(np.int32)
+        luma = k10_levels(rng, (nmb, 16, 16))
+        luma[skip], cdc[:, skip], cac[:, skip] = 0, 0, 0
+        return skip, mb_type, mvd, luma, cdc, cac
+    i16dc, i16ac = k10_levels(rng, (nmb, 16)), k10_levels(rng, (nmb, 16, 15))
+    i16ac[rng.random(nmb) < 0.25] = 0
+    if form == "i16":
+        return (*modes, i16dc, i16ac, cdc, cac)
+    lv4 = k10_levels(rng, (nmb, 16, 16))
+    lv4[rng.random(nmb) < 0.2] = 0
+    choice4 = rng.random(nmb) < 0.5
+    tc16, tc4 = (np.count_nonzero(lv, axis=-1) for lv in (i16ac, lv4))
+    cbp16 = np.where(tc16.any(axis=1), 15, 0)
+    dc_only = np.zeros_like(tc16)
+    dc_only[:, 0] = np.count_nonzero(i16dc, axis=1)
+    quads = tc4.reshape(nmb, 4, 4).any(axis=2)
+    cbp4 = (quads << np.arange(4)).sum(axis=1)
+    cbp_luma = np.where(choice4, cbp4, cbp16).astype(np.int32)
+    tc_luma = np.where(choice4[:, None], tc4 * np.repeat(quads, 4, axis=1),
+                       np.where(cbp16[:, None] == 15, tc16, dc_only)).astype(np.int32)
+    return (choice4, *modes, i16dc, i16ac, lv4, rng.random((nmb, 16)) < 0.5,
+            rng.integers(0, 8, (nmb, 16)).astype(np.int32), cbp_luma, tc_luma, cdc, cac)
+
+
+def k10_err(torch, got: dict, want: dict) -> int:
+    """Largest absolute difference over every key of the plain twin's dict
+    (the words compared byte by byte, all of them); a key missing, or of
+    another shape or dtype, fails."""
+    if set(got) != set(want):
+        raise AssertionError(f"K10 keys {sorted(got)} != plain {sorted(want)}")
+    err = 0
+    for key, w in want.items():
+        g = got[key]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"K10 {key}: {g.dtype} {tuple(g.shape)} != plain "
+                                 f"{w.dtype} {tuple(w.shape)}")
+        if key == "words":
+            g, w = g.contiguous().view(torch.uint8), w.contiguous().view(torch.uint8)
+        err = max(err, max_err(torch, [g], [w]))
+    return err
+
+
+def k10_needed(form: str, args, kw) -> tuple:
+    """(the arguments K10's function needs to read, its level arrays among
+    them) for this run's data: every argument, but in the mixed form only
+    the winner's luma levels of each MB (lv4 at an Intra4x4 MB, i16dc and
+    i16ac at an Intra16x16 one) and the chroma levels the chroma setup's
+    cbp_chroma codes (DC where it is 1 or 2, AC where it is 2)."""
+    pos = K10_LEVELS[form]
+    if form != "mixed":
+        return list(args), [args[i] for i in pos]
+    i4, cbp_c = args[0], kw["chroma"]["cbp_chroma"]
+    i16dc, i16ac, lv4, cdc, cac = (args[i] for i in pos)
+    levels = [i16dc[~i4], i16ac[~i4], lv4[i4], cdc[:, cbp_c > 0], cac[:, cbp_c == 2]]
+    return [a for i, a in enumerate(args) if i not in pos] + levels, levels
+
+
+def check_k10(torch, label: str, form: str, args, wmb: int, hmb: int, time_it=False, **kw):
+    """K10 (form's dispatcher, on the card tensors args, with kw: top_ctx,
+    valid, run_lead; mixed: chroma, the chroma setup's output) against its
+    plain twin on the same inputs, every key. Returns (max_abs_err, ms,
+    plain_ms, bound_ms, bound_by, queued_ms) (times None unless time_it;
+    every timed call is held to the plain output too) and the plain
+    output."""
+    fn, plain, _ = k10_functions()[form]
+    plain_kw = {k: v for k, v in kw.items() if k != "chroma"}
+    got = fn(*args, wmb, hmb, **kw)
+    want, plain_ms = timed_once(torch, lambda: plain(*args, wmb, hmb, **plain_kw))
+    if form == "chroma":  # the plain chain's symbol streams stay inside it
+        want = {k: want[k] for k in got}
+    err = k10_err(torch, got, want)
+    ms = queued_ms = None
+    if time_it:
+        def check(out):
+            if k10_err(torch, out, want):
+                raise AssertionError(f"K10 {form} {label}: a timed call != plain")
+        ms, queued_ms = kernel_ms(torch, lambda: fn(*args, wmb, hmb, **kw), 20, check)
+    # each input the function needs read once (the halo and the chroma
+    # setup too), each state output written once, and the words the payload
+    # uses; the operations on the levels it needs
+    read, levels = k10_needed(form, args, kw)
+    ins = [*read, *(kw.get("top_ctx") or ()), *(kw.get("chroma") or {}).values()]
+    outs = [v for k, v in got.items() if k not in ("words", "nbits", "trail_bits")
+            and not any(v is a for a in (*args, *ins))]
+    used = 8 * ((int(got["nbits"]) + 63) // 64) if "nbits" in got else 0
+    moved = nbytes(*ins, *outs) + used
+    bound_ms, bound_by = bound(moved, cavlc_size_ops(*(lv.cpu().numpy() for lv in levels)))
+    print(f"K10 {form} {label}: max_abs_err {err} (tolerance 0, every key, the words in "
+          f"full), {int(got['nbits']) if 'nbits' in got else int(got['bits'].sum())} bits"
+          + (f", kernel {ms:.4f} ms (queued {queued_ms:.4f}), plain {plain_ms:.2f} ms"
+             if time_it else "")
+          + f", bound {bound_ms:.4f} ms ({bound_by}, {moved} bytes)", flush=True)
+    if err != 0:
+        raise AssertionError(f"K10 {form} {label}: kernel != plain")
+    return (err, ms, plain_ms, bound_ms, bound_by, queued_ms), want
+
+
+def k10_frame_args(torch, dev, frame, pair, qp) -> dict:
+    """{form: (args, kw)} of K10 on a 1080p content frame at qp, made by
+    the path's kernels: K1t's levels (i16); K7, the chroma setup and K6
+    (mixed, with the setup as `chroma`, as the path passes it; chroma);
+    K2-K5 and the P residual on the content pair (frame 1 from frame 0)."""
+    from h264_fer_tpu_torch.codec.entropy import chroma_setup
+    from h264_fer_tpu_torch.kernels.wavefront_i16 import chroma_frame, i16_frame
+    from h264_fer_tpu_torch.kernels.wavefront_mixed import mixed_luma
+    from h264_fer_tpu_torch.ops.transform import chroma_qp
+
+    y, cb, cr, m16, cm = i16_inputs(torch, dev, frame, qp, None)
+    _, i16dc, ac, _, _, cdc, cac = i16_frame(y, cb, cr, m16, cm, qp, chroma_qp(qp))
+    out = {"i16": ((m16, cm, i16dc, ac, cdc, cac), {})}
+    dec, cm, (cdc, cac), args = mixed_inputs(torch, (y, cb, cr), qp, chroma_frame)
+    mx = mixed_luma(*args)
+    ch = chroma_setup(cdc, cac, W // 16, H // 16)
+    out["mixed"] = ((mx["choice4"], dec["mode16"], cm, *(mx[k] for k in (
+        "i16dc", "i16ac", "lv4", "prev_flags", "rem_modes", "cbp_luma", "tc_luma")),
+        cdc, cac), {"chroma": ch})
+    out["chroma"] = ((cdc, cac), {})
+    zero = torch.zeros(((W // 16) * (H // 16), 4, 2), dtype=torch.int32, device=dev)
+    out["p"] = (p_frame_stages(torch, p_kernels(plain=False), pair[1], (*pair[0], zero),
+                               qp)[1]["entropy"], {})
+    return out
+
+
+def k10_band(torch, form, args, kw, want, wmb, r0, hl):
+    """The arguments of MB rows [r0, r0 + hl) of a frame's K10 inputs
+    `args` as a band: its rows, top_ctx the frame's state one MB row above
+    (the plain output `want`), valid False on the band's last MB row (an
+    uneven band's padded MBs; I16 and mixed), a P band's run_lead the skips
+    before it as a tensor on the card."""
+    nmb = args[0].shape[1] if form == "chroma" else args[0].shape[0]
+    mbs = slice(wmb * r0, wmb * (r0 + hl))
+    cut = [a[:, mbs] if a.dim() >= 3 and a.shape[0] == 2 and a.shape[1] == nmb else a[mbs]
+           for a in args]
+    row = slice(wmb * (r0 - 1), wmb * r0)
+    ctx = (want["tc_luma"][row], want["cbp_luma"][row], want["tc_chroma"][:, row],
+           want["cbp_chroma"][row]) if form != "chroma" else (want["tc_chroma"][:, row],
+                                                              want["cbp_chroma"][row])
+    band_kw = {"top_ctx": ctx}
+    if form in ("i16", "mixed"):
+        band_kw["valid"] = torch.arange(wmb * hl, device=args[0].device) < wmb * (hl - 1)
+    if form == "p":
+        idx = torch.arange(wmb * r0, device=args[0].device)
+        last = torch.where(args[0][: wmb * r0], -1, idx).amax()
+        band_kw["run_lead"] = wmb * r0 - last - 1  # a 0-d tensor on the card
+    if form == "mixed":
+        from h264_fer_tpu_torch.codec.entropy import chroma_setup
+
+        cdc, cac = cut[-2:]
+        band_kw["chroma"] = chroma_setup(cdc, cac, wmb, hl, ctx[2:])
+    return cut, band_kw
+
+
+def k10_phase(torch, dev, name) -> dict:
+    """Phase 13: K10 against its plain twins, bit-exact on every key, at
+    1080p (QP 8, 28, 46 on a content frame's levels and decisions, each
+    form, timed at QP 28; the band forms on band 1 of 4 at QP 28), and on
+    the small grids with k10_random_args' inputs, as whole slices and as
+    bands. Returns {form: (max_abs_err over every check, ms, plain_ms,
+    bound_ms, bound_by, queued_ms) at 1080p QP 28}."""
+    frame = content(1, W, H)[0]
+    pair = [tuple(torch.from_numpy(p).to(dev) for p in f) for f in content(2, W, H)]
+    errs, timed = dict.fromkeys(K10_ROWS, 0), {}
+    wmb, hl = W // 16, H // 16 // BAND_TILES
+    for qp in CHECK_QPS:
+        for form, (args, kw) in k10_frame_args(torch, dev, frame, pair, qp).items():
+            res, want = check_k10(torch, f"{W}x{H} qp{qp}", form, args, wmb, H // 16,
+                                  time_it=qp == QP, **kw)
+            errs[form] = max(errs[form], res[0])
+            if qp == QP:
+                timed[form] = res
+                cut, band_kw = k10_band(torch, form, args, kw, want, wmb, hl, hl)
+                res, _ = check_k10(torch, f"{W}x{H} qp{qp} band 1 of {BAND_TILES} (real "
+                                   "top_ctx, padded last row, run_lead on the card)", form,
+                                   cut, wmb, hl, **band_kw)
+                errs[form] = max(errs[form], res[0])
+    rng = np.random.default_rng(SEED + 10)
+    for label, w, h in K10_QCIF_GRIDS:
+        gw, gh = w // 16, h // 16
+        nmb = gw * gh
+        for form in K10_ROWS:
+            args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                         for a in k10_random_args(form, gw, gh, rng))
+            kw = {}
+            if form == "mixed":
+                from h264_fer_tpu_torch.codec.entropy import chroma_setup
+
+                kw["chroma"] = chroma_setup(*args[-2:], gw, gh)
+            res, want = check_k10(torch, f"{label} random", form, args, gw, gh, **kw)
+            errs[form] = max(errs[form], res[0])
+            if gh > 2:  # MB rows [1, gh - 1) as a band
+                cut, band_kw = k10_band(torch, form, args, kw, want, gw, 1, gh - 2)
+                res, _ = check_k10(torch, f"{label} random band", form, cut, gw, gh - 2,
+                                   **band_kw)
+                errs[form] = max(errs[form], res[0])
+        # P frames all skipped, with the last MB and with the first MB skipped
+        for case, skip in (("all skipped", np.ones(nmb, bool)),
+                           ("last MB skipped", np.arange(nmb) >= nmb - 1),
+                           ("first MB skipped", np.arange(nmb) == 0),
+                           ("only the first MB coded", np.arange(nmb) > 0)):
+            args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                         for a in k10_random_args("p", gw, gh, rng, skip=skip))
+            for run_lead in (None, 3, torch.tensor(7, device=dev)):
+                res, _ = check_k10(torch, f"{label} {case}, run_lead {run_lead}", "p", args,
+                                   gw, gh, run_lead=run_lead)
+                errs["p"] = max(errs["p"], res[0])
+    print(f"K10 checks done: max_abs_err {errs} on {name}", flush=True)
+    return {form: (errs[form], *timed[form][1:]) for form in K10_ROWS}
 
 
 def main() -> int:
@@ -2336,7 +2711,9 @@ def main() -> int:
     enc = GopIntraEncoder(W, H, QP, device=dev)
     enc.encode_sequence(frames[:2])  # warm-up: allocator, library load
     torch.cuda.synchronize()
-    i16_recon.launches = i16_frame.launches = 0
+    k10 = k10_counted()
+    for fn in (i16_recon, i16_frame, *k10):
+        fn.launches = 0
     t0 = time.perf_counter()
     stream = enc.encode_sequence(frames)
     e2e_s = [time.perf_counter() - t0]
@@ -2344,6 +2721,9 @@ def main() -> int:
     if (launches, i16_recon.launches) != (N_FRAMES, 0):
         raise AssertionError(f"K1t launched {launches} times, K1 {i16_recon.launches}, "
                              f"expected {N_FRAMES} and 0")
+    k10_path = {"i16": {fn.__name__: fn.launches for fn in k10}}
+    if k10_path["i16"] != k10_launches({"i16": N_FRAMES}):
+        raise AssertionError(f"all-intra K10 launches {k10_path['i16']}")
     if k1_launches != 1:
         raise AssertionError(f"K1 launched {k1_launches} times in one call")
     plain, plain_recon = plain_chain(torch, dev, enc, frames)
@@ -2351,20 +2731,19 @@ def main() -> int:
         raise AssertionError("kernel-path stream != plain-chain stream")
     parse_stream(stream, N_FRAMES, W, H, QP)
     check_bytes("all-intra", stream)
-    # the decode gate (phase 13): the plain chain's recon of every frame
+    # the decode gate (phase 14): the plain chain's recon of every frame
     to_decode = {"all-intra": (stream, plain_recon, {})}
-    qcif = content(3, 176, 144)
-    s_gpu = GopIntraEncoder(176, 144, QP, device=dev).encode_sequence(qcif)
-    s_cpu = GopIntraEncoder(176, 144, QP, device="cpu").encode_sequence(qcif)
-    if s_gpu != s_cpu:
-        raise AssertionError("QCIF stream on the card != CPU path stream")
+    qcif = qcif_clip(10)
+    check_device_qcif("all-intra", *(GopIntraEncoder(176, 144, QP, device=d).encode_sequence(
+        qcif) for d in (dev, "cpu")))
     for _ in range(E2E_REPS - 1):
         t0 = time.perf_counter()
         enc.encode_sequence(frames)
         e2e_s.append(time.perf_counter() - t0)
     fps = sorted(N_FRAMES / t for t in e2e_s)
     print(f"main path: {N_FRAMES} frames {W}x{H} QP{QP}, {len(stream)} bytes, "
-          f"== plain chain, parses; e2e fps median {fps[len(fps) // 2]:.2f} "
+          f"== plain chain, parses; K10 launches {k10_path['i16']}; QCIF == CPU == its "
+          f"JAX digest; e2e fps median {fps[len(fps) // 2]:.2f} "
           f"(runs {', '.join(f'{v:.2f}' for v in fps)}) on {name}", flush=True)
 
     from h264_fer_tpu_torch.codec.iframe import device_i16_frame
@@ -2413,7 +2792,7 @@ def main() -> int:
     enc = GopIpppEncoder(W, H, QP, gop_len=GOP_LEN, device=dev)
     enc.encode_sequence(frames[:2])  # warm-up: allocator, library loads
     torch.cuda.synchronize()
-    counted = (i16_frame, integer_score_map, qpel_refine_maps, pframe_decide, mc_bulk)
+    counted = (i16_frame, integer_score_map, qpel_refine_maps, pframe_decide, mc_bulk, *k10)
     for fn in counted:
         fn.launches = 0
     recon = []
@@ -2427,7 +2806,8 @@ def main() -> int:
     to_decode["IPPP"] = (stream, recon, {"spec_mode": True})
     n_gops, n_p = N_IPPP // GOP_LEN, N_IPPP - N_IPPP // GOP_LEN
     want = {"i16_frame": n_gops, "integer_score_map": n_p,
-            "qpel_refine_maps": n_p, "pframe_decide": n_p, "mc_bulk": n_p}
+            "qpel_refine_maps": n_p, "pframe_decide": n_p, "mc_bulk": n_p,
+            **k10_launches({"i16": n_gops, "p": n_p})}
     if p_launches != want:
         raise AssertionError(f"IPPP launches {p_launches}, expected {want}")
     lens = [GOP_LEN] * n_gops
@@ -2437,19 +2817,17 @@ def main() -> int:
         raise AssertionError("IPPP first frames != plain-chain stream")
     parse_ippp_stream(stream, lens, W, H, QP)
     check_bytes("IPPP", stream)
-    qcif = content(6, 176, 144)
-    s_gpu = GopIpppEncoder(176, 144, QP, gop_len=4, device=dev).encode_sequence(qcif)
-    s_cpu = GopIpppEncoder(176, 144, QP, gop_len=4, device="cpu").encode_sequence(qcif)
-    if s_gpu != s_cpu:
-        raise AssertionError("QCIF IPPP stream on the card != CPU path stream")
+    qcif = qcif_clip(6)
+    check_device_qcif("IPPP", *(GopIpppEncoder(176, 144, QP, gop_len=4, device=d)
+                                .encode_sequence(qcif) for d in (dev, "cpu")))
     for _ in range(E2E_REPS - 1):
         t0 = time.perf_counter()
         enc.encode_sequence(frames)
         e2e_s.append(time.perf_counter() - t0)
     fps = sorted(N_IPPP / t for t in e2e_s)
     print(f"IPPP main path: {N_IPPP} frames {W}x{H} QP{QP} GOP {GOP_LEN}, "
-          f"{len(stream)} bytes, first {N_PLAIN_IPPP} frames == plain chain, parses; "
-          "launches "
+          f"{len(stream)} bytes, first {N_PLAIN_IPPP} frames == plain chain, parses, "
+          "QCIF == CPU == its JAX digest; launches "
           f"{p_launches}; e2e fps median {fps[len(fps) // 2]:.2f} "
           f"(runs {', '.join(f'{v:.2f}' for v in fps)}) on {name}", flush=True)
     stages = p_stage_times(torch, dev, frames)
@@ -2499,7 +2877,7 @@ def main() -> int:
     enc = GopIntraEncoder(W, H, QP, mode="mixed", device=dev)
     enc.encode_sequence(frames[:2])  # warm-up: allocator, library loads
     torch.cuda.synchronize()
-    counted = (mixed_luma, chroma_frame, i16_recon, i16_frame)
+    counted = (mixed_luma, chroma_frame, i16_recon, i16_frame, *k10)
     for fn in counted:
         fn.launches = 0
     recon = []
@@ -2514,7 +2892,8 @@ def main() -> int:
     if rebuilt.call_count:
         raise AssertionError("the mixed path rebuilt the chroma levels from the recon")
     want = {"mixed_luma": N_FRAMES, "chroma_frame": N_FRAMES,
-            "i16_recon": 0, "i16_frame": 0}
+            "i16_recon": 0, "i16_frame": 0,
+            **k10_launches({"chroma": N_FRAMES, "mixed": N_FRAMES})}
     if m_launches != want:
         raise AssertionError(f"mixed launches {m_launches}, expected {want}")
     plain = enc.stitch([plain_payload])
@@ -2523,18 +2902,17 @@ def main() -> int:
         raise AssertionError("mixed first frame != plain-chain stream")
     parse_stream(stream, N_FRAMES, W, H, QP)
     check_bytes("mixed", stream)
-    qcif = content(3, 176, 144)
-    s_gpu = GopIntraEncoder(176, 144, QP, mode="mixed", device=dev).encode_sequence(qcif)
-    s_cpu = GopIntraEncoder(176, 144, QP, mode="mixed", device="cpu").encode_sequence(qcif)
-    if s_gpu != s_cpu:
-        raise AssertionError("QCIF mixed stream on the card != CPU path stream")
+    qcif = qcif_clip(2)
+    check_device_qcif("mixed", *(GopIntraEncoder(176, 144, QP, mode="mixed", device=d)
+                                 .encode_sequence(qcif) for d in (dev, "cpu")))
     for _ in range(E2E_REPS - 1):
         t0 = time.perf_counter()
         enc.encode_sequence(frames)
         e2e_s.append(time.perf_counter() - t0)
     fps = sorted(N_FRAMES / t for t in e2e_s)
     print(f"mixed path: {N_FRAMES} frames {W}x{H} QP{QP}, {len(stream)} bytes, "
-          f"first frame == plain chain, parses; launches {m_launches}; e2e fps "
+          f"first frame == plain chain, parses, QCIF == CPU == its JAX digest; launches "
+          f"{m_launches}; e2e fps "
           f"median {fps[len(fps) // 2]:.2f} (runs {', '.join(f'{v:.2f}' for v in fps)}) "
           f"on {name}", flush=True)
     stages = mixed_stage_times(torch, dev, frames[0])
@@ -2587,7 +2965,7 @@ def main() -> int:
     Encoder(W, H, cfg, device=dev).encode_sequence(frames[:2])  # warm-up
     torch.cuda.synchronize()
     counted = (i16_frame, i16_recon, deblock_frame, integer_score_map,
-               qpel_refine_maps, pframe_decide, mc_bulk)
+               qpel_refine_maps, pframe_decide, mc_bulk, *k10)
     for fn in counted:
         fn.launches = 0
     enc = Encoder(W, H, cfg, device=dev)
@@ -2604,7 +2982,7 @@ def main() -> int:
     n_p = N_SESSION - n_idr
     want = {"i16_frame": n_idr, "i16_recon": 0, "deblock_frame": N_SESSION,
             "integer_score_map": n_p, "qpel_refine_maps": n_p,
-            "pframe_decide": n_p, "mc_bulk": n_p}
+            "pframe_decide": n_p, "mc_bulk": n_p, **k10_launches({"i16": n_idr, "p": n_p})}
     if s_launches != want or n_idr != N_SESSION // SESSION_INTRA_EVERY:
         raise AssertionError(f"session launches {s_launches} with {n_idr} IDRs, "
                              f"expected {want}")
@@ -2614,15 +2992,17 @@ def main() -> int:
         raise AssertionError("session first frames != plain-chain stream")
     parse_session_stream(stream, enc.stats, W, H, QP)
     check_bytes("session", stream)
-    qcif = content(6, 176, 144)
     qcif_sessions = []
-    for iframe, n_qcif, every in (("i16", 6, 4), ("mixed", 3, 2)):
-        qcfg = EncoderConfig(qp=QP, intra_every=every, deblock=True)
-        qcif_sessions.append(Encoder(176, 144, qcfg, iframe=iframe,
-                                     device=dev).encode_sequence(qcif[:n_qcif]))
-        if qcif_sessions[-1] != Encoder(176, 144, qcfg, iframe=iframe,
-                                        device="cpu").encode_sequence(qcif[:n_qcif]):
+    for iframe, qcif, qcfg in (
+            ("i16", qcif_clip(10), EncoderConfig(qp=30, intra_every=4, deblock=True)),
+            ("mixed", content(3, 176, 144), EncoderConfig(qp=QP, intra_every=2, deblock=True))):
+        on_card, on_cpu = (Encoder(176, 144, qcfg, iframe=iframe, device=d).encode_sequence(qcif)
+                           for d in (dev, "cpu"))
+        if iframe == "i16":
+            check_device_qcif("session", on_card, on_cpu)
+        elif on_card != on_cpu:
             raise AssertionError(f"QCIF {iframe} session stream on the card != CPU path stream")
+        qcif_sessions.append(on_card)
     for _ in range(E2E_REPS - 1):
         e = Encoder(W, H, cfg, device=dev)
         t0 = time.perf_counter()
@@ -2728,7 +3108,11 @@ def main() -> int:
     print(f"P-band phase: {time.perf_counter() - t0:.1f} s on {name}", flush=True)
 
     print(f"[phase 12 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
-    # ---- 13. decode gate ----------------------------------------------------
+    # ---- 13. K10 vs its plain twins ---------------------------------------
+    k10_rows = k10_phase(torch, dev, name)
+
+    print(f"[phase 13 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
+    # ---- 14. decode gate ----------------------------------------------------
     from h264_fer_tpu_torch.codec.decoder import Decoder
 
     decoded = {path: decode_gate(torch, dev, path, *to_decode[path], name)
@@ -2744,8 +3128,8 @@ def main() -> int:
           f"{len(decoded)} 1080p streams == their reconstruction; QCIF session "
           f"decodes card == CPU on {name}", flush=True)
 
-    print(f"[phase 13 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
-    # ---- 14. result -------------------------------------------------------
+    print(f"[phase 14 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
+    # ---- 15. result -------------------------------------------------------
     csrc = "h264_fer_tpu_torch/kernels/csrc/"
     rows = [("wavefront_i16", "h264_fer_tpu/kernels/wavefront_pallas.py:890",
              k1_launches, max(k1[q][0] for q in CHECK_QPS), k1[QP][1:]),
@@ -2781,11 +3165,20 @@ def main() -> int:
                  max(k4b[q][0] for q in P_QPS), k4b[QP][1:]))
     rows.append(("me_topk", "h264_fer_tpu/ops/me.py:56", me_launches["topk_candidates"],
                  max(k9_errs), k9[1:6]))
+    # K10 by form: its launches on the all-intra (i16), IPPP (P) and mixed
+    # (mixed, chroma setup) paths
+    k10_runs = {"i16": k10_path["i16"], "p": p_launches, "mixed": m_launches,
+                "chroma": m_launches}
+    for form, (kname, replaces) in K10_ROWS.items():
+        wrapper = k10_functions()[form][2].__name__
+        rows.append((kname, replaces, k10_runs[form][wrapper], k10_rows[form][0],
+                     k10_rows[form][1:]))
     library = {"me_topk": k9[6]}
     sources = {"wavefront_chroma": "wavefront_i16", "wavefront_i16_levels": "wavefront_i16",
                "wavefront_i16_levels_band": "wavefront_i16",
                "wavefront_chroma_band": "wavefront_i16",
-               "wavefront_mixed_band": "wavefront_mixed", "wavefront_p_band": "wavefront_p"}
+               "wavefront_mixed_band": "wavefront_mixed", "wavefront_p_band": "wavefront_p",
+               **{kname: "cavlc_slice" for kname, _ in K10_ROWS.values()}}
     kernels = []
     for kname, replaces, n, err, timing in rows:
         if timing is None:  # a P kernel: its QP 28 run, errors over all tiers

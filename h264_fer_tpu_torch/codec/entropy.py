@@ -9,6 +9,13 @@ top MBs, known in bulk. So no wavefront is needed: the symbols of all MBs
 are computed at once (ops/cavlc_bulk.py) and packed into the slice payload
 on the device.
 
+The public functions i16_slice_entropy, mixed_slice_entropy,
+p_slice_entropy and chroma_setup dispatch on the device of their tensors:
+a CPU tensor goes to the plain twin (the *_plain functions below, the
+op-for-op translation the CPU tests hold to JAX), a CUDA tensor to the hand
+kernel K10 (kernels/cavlc_slice.py, csrc/cavlc_slice.cu), which launches
+or raises; any other device raises.
+
 For an MB-row band of a frame (parallel/tile.py, parallel/tile_p.py),
 chroma_setup and the three slice entropies take `top_ctx`, the final
 TotalCoeff and CBP state of the MB row above the band, which its first row
@@ -22,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels import cavlc_slice
 from ..ops.cavlc_bulk import (
     block_symbols_bulk,
     finalize_symbols,
@@ -106,7 +114,7 @@ def _nc_chroma_grid(tc_c, cbp_c, wmb: int, hmb: int, top=None):
     return torch.stack(cols, dim=-1)
 
 
-def chroma_setup(cdc, cac, wmb: int, hmb: int, top_ctx=None):
+def chroma_setup_plain(cdc, cac, wmb: int, hmb: int, top_ctx=None):
     """Chroma side of a slice's entropy, the same for every MB type:
     cbp_chroma (nmb,), the final chroma TC state tc_chroma (2, nmb, 4), each
     MB's chroma residual bits (nmb,), and the gated symbol streams cdc_vals
@@ -154,8 +162,8 @@ def _pack(vals, lens, valid):
     return pack_symbols(vals.reshape(-1), lens.reshape(-1).to(I32))
 
 
-def i16_slice_entropy(mode16, cmode, i16dc, i16ac, cdc, cac,
-                      wmb: int, hmb: int, top_ctx=None, valid=None):
+def i16_slice_entropy_plain(mode16, cmode, i16dc, i16ac, cdc, cac,
+                            wmb: int, hmb: int, top_ctx=None, valid=None):
     """Whole-slice macroblock_layer bits of an all-I16 frame.
 
     mode16/cmode (nmb,), i16dc (nmb, 16), i16ac (nmb, 16, 15), cdc
@@ -171,7 +179,7 @@ def i16_slice_entropy(mode16, cmode, i16dc, i16ac, cdc, cac,
     nmb = wmb * hmb
     # CBP (setCodedBlockPattern, rbsp_encoding.cpp:21-105)
     cbp_l = torch.where(i16ac.reshape(nmb, -1).any(dim=-1), 15, 0).to(I32)
-    ch = chroma_setup(cdc, cac, wmb, hmb, None if top_ctx is None else top_ctx[2:])
+    ch = chroma_setup_plain(cdc, cac, wmb, hmb, None if top_ctx is None else top_ctx[2:])
     cbp_c = ch["cbp_chroma"]
     mb_type = (1 + mode16 + 4 * cbp_c + torch.where(cbp_l == 15, 12, 0)).to(I32)
 
@@ -213,9 +221,9 @@ def i16_slice_entropy(mode16, cmode, i16dc, i16ac, cdc, cac,
     }
 
 
-def mixed_slice_entropy(choice4, mode16, cmode, i16dc, i16ac, lv4, prev_flags,
-                        rem_modes, cbp_luma, tc_luma, cdc, cac,
-                        wmb: int, hmb: int, top_ctx=None, valid=None):
+def mixed_slice_entropy_plain(choice4, mode16, cmode, i16dc, i16ac, lv4, prev_flags,
+                              rem_modes, cbp_luma, tc_luma, cdc, cac,
+                              wmb: int, hmb: int, top_ctx=None, valid=None):
     """Whole-slice macroblock_layer bits of a mixed I4x4/I16 frame.
 
     choice4 (nmb,) bool, prev_flags (nmb, 16) bool, rem_modes (nmb, 16),
@@ -227,7 +235,7 @@ def mixed_slice_entropy(choice4, mode16, cmode, i16dc, i16ac, lv4, prev_flags,
     """
     nmb = wmb * hmb
     dev = choice4.device
-    ch = chroma_setup(cdc, cac, wmb, hmb, None if top_ctx is None else top_ctx[2:])
+    ch = chroma_setup_plain(cdc, cac, wmb, hmb, None if top_ctx is None else top_ctx[2:])
     cbp_c = ch["cbp_chroma"]
     mb_type = torch.where(choice4, 0, 1 + mode16 + 4 * cbp_c
                           + torch.where(cbp_luma == 15, 12, 0)).to(I32)
@@ -292,8 +300,8 @@ def mixed_slice_entropy(choice4, mode16, cmode, i16dc, i16ac, lv4, prev_flags,
 _NUM_PARTS = np.array([1, 2, 2, 4, 4], np.int32)  # per P mb_type 0..4
 
 
-def p_slice_entropy(skip, mb_type, mvd, luma_levels, cdc, cac,
-                    wmb: int, hmb: int, top_ctx=None, run_lead=None):
+def p_slice_entropy_plain(skip, mb_type, mvd, luma_levels, cdc, cac,
+                          wmb: int, hmb: int, top_ctx=None, run_lead=None):
     """Whole-slice macroblock_layer bits of a P frame (the inter syntax of
     rbsp_encoding.cpp:179-299).
 
@@ -338,7 +346,7 @@ def p_slice_entropy(skip, mb_type, mvd, luma_levels, cdc, cac,
     quad_any = luma_levels.reshape(nmb, 4, 64).ne(0).any(dim=-1)  # Z-scan quads
     cbp_l = (quad_any.to(I32) << torch.arange(4, dtype=I32, device=dev)).sum(
         dim=-1, dtype=I32)
-    ch = chroma_setup(cdc, cac, wmb, hmb, None if top_ctx is None else top_ctx[2:])
+    ch = chroma_setup_plain(cdc, cac, wmb, hmb, None if top_ctx is None else top_ctx[2:])
     cbp_c = ch["cbp_chroma"]
 
     # luma residual: 16 blocks of maxNumCoeff 16, coded where their quad is
@@ -390,3 +398,62 @@ def p_slice_entropy(skip, mb_type, mvd, luma_levels, cdc, cac,
         "tc_chroma": ch["tc_chroma"],
         "nz_luma": luma_levels.ne(0).any(dim=-1),
     }
+
+
+CHROMA_KEYS = ("cbp_chroma", "tc_chroma", "bits")
+
+
+def _kernel(x) -> bool:
+    """False for a CPU tensor (the plain twin runs), True for a CUDA one
+    (K10 runs); raises ValueError for any other device."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return True
+
+
+def chroma_setup(cdc, cac, wmb: int, hmb: int, top_ctx=None):
+    """chroma_setup_plain's cbp_chroma (nmb,), tc_chroma (2, nmb, 4) and
+    bits (nmb,) (CHROMA_KEYS; its symbol streams stay inside the plain
+    chain). CUDA tensors go to K10, CPU tensors to the plain twin."""
+    if _kernel(cdc):
+        return cavlc_slice.chroma_entropy(cdc, cac, wmb, hmb, top_ctx)
+    ch = chroma_setup_plain(cdc, cac, wmb, hmb, top_ctx)
+    return {k: ch[k] for k in CHROMA_KEYS}
+
+
+def i16_slice_entropy(mode16, cmode, i16dc, i16ac, cdc, cac,
+                      wmb: int, hmb: int, top_ctx=None, valid=None):
+    """i16_slice_entropy_plain's function: CUDA tensors go to K10, CPU
+    tensors to the plain twin."""
+    args = (mode16, cmode, i16dc, i16ac, cdc, cac, wmb, hmb, top_ctx, valid)
+    if _kernel(mode16):
+        return cavlc_slice.i16_entropy(*args)
+    return i16_slice_entropy_plain(*args)
+
+
+def mixed_slice_entropy(choice4, mode16, cmode, i16dc, i16ac, lv4, prev_flags,
+                        rem_modes, cbp_luma, tc_luma, cdc, cac,
+                        wmb: int, hmb: int, top_ctx=None, valid=None, *, chroma=None):
+    """mixed_slice_entropy_plain's function: CUDA tensors go to K10, CPU
+    tensors to the plain twin. chroma: the frame's chroma_setup output for
+    the same cdc, cac and top_ctx, required by K10 (ValueError without it),
+    which reads it in place of its own; the plain twin ignores it and
+    computes the setup again, so a setup of other inputs makes the two
+    routes differ."""
+    args = (choice4, mode16, cmode, i16dc, i16ac, lv4, prev_flags, rem_modes, cbp_luma,
+            tc_luma, cdc, cac, wmb, hmb, top_ctx, valid)
+    if _kernel(choice4):
+        return cavlc_slice.mixed_entropy(*args, chroma=chroma)
+    return mixed_slice_entropy_plain(*args)
+
+
+def p_slice_entropy(skip, mb_type, mvd, luma_levels, cdc, cac,
+                    wmb: int, hmb: int, top_ctx=None, run_lead=None):
+    """p_slice_entropy_plain's function: CUDA tensors go to K10 (a tensor
+    run_lead is read on the card), CPU tensors to the plain twin."""
+    args = (skip, mb_type, mvd, luma_levels, cdc, cac, wmb, hmb, top_ctx, run_lead)
+    if _kernel(skip):
+        return cavlc_slice.p_entropy(*args)
+    return p_slice_entropy_plain(*args)

@@ -79,7 +79,7 @@ def device_mixed_frame(y, cb, cr, qp: int, qpc: int, deblock: bool = False):
     ent = mixed_slice_entropy(
         mx["choice4"], m16, cmode, mx["i16dc"], mx["i16ac"], mx["lv4"],
         mx["prev_flags"], mx["rem_modes"], mx["cbp_luma"], mx["tc_luma"],
-        cdc, cac, wmb=wmb, hmb=hmb)
+        cdc, cac, wmb=wmb, hmb=hmb, chroma=ch)
     out = {
         "recon_y": mx["recon_y"],
         "recon_cb": rcb,

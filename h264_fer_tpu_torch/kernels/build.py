@@ -137,15 +137,15 @@ def function(name: str, symbol: str, argtypes):
 def launch(wrapper, name: str, symbol: str, args, device) -> None:
     """Run the C entry point `symbol` of csrc/<name>.cu on the current
     stream of `device`. It takes `args` (a tensor or a numpy array as its
-    data pointer, an int as an int), then the stream and an int* through
-    which it reports how many launches it made, and returns the first CUDA
-    error. Adds those launches to `wrapper.launches`, then raises
+    data pointer, None as a null pointer, an int as an int), then the
+    stream and an int* through which it reports how many launches it made,
+    and returns the first CUDA error. Adds those launches to `wrapper.launches`, then raises
     RuntimeError if the error is not 0."""
     vp, i = ctypes.c_void_p, ctypes.c_int
     ints = [isinstance(a, (int, np.integer)) for a in args]
     fn = function(name, symbol, [i if n else vp for n in ints] + [vp, ctypes.POINTER(i)])
-    ptrs = [int(a) if n else a.ctypes.data if isinstance(a, np.ndarray)
-            else a.data_ptr() for a, n in zip(args, ints)]
+    ptrs = [int(a) if n else None if a is None else a.ctypes.data
+            if isinstance(a, np.ndarray) else a.data_ptr() for a, n in zip(args, ints)]
     launched = ctypes.c_int(0)
     with torch.cuda.device(device):
         err = fn(*ptrs, torch.cuda.current_stream(device).cuda_stream,

@@ -8,11 +8,13 @@ parent commit unpacked with `git archive`. Each turn is a process of its
 own started in one checkout's root (the two share module names); it builds
 that checkout's kernels, times K2, K3, K4, K5, K6, K4x4, K1t, K1, K7
 (through chroma_frame: recon and levels), K8 (on the session encoder's
-P-frame state) and K9 (the top-16 of K2's SAD map, metric 0 at window 8,
+P-frame state), K9 (the top-16 of K2's SAD map, metric 0 at window 8,
 of the content pair's second luma plane against the first, edge-padded)
-with CUDA events at 1920x1088, QP 28, on chip_smoke.py's inputs (K2-K5 on
-the chained P frame), and reports a checksum of each kernel's outputs, so
-that the turns also show both checkouts compute the same function. Each
+and, where the checkout has it, K10 in each form (on the slices of
+chip_smoke.k10_frame_args) with CUDA events at 1920x1088, QP 28, on
+chip_smoke.py's inputs (K2-K5 on the chained P frame), and reports a
+checksum of each kernel's outputs, so that the turns also show both
+checkouts compute the same function. Each
 kernel is timed two ways, with the same code in both checkouts: "queued",
 its calls issued behind a kernel that spins the card (the device's time
 for the work, back to back), and "paced", its calls issued one after
@@ -94,6 +96,12 @@ runs = {
     "K8": (lambda: deblock_frame(*state, cs.QP, qpc), 20),
     "K9": (lambda: topk_candidates(sad_map, cs.WINDOW, cs.TOPK), 20),
 }
+if hasattr(cs, "k10_frame_args"):  # a checkout with K10
+    fns = cs.k10_functions()
+    planes = cs.content(1, cs.W, cs.H)[0]  # numpy, as k10_frame_args takes them
+    for form, (a, kw) in cs.k10_frame_args(torch, dev, planes, pair, cs.QP).items():
+        runs[f"K10 {form}"] = (lambda fn=fns[form][0], a=a, kw=kw:
+                               fn(*a, cs.W // 16, cs.H // 16, **kw), 20)
 out = {}
 for name, (fn, reps) in runs.items():
     res = fn()

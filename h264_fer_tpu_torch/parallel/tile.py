@@ -110,7 +110,7 @@ def _code_mixed(y, cb, cr, dec, halo, valid, qp: int, qpc: int) -> dict:
     ent = mixed_slice_entropy(
         mx["choice4"], m16, cmode, mx["i16dc"], mx["i16ac"], mx["lv4"],
         mx["prev_flags"], mx["rem_modes"], mx["cbp_luma"], mx["tc_luma"],
-        cdc, cac, wmb=wmb, hmb=hloc, top_ctx=_ctx(halo), valid=valid)
+        cdc, cac, wmb=wmb, hmb=hloc, top_ctx=_ctx(halo), valid=valid, chroma=ch)
     return {"words": ent["words"], "nbits": ent["nbits"],
             "recon": (mx["recon_y"], rcb, rcr),
             "halo": {"recon": mx["recon_y"][-1], "cb": rcb[-1], "cr": rcr[-1],

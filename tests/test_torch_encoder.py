@@ -5,7 +5,10 @@ intra_every=4 and deblock on: the same stream byte for byte, the same
 per-frame stats, scene cuts (by the SAD against the reconstruction or the
 previous source frame) with the JAX idr_pic_id sequence, and a
 reconstruction the JAX decoder (filter on) reproduces frame by frame. GopIntraEncoder(deblock=True) shares the JAX
-I-frame compile of this geometry and QP."""
+I-frame compile of this geometry and QP. chip_smoke.DEVICE_DIGESTS["session"]
+is the JAX session stream's SHA-256."""
+
+import hashlib
 
 import numpy as np
 import pytest
@@ -69,6 +72,13 @@ def _idr_pic_ids(stream, enc):
 def test_deblocked_session_stream_byte_identical_to_jax(sessions):
     _, ref_stream, _, stream, _ = sessions
     assert stream == ref_stream
+
+
+def test_device_digest_is_the_jax_stream(sessions):
+    """chip_smoke.py holds the card's QCIF session stream to this digest."""
+    import chip_smoke
+
+    assert chip_smoke.DEVICE_DIGESTS["session"] == hashlib.sha256(sessions[1]).hexdigest()
 
 
 def test_stats_match_jax(sessions):

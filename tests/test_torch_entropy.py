@@ -1,5 +1,13 @@
 """The port's CAVLC symbols, bit packing and I16 slice entropy equal the JAX
-package's (ops/cavlc_jax.py, codec/tpu_entropy.i16_slice_entropy)."""
+package's (ops/cavlc_jax.py, codec/tpu_entropy.i16_slice_entropy). The
+public slice entropies and chroma_setup route a CPU tensor to their plain
+twins with no K10 launch and refuse other devices; K10's table buffer
+holds the tables at csrc/cavlc.cuh's offsets; its wrappers refuse inputs
+of a wrong shape or dtype, and the mixed one a call without the chroma
+setup, before anything launches."""
+
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -7,10 +15,14 @@ import torch
 
 import jax.numpy as jnp
 
+import chip_smoke
 from h264_fer_tpu.codec.tpu_entropy import i16_slice_entropy as jax_entropy
 from h264_fer_tpu.ops import cavlc_jax
+from h264_fer_tpu_torch.codec import entropy
 from h264_fer_tpu_torch.codec.entropy import i16_slice_entropy
+from h264_fer_tpu_torch.kernels import build, cavlc_slice, wavefront_mixed
 from h264_fer_tpu_torch.ops import cavlc_bulk
+from h264_fer_tpu_torch.ops.device import const
 from test_tpu_entropy import _random_frame_levels
 
 torch.set_num_threads(1)
@@ -83,3 +95,120 @@ def test_pack_symbols_matches_jax():
     assert bool(ok) and int(nbits) == int(rn) == int(lens.sum())
     assert (cavlc_bulk.words_to_bytes(words.numpy(), int(nbits))
             == cavlc_jax.words_to_bytes(np.asarray(rw), int(rn)))
+
+
+FORMS = ("i16", "mixed", "p", "chroma")
+PUBLIC = {"i16": (entropy.i16_slice_entropy, entropy.i16_slice_entropy_plain,
+                  cavlc_slice.i16_entropy),
+          "mixed": (entropy.mixed_slice_entropy, entropy.mixed_slice_entropy_plain,
+                    cavlc_slice.mixed_entropy),
+          "p": (entropy.p_slice_entropy, entropy.p_slice_entropy_plain, cavlc_slice.p_entropy),
+          "chroma": (entropy.chroma_setup, entropy.chroma_setup_plain,
+                     cavlc_slice.chroma_entropy)}
+WMB, HMB = 4, 3
+
+
+def _args(form, seed=5):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a))
+                 for a in chip_smoke.k10_random_args(form, WMB, HMB, rng))
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_cpu_tensors_route_to_the_plain_twin(form):
+    """A CPU tensor takes the plain twin, launching nothing; every key of
+    the result is the twin's (chroma_setup: its cbp_chroma, tc_chroma and
+    bits), and the words have the length K10 allocates."""
+    fn, plain, wrapper = PUBLIC[form]
+    args = _args(form)
+    launches = [w.launches for _, _, w in PUBLIC.values()]
+    got = fn(*args, WMB, HMB)
+    want = plain(*args, WMB, HMB)
+    assert [w.launches for _, _, w in PUBLIC.values()] == launches
+    if form == "chroma":
+        assert tuple(got) == entropy.CHROMA_KEYS
+    else:
+        assert set(got) == set(want)
+        assert got["words"].shape == (cavlc_slice.n_words(form, WMB * HMB),)
+    for key in got:
+        assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_meta_tensors_raise(form):
+    fn = PUBLIC[form][0]
+    args = tuple(a.to("meta") for a in _args(form))
+    with pytest.raises(ValueError, match="unsupported device"):
+        fn(*args, WMB, HMB)
+
+
+@pytest.mark.parametrize("part", range(len(cavlc_slice.TABLE_PARTS)))
+def test_table_buffer_holds_each_table_at_its_header_offset(part):
+    """The buffer K10 reads (uploaded through ops/device.const, read back)
+    holds each table at the offset csrc/cavlc.cuh names; K6 reads the first
+    kK6TabLen entries, its own TABLES."""
+    name, table = cavlc_slice.TABLE_PARTS[part]
+    header = (build.CSRC / "cavlc.cuh").read_text()
+    offsets = {m[0]: int(m[1]) for m in re.findall(r"constexpr int k(\w+) = (\d+);", header)}
+    buf = const(cavlc_slice.TABLES, "cpu").numpy()
+    assert offsets["TabLen"] == buf.size
+    assert offsets[name] == cavlc_slice.OFFSETS[name]
+    start = offsets[name]
+    np.testing.assert_array_equal(buf[start: start + np.size(table)],
+                                  np.asarray(table).reshape(-1))
+    k6 = wavefront_mixed.TABLES
+    assert offsets["K6TabLen"] == k6.size
+    np.testing.assert_array_equal(buf[: k6.size], k6)
+
+
+def _chroma(form):
+    """The chroma setup of the form's random chroma levels (CPU, plain)."""
+    return entropy.chroma_setup(*_args(form)[-2:], WMB, HMB)
+
+
+def _bad(form, kind):
+    """The form's arguments with its first level array given a wrong shape
+    or dtype."""
+    args = list(_args(form))
+    i = chip_smoke.K10_LEVELS[form][0]
+    args[i] = args[i][:, :-1] if kind == "shape" else args[i].to(torch.int64)
+    return args
+
+
+@pytest.mark.parametrize("kind", ["shape", "dtype", "good"])
+@pytest.mark.parametrize("form", FORMS)
+def test_wrapper_checks_its_inputs_before_launching(monkeypatch, form, kind):
+    """With the device test and the launch stubbed, so that CPU tensors get
+    as far as the launch: a wrong shape or dtype raises ValueError and
+    launches nothing; good inputs reach the C entry point as one argument
+    per ARGS name, the level arrays contiguous."""
+    calls = []
+    monkeypatch.setattr(cavlc_slice, "_device", lambda t: t.device)
+    monkeypatch.setattr(build, "launch", lambda *a: calls.append(a))
+    wrapper = PUBLIC[form][2]
+    kw = {"chroma": _chroma(form)} if form == "mixed" else {}
+    if kind != "good":
+        with pytest.raises(ValueError, match="expected contiguous"):
+            wrapper(*_bad(form, kind), WMB, HMB, **kw)
+        assert not calls
+        return
+    wrapper(*_args(form), WMB, HMB, **kw)
+    assert [c[3][0] for c in calls] == [cavlc_slice.FORMS[form]]
+    (_, name, symbol, vals, _) = calls[-1]
+    assert (name, symbol) == ("cavlc_slice", "cavlc_slice")
+    assert vals[0] == cavlc_slice.FORMS[form] and len(vals) == 1 + len(cavlc_slice.ARGS)
+    named = dict(zip(cavlc_slice.ARGS, vals[1:]))
+    assert named["nmb"] == WMB * HMB and named["wmb"] == WMB
+    assert all(isinstance(named[k], int) for k in cavlc_slice.INT_ARGS)
+    assert named["cdc"].is_contiguous() and named["tabs"].shape == cavlc_slice.TABLES.shape
+
+
+def test_mixed_wrapper_requires_the_chroma_setup(monkeypatch):
+    """K10's mixed form computes no chroma setup of its own: without
+    `chroma` it raises ValueError and launches nothing."""
+    calls = []
+    monkeypatch.setattr(cavlc_slice, "_device", lambda t: t.device)
+    monkeypatch.setattr(build, "launch", lambda *a: calls.append(a))
+    with pytest.raises(ValueError, match="chroma setup"):
+        cavlc_slice.mixed_entropy(*_args("mixed"), WMB, HMB)
+    assert not calls

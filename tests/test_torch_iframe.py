@@ -1,7 +1,10 @@
 """The port's all-I16 frame and sequence encode against the JAX package:
 the same recon, payload and per-MB state for a frame, a byte-identical
 Annex-B stream for the QCIF clip, and a stream the JAX decoder decodes to
-the port's reconstruction."""
+the port's reconstruction. chip_smoke.DEVICE_DIGESTS["all-intra"] is the
+JAX stream's SHA-256 at QP 28."""
+
+import hashlib
 
 import numpy as np
 import pytest
@@ -42,6 +45,20 @@ def port_streams(clip):
             for qp in (8, 28, 46)}
 
 
+@pytest.fixture(scope="module")
+def jax_streams(clip):
+    """jax_streams(qp): the JAX GopIntraEncoder's stream of the clip,
+    encoded once per QP for the stream and digest tests."""
+    cache = {}
+
+    def get(qp):
+        if qp not in cache:
+            cache[qp] = JaxGopIntraEncoder(W, H, qp, devices=jax.devices()[:1]
+                                           ).encode_sequence(clip)
+        return cache[qp]
+    return get
+
+
 def _port_frame(frame, qp):
     return device_i16_frame(*(torch.from_numpy(np.array(p)) for p in frame),
                             qp, chroma_qp(qp))
@@ -69,10 +86,15 @@ def test_device_i16_frame_matches_jax(clip):
 
 
 @pytest.mark.parametrize("qp", [8, 28, 46])
-def test_gop_stream_byte_identical_to_jax(clip, port_streams, qp):
-    ref = JaxGopIntraEncoder(W, H, qp, devices=jax.devices()[:1]
-                             ).encode_sequence(clip)
-    assert port_streams[qp] == ref
+def test_gop_stream_byte_identical_to_jax(port_streams, jax_streams, qp):
+    assert port_streams[qp] == jax_streams(qp)
+
+
+def test_device_digest_is_the_jax_stream(jax_streams):
+    """chip_smoke.py holds the card's QCIF all-intra stream to this digest."""
+    import chip_smoke
+
+    assert chip_smoke.DEVICE_DIGESTS["all-intra"] == hashlib.sha256(jax_streams(28)).hexdigest()
 
 
 @pytest.mark.parametrize("qp", [8, 28, 46])

@@ -6,7 +6,8 @@ each GOP; and the same GOP split under scene_cut_source, with the
 idr_pic_id sequence a one-frame GOP gives. The P-frame band encoders
 (TileIpppEncoder in 3 bands of 3 MB rows, GopTileIpppEncoder over a
 (2, 3) grid) write the same JAX stream, two GOPs, the last one short, and
-chip_smoke.TILE_P_DIGESTS are its SHA-256."""
+chip_smoke.TILE_P_DIGESTS are its SHA-256 (and DEVICE_DIGESTS["IPPP"] at
+QP 28)."""
 
 import hashlib
 
@@ -72,6 +73,14 @@ def test_tile_p_digests_are_the_jax_streams(streams):
 
     assert chip_smoke.TILE_P_DIGESTS == {
         f"qp{qp}": hashlib.sha256(streams[qp][0]).hexdigest() for qp in QPS}
+
+
+def test_device_digest_is_the_jax_stream(streams):
+    """chip_smoke.py holds the card's one-device QCIF IPPP stream (QP 28)
+    to this digest."""
+    import chip_smoke
+
+    assert chip_smoke.DEVICE_DIGESTS["IPPP"] == hashlib.sha256(streams[28][0]).hexdigest()
 
 
 class _SpecDecoder(Decoder):

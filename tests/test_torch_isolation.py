@@ -2,6 +2,7 @@
 its default (CUDA) entry points raise where there is no card."""
 
 import ast
+import importlib
 import pathlib
 import subprocess
 import sys
@@ -127,6 +128,25 @@ def test_multi_device_encoders_leave_jax_out_of_sys_modules():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "clean"
+
+
+KERNEL_MODULES = ("wavefront_i16", "me_int", "me_qpel", "wavefront_p", "mc", "wavefront_i4x4",
+                  "wavefront_mixed", "deblock", "me_topk", "cavlc_slice")
+
+
+@pytest.mark.parametrize("module", KERNEL_MODULES)
+def test_kernel_module_imports_without_a_build(module):
+    """Each kernel wrapper module (K10: cavlc_slice, its source
+    csrc/cavlc_slice.cu) imports on a machine without nvcc and builds
+    nothing until a launch; chip_smoke.py builds every source."""
+    import chip_smoke
+    from h264_fer_tpu_torch.kernels import build
+
+    importlib.import_module(f"h264_fer_tpu_torch.kernels.{module}")
+    assert module not in build._libs
+    assert (build.CSRC / f"{module}.cu").exists()
+    assert sorted(chip_smoke.KERNEL_SOURCES) == sorted(KERNEL_MODULES)
+    assert sorted(f.stem for f in build.CSRC.glob("*.cu")) == sorted(KERNEL_MODULES)
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

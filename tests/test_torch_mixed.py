@@ -7,7 +7,10 @@ tests/test_torch_wavefront_mixed.py.)
 
 The JAX compiles dominate this file's time (~40 s per QP): the frame test
 uses the capacity tier the JAX GopIntraEncoder dispatches first, so the
-stream test reuses its compile."""
+stream test reuses its compile. chip_smoke.DEVICE_DIGESTS["mixed"] is the
+JAX stream's SHA-256 at QP 28."""
+
+import hashlib
 
 import numpy as np
 import pytest
@@ -74,6 +77,13 @@ def test_device_mixed_frame_matches_jax(clip):
 def test_gop_stream_byte_identical_to_jax(streams, qp):
     want, got = streams[qp]
     assert got == want
+
+
+def test_device_digest_is_the_jax_stream(streams):
+    """chip_smoke.py holds the card's QCIF mixed stream to this digest."""
+    import chip_smoke
+
+    assert chip_smoke.DEVICE_DIGESTS["mixed"] == hashlib.sha256(streams[28][0]).hexdigest()
 
 
 def test_jax_decoder_reproduces_port_recon(streams, clip):
