@@ -22,7 +22,7 @@ Phases (any failure exits non-zero and prints no result line; each
      1080p, counted (one launch);
   3. drive the all-intra path: GopIntraEncoder encodes 8 frames at
      1920x1088, QP 28, on the card with the launch counts set to 0 just
-     before (one K1t launch and four K10 launches per frame, no K1); the
+     before (one K1t launch and one K10 launch per frame, no K1); the
      stream must equal, byte for byte, the stream of the plain chain (mode
      decision, plain K1t, plain entropy) on the card, and parse back into
      SPS, PPS and 8 IDR slices; the QCIF stream of the 10 frames of
@@ -51,7 +51,7 @@ Phases (any failure exits non-zero and prints no result line; each
      28) from the card must equal the CPU path's and have its
      DEVICE_DIGESTS digest (tests/test_torch_ippp.py). Prints e2e fps,
      device ms per P frame for each stage and the counted launches (one
-     K1t per IDR, one K4 per P frame, four K10 per frame);
+     K1t per IDR, one K4 per P frame, one K10 per frame);
   6. hold K4x4 (Intra_4x4 recon and levels), K7 (chroma wavefront writing
      its levels) and K6 (mixed arbitration wavefront), each one dataflow
      launch per frame, against their plain twins on the card, bit-exact on
@@ -70,8 +70,8 @@ Phases (any failure exits non-zero and prints no result line; each
      plain output;
   7. drive the mixed all-intra path: GopIntraEncoder(1920, 1088, 28,
      mode="mixed") encodes 8 frames with the launch counts set to 0 just
-     before (one K6 and one K7 launch per frame, two K10 launches of the
-     chroma setup, computed once a frame, and four of the slice, no K1 or
+     before (one K6 and one K7 launch per frame, one K10 launch of the
+     chroma setup, computed once a frame, and one of the slice, no K1 or
      K1t, and no rebuild of the chroma levels from the recon); the first
      frame's stream must equal, byte for byte, the stream of the plain
      chain on the card, and the whole stream parse back; the QCIF mixed
@@ -91,7 +91,7 @@ Phases (any failure exits non-zero and prints no result line; each
   9. drive the session path: Encoder(1920, 1088, EncoderConfig(qp=28,
      intra_every=8, deblock=True)) encodes 16 frames with the launch counts
      set to 0 just before (one K1t launch per IDR, one K8 launch per frame,
-     one launch of each P kernel per P frame, four K10 per frame); the
+     one launch of each P kernel per P frame, one K10 per frame); the
      first 3 frames' stream must equal, byte for byte, the plain chain's
      (the same encoder with every kernel and K10 swapped for its plain
      twin), and the stream parse back with the filter signalled in the PPS
@@ -129,7 +129,7 @@ Phases (any failure exits non-zero and prints no result line; each
      deblock=True), iframe="i16", pframe="host", me="topk") (the CLI's
      `encode --tpu-iframe --tpu-me --deblock --intra-every 8`) on 2
      frames with the launch counts set to 0 just before (one K1t, K2 and
-     K9 launch, four K10 for the IDR, one K8 per frame, no other P kernel
+     K9 launch, one K10 for the IDR, one K8 per frame, no other P kernel
      and no K10 on the host P frame): the stream parses
      with the filter signalled and its candidates, read from plane 0 of
      the P frame's interpolated planes, equal the plain chain's. Times K9
@@ -147,7 +147,7 @@ Phases (any failure exits non-zero and prints no result line; each
      GopTileIntraEncoder (2, 2), GopIntraEncoder and GopIpppEncoder on 2
      entries, each with the band kernels' counts set to 0 just before (one
      launch of each band kernel of its mode per band per frame, and K10's
-     four per slice or band, two more per band for the mixed chroma
+     one per slice or band, one more per band for the mixed chroma
      setup); every
      stream must equal the one-device stream of phase 3, 5 or 7, and the
      band encoders' recon must decode from it (decode_gate, untimed).
@@ -175,7 +175,7 @@ Phases (any failure exits non-zero and prints no result line; each
      rows and in 2 of 34, and GopTileIpppEncoder (2, 2), on entries of the
      card, each with the launch counts set to 0 just before (one K4-band,
      K2, K3 and K5 launch per band per P frame, one K1t-band per band per
-     IDR, four K10 per band, no frame K4 or K1t): each stream must equal
+     IDR, one K10 per band, no frame K4 or K1t): each stream must equal
      phase 5's one-device
      stream and the bands' reference planes decode from it (decode_gate,
      spec mode, untimed); prints each one's median e2e fps of 3 after a
@@ -183,8 +183,8 @@ Phases (any failure exits non-zero and prints no result line; each
      4, 3 bands, QP 28 and 40) must have the SHA-256 TILE_P_DIGESTS gives
      them (the JAX GopIpppEncoder's streams, recomputed by
      tests/test_torch_ippp.py);
-  13. hold K10 (the slice entropy, four launches a slice or band; the
-     chroma setup, two) against its plain twins on the card, bit-exact on
+  13. hold K10 (the slice entropy, one launch a slice or band; the
+     chroma setup, one) against its plain twins on the card, bit-exact on
      every output key (the words in full): all-I16, mixed, P and the chroma
      setup at 1920x1088 for QP 8, 28 and 46 on the levels and decisions of
      a content frame (K1t, K7 and K6, K2-K5 on phase 4's content pair); the
@@ -197,8 +197,11 @@ Phases (any failure exits non-zero and prints no result line; each
      zerosLeft > 6, every nC context), every P mb_type with extreme mvds,
      an all-skip P frame, P frames whose last and whose first MB is
      skipped, as whole slices and as bands (top_ctx, valid, run_lead an int
-     and a tensor). Times each form both ways at 1080p QP 28 beside its
-     plain twin, holding every timed call to the plain output;
+     and a tensor); and the 1080p QP 28 P frame with whole tickets of MBs
+     skipped (more than a look-back window of them in a row), as a slice
+     and as band 1 of 4. Times each form both ways at 1080p QP 28 beside its
+     plain twin, holding every timed call to the plain output, and the
+     fill of its workspace alone;
   14. the decode gate: decode each 1080p stream of phases 3, 5, 7, 9 and 10
      (both of phase 10's)
      with the port's Decoder on the card (native form) and hold every
@@ -1208,14 +1211,15 @@ def mixed_inputs(torch, frame, qp, chroma=None):
 
 def mixed_payload(dec, cm, cdc, cac, mx):
     """The slice payload of a mixed frame from its mode decision, chroma
-    modes and levels, and K6's outputs mx, by the plain entropy."""
-    from h264_fer_tpu_torch.codec.entropy import mixed_slice_entropy_plain
+    modes and levels, and K6's outputs mx, by the plain entropy (and the
+    plain chroma setup)."""
+    from h264_fer_tpu_torch.codec.entropy import chroma_setup_plain, mixed_slice_entropy_plain
 
     hmb, wmb = (n // 16 for n in mx["recon_y"].shape)
     return mixed_slice_entropy_plain(
         mx["choice4"], dec["mode16"], cm, mx["i16dc"], mx["i16ac"], mx["lv4"],
         mx["prev_flags"], mx["rem_modes"], mx["cbp_luma"], mx["tc_luma"], cdc, cac,
-        wmb=wmb, hmb=hmb)
+        wmb=wmb, hmb=hmb, chroma=chroma_setup_plain(cdc, cac, wmb, hmb))
 
 
 def check_mixed_kernels(torch, label, frame, qp, mode4=None, time_it=False,
@@ -1469,8 +1473,7 @@ def plain_patches():
             mock.patch.object(iframe, "i16_slice_entropy", entropy.i16_slice_entropy_plain),
             mock.patch.object(iframe, "chroma_setup", entropy.chroma_setup_plain),
             mock.patch.object(iframe, "mixed_slice_entropy",
-                              lambda *a, chroma=None, **kw:
-                              entropy.mixed_slice_entropy_plain(*a, **kw))]
+                              entropy.mixed_slice_entropy_plain)]
 
 
 def plain_session_stream(torch, dev, cfg, frames, counted) -> bytes:
@@ -2304,7 +2307,7 @@ def me_topk_path(torch, dev, frames):
     """Phase 10's --tpu-me run at 1080p (the CLI's `encode --tpu-iframe
     --tpu-me --deblock --intra-every 8`): Encoder(..., iframe="i16",
     pframe="host", me="topk") on `frames` with the launch counts set to 0
-    just before; one K1t, K2 and K9 launch, K10's four for the IDR and one
+    just before; one K1t, K2 and K9 launch, K10's one for the IDR and one
     K8 per frame, no other P kernel; the stream parses with the filter
     signalled. Returns (stream,
     the reference planes after each frame on the card, launches, per frame
@@ -2388,10 +2391,10 @@ def k10_counted() -> tuple:
 
 def k10_launches(want: dict) -> dict:
     """{wrapper name: launches} of K10's wrappers; `want` by form, the
-    slices (or chroma setups) of a run: four launches a slice, two a
-    chroma setup, none of a form not named."""
+    slices (or chroma setups) of a run: one launch a slice, band or chroma
+    setup, none of a form not named."""
     names = {form: fn.__name__ for form, (_, _, fn) in k10_functions().items()}
-    return {names[f]: (2 if f == "chroma" else 4) * want.get(f, 0) for f in names}
+    return {names[f]: want.get(f, 0) for f in names}
 
 
 def k10_levels(rng, shape) -> np.ndarray:
@@ -2500,26 +2503,31 @@ def check_k10(torch, label: str, form: str, args, wmb: int, hmb: int, time_it=Fa
     valid, run_lead; mixed: chroma, the chroma setup's output) against its
     plain twin on the same inputs, every key. Returns (max_abs_err, ms,
     plain_ms, bound_ms, bound_by, queued_ms) (times None unless time_it;
-    every timed call is held to the plain output too) and the plain
-    output."""
+    every timed call is held to the plain output too), the plain output and
+    the queued ms of the call's workspace fill alone (None unless
+    time_it)."""
     fn, plain, _ = k10_functions()[form]
-    plain_kw = {k: v for k, v in kw.items() if k != "chroma"}
     got = fn(*args, wmb, hmb, **kw)
-    want, plain_ms = timed_once(torch, lambda: plain(*args, wmb, hmb, **plain_kw))
+    want, plain_ms = timed_once(torch, lambda: plain(*args, wmb, hmb, **kw))
     if form == "chroma":  # the plain chain's symbol streams stay inside it
         want = {k: want[k] for k in got}
     err = k10_err(torch, got, want)
-    ms = queued_ms = None
+    ms = queued_ms = fill_ms = None
     if time_it:
+        from h264_fer_tpu_torch.kernels.cavlc_slice import fill
+
         def check(out):
             if k10_err(torch, out, want):
                 raise AssertionError(f"K10 {form} {label}: a timed call != plain")
         ms, queued_ms = kernel_ms(torch, lambda: fn(*args, wmb, hmb, **kw), 20, check)
+        fill_ms = cuda_ms(torch, lambda: fill(form, wmb * hmb, args[0].device), 20,
+                          queued=True)
     # each input the function needs read once (the halo and the chroma
     # setup too), each state output written once, and the words the payload
     # uses; the operations on the levels it needs
     read, levels = k10_needed(form, args, kw)
-    ins = [*read, *(kw.get("top_ctx") or ()), *(kw.get("chroma") or {}).values()]
+    ins = [*read, *(kw.get("top_ctx") or ()),
+           *(kw["chroma"][k] for k in ("cbp_chroma", "tc_chroma") if "chroma" in kw)]
     outs = [v for k, v in got.items() if k not in ("words", "nbits", "trail_bits")
             and not any(v is a for a in (*args, *ins))]
     used = 8 * ((int(got["nbits"]) + 63) // 64) if "nbits" in got else 0
@@ -2527,12 +2535,12 @@ def check_k10(torch, label: str, form: str, args, wmb: int, hmb: int, time_it=Fa
     bound_ms, bound_by = bound(moved, cavlc_size_ops(*(lv.cpu().numpy() for lv in levels)))
     print(f"K10 {form} {label}: max_abs_err {err} (tolerance 0, every key, the words in "
           f"full), {int(got['nbits']) if 'nbits' in got else int(got['bits'].sum())} bits"
-          + (f", kernel {ms:.4f} ms (queued {queued_ms:.4f}), plain {plain_ms:.2f} ms"
-             if time_it else "")
+          + (f", kernel {ms:.4f} ms (queued {queued_ms:.4f}, of which the workspace fill "
+             f"alone {fill_ms:.4f}), plain {plain_ms:.2f} ms" if time_it else "")
           + f", bound {bound_ms:.4f} ms ({bound_by}, {moved} bytes)", flush=True)
     if err != 0:
         raise AssertionError(f"K10 {form} {label}: kernel != plain")
-    return (err, ms, plain_ms, bound_ms, bound_by, queued_ms), want
+    return (err, ms, plain_ms, bound_ms, bound_by, queued_ms), want, fill_ms
 
 
 def k10_frame_args(torch, dev, frame, pair, qp) -> dict:
@@ -2590,28 +2598,60 @@ def k10_band(torch, form, args, kw, want, wmb, r0, hl):
     return cut, band_kw
 
 
-def k10_phase(torch, dev, name) -> dict:
+def k10_skipped_blocks(torch, args, wmb: int, hmb: int):
+    """A P frame's K10 arguments (skip, mb_type, mvd, luma, cdc, cac) with
+    whole tickets of MBs skipped (levels zeroed there): every other ticket
+    of the first MB rows, then a run of more than 32 tickets (one look-back
+    window) with no coded MB, then every third ticket; so that the
+    look-back carries the last coded MB across tickets and windows that
+    have none."""
+    from h264_fer_tpu_torch.kernels.cavlc_slice import MBS_PER_TICKET, tickets
+
+    nmb = wmb * hmb
+    t = torch.arange(nmb, device=args[0].device) // MBS_PER_TICKET
+    nt = tickets(nmb)
+    skip = args[0] | (t % 2 == 1) & (t < nt // 4)
+    skip |= (t >= nt // 4) & (t < nt // 4 + 40)
+    skip |= (t >= nt // 2) & (t % 3 != 0)
+    luma, cdc, cac = (a.clone() for a in args[3:])
+    luma[skip], cdc[:, skip], cac[:, skip] = 0, 0, 0
+    return (skip, args[1], args[2], luma, cdc, cac)
+
+
+def k10_phase(torch, dev, name) -> tuple:
     """Phase 13: K10 against its plain twins, bit-exact on every key, at
     1080p (QP 8, 28, 46 on a content frame's levels and decisions, each
-    form, timed at QP 28; the band forms on band 1 of 4 at QP 28), and on
+    form, timed at QP 28; the band forms on band 1 of 4 at QP 28; the QP 28
+    P frame with whole tickets skipped, as a slice and as a band), and on
     the small grids with k10_random_args' inputs, as whole slices and as
-    bands. Returns {form: (max_abs_err over every check, ms, plain_ms,
-    bound_ms, bound_by, queued_ms) at 1080p QP 28}."""
+    bands. Returns ({form: (max_abs_err over every check, ms, plain_ms,
+    bound_ms, bound_by, queued_ms) at 1080p QP 28}, {form: the queued ms of
+    its workspace fill alone})."""
     frame = content(1, W, H)[0]
     pair = [tuple(torch.from_numpy(p).to(dev) for p in f) for f in content(2, W, H)]
-    errs, timed = dict.fromkeys(K10_ROWS, 0), {}
+    errs, timed, fills = dict.fromkeys(K10_ROWS, 0), {}, {}
     wmb, hl = W // 16, H // 16 // BAND_TILES
     for qp in CHECK_QPS:
         for form, (args, kw) in k10_frame_args(torch, dev, frame, pair, qp).items():
-            res, want = check_k10(torch, f"{W}x{H} qp{qp}", form, args, wmb, H // 16,
-                                  time_it=qp == QP, **kw)
+            res, want, fill = check_k10(torch, f"{W}x{H} qp{qp}", form, args, wmb, H // 16,
+                                        time_it=qp == QP, **kw)
             errs[form] = max(errs[form], res[0])
-            if qp == QP:
-                timed[form] = res
+            if qp != QP:
+                continue
+            timed[form], fills[form] = res, fill
+            cut, band_kw = k10_band(torch, form, args, kw, want, wmb, hl, hl)
+            res, _, _ = check_k10(torch, f"{W}x{H} qp{qp} band 1 of {BAND_TILES} (real "
+                                  "top_ctx, padded last row, run_lead on the card)", form,
+                                  cut, wmb, hl, **band_kw)
+            errs[form] = max(errs[form], res[0])
+            if form == "p":
+                args = k10_skipped_blocks(torch, args, wmb, H // 16)
+                res, want, _ = check_k10(torch, f"{W}x{H} qp{qp} whole tickets skipped",
+                                         form, args, wmb, H // 16)
+                errs[form] = max(errs[form], res[0])
                 cut, band_kw = k10_band(torch, form, args, kw, want, wmb, hl, hl)
-                res, _ = check_k10(torch, f"{W}x{H} qp{qp} band 1 of {BAND_TILES} (real "
-                                   "top_ctx, padded last row, run_lead on the card)", form,
-                                   cut, wmb, hl, **band_kw)
+                res, _, _ = check_k10(torch, f"{W}x{H} qp{qp} whole tickets skipped, band 1 "
+                                      f"of {BAND_TILES}", form, cut, wmb, hl, **band_kw)
                 errs[form] = max(errs[form], res[0])
     rng = np.random.default_rng(SEED + 10)
     for label, w, h in K10_QCIF_GRIDS:
@@ -2625,12 +2665,12 @@ def k10_phase(torch, dev, name) -> dict:
                 from h264_fer_tpu_torch.codec.entropy import chroma_setup
 
                 kw["chroma"] = chroma_setup(*args[-2:], gw, gh)
-            res, want = check_k10(torch, f"{label} random", form, args, gw, gh, **kw)
+            res, want, _ = check_k10(torch, f"{label} random", form, args, gw, gh, **kw)
             errs[form] = max(errs[form], res[0])
             if gh > 2:  # MB rows [1, gh - 1) as a band
                 cut, band_kw = k10_band(torch, form, args, kw, want, gw, 1, gh - 2)
-                res, _ = check_k10(torch, f"{label} random band", form, cut, gw, gh - 2,
-                                   **band_kw)
+                res, _, _ = check_k10(torch, f"{label} random band", form, cut, gw, gh - 2,
+                                      **band_kw)
                 errs[form] = max(errs[form], res[0])
         # P frames all skipped, with the last MB and with the first MB skipped
         for case, skip in (("all skipped", np.ones(nmb, bool)),
@@ -2640,11 +2680,11 @@ def k10_phase(torch, dev, name) -> dict:
             args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                          for a in k10_random_args("p", gw, gh, rng, skip=skip))
             for run_lead in (None, 3, torch.tensor(7, device=dev)):
-                res, _ = check_k10(torch, f"{label} {case}, run_lead {run_lead}", "p", args,
-                                   gw, gh, run_lead=run_lead)
+                res, _, _ = check_k10(torch, f"{label} {case}, run_lead {run_lead}", "p",
+                                      args, gw, gh, run_lead=run_lead)
                 errs["p"] = max(errs["p"], res[0])
     print(f"K10 checks done: max_abs_err {errs} on {name}", flush=True)
-    return {form: (errs[form], *timed[form][1:]) for form in K10_ROWS}
+    return {form: (errs[form], *timed[form][1:]) for form in K10_ROWS}, fills
 
 
 def main() -> int:
@@ -3109,7 +3149,7 @@ def main() -> int:
 
     print(f"[phase 12 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- 13. K10 vs its plain twins ---------------------------------------
-    k10_rows = k10_phase(torch, dev, name)
+    k10_rows, k10_fills = k10_phase(torch, dev, name)
 
     print(f"[phase 13 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- 14. decode gate ----------------------------------------------------
@@ -3196,6 +3236,9 @@ def main() -> int:
             kernels[-1]["decode_launches"] = decoded["session"][2]
         if kname == "me_int":  # K2 also searches the --tpu-me path's candidates
             kernels[-1]["me_topk_path_launches"] = me_launches["integer_score_map"]
+        k10_form = {kn: form for form, (kn, _) in K10_ROWS.items()}.get(kname)
+        if k10_form:  # K10's queued ms includes its workspace fill
+            kernels[-1]["fill_queued_ms"] = k10_fills[k10_form]
     print(name)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -125,9 +125,18 @@ def chroma_setup_plain(cdc, cac, wmb: int, hmb: int, top_ctx=None):
     has_cdc = cdc.reshape(2, nmb, -1).ne(0).any(dim=-1).any(dim=0)
     has_cac = cac.reshape(2, nmb, -1).ne(0).any(dim=-1).any(dim=0)
     cbp_c = torch.where(has_cac, 2, torch.where(has_cdc, 1, 0)).to(I32)
-    cdc_blk = block_symbols_bulk(cdc, 4)  # (2, nmb, ·)
     cac_blk = block_symbols_bulk(cac, 15)  # (2, nmb, 4, ·)
     tc_chroma = torch.where((cbp_c == 2)[None, :, None], cac_blk["tc"], 0).to(I32)
+    return {"cbp_chroma": cbp_c, "tc_chroma": tc_chroma,
+            **_chroma_streams(cdc, cac_blk, cbp_c, tc_chroma, wmb, hmb, top_ctx)}
+
+
+def _chroma_streams(cdc, cac_blk, cbp_c, tc_chroma, wmb: int, hmb: int, top_ctx):
+    """The chroma setup's bits (nmb,) and gated symbol streams (cdc_vals,
+    cdc_lens, cac_vals, cac_lens) for the chroma state cbp_c (nmb,),
+    tc_chroma (2, nmb, 4); cac_blk: block_symbols_bulk of cac."""
+    nmb = wmb * hmb
+    cdc_blk = block_symbols_bulk(cdc, 4)  # (2, nmb, ·)
     nc_c = _nc_chroma_grid(tc_chroma, cbp_c, wmb, hmb, top_ctx)
     cdc_vals, cdc_lens = finalize_symbols(
         cdc_blk, torch.full((2, nmb), 4, dtype=I32, device=cdc.device))
@@ -135,8 +144,6 @@ def chroma_setup_plain(cdc, cac, wmb: int, hmb: int, top_ctx=None):
     cdc_lens = torch.where((cbp_c > 0)[None, :, None], cdc_lens, 0)
     cac_lens = torch.where((cbp_c == 2)[None, :, None, None], cac_lens, 0)
     return {
-        "cbp_chroma": cbp_c,
-        "tc_chroma": tc_chroma,
         "bits": (cdc_lens.sum(dim=(0, 2), dtype=I32)
                  + cac_lens.sum(dim=(0, 2, 3), dtype=I32)),
         "cdc_vals": cdc_vals,
@@ -223,20 +230,28 @@ def i16_slice_entropy_plain(mode16, cmode, i16dc, i16ac, cdc, cac,
 
 def mixed_slice_entropy_plain(choice4, mode16, cmode, i16dc, i16ac, lv4, prev_flags,
                               rem_modes, cbp_luma, tc_luma, cdc, cac,
-                              wmb: int, hmb: int, top_ctx=None, valid=None):
+                              wmb: int, hmb: int, top_ctx=None, valid=None, *, chroma=None):
     """Whole-slice macroblock_layer bits of a mixed I4x4/I16 frame.
 
     choice4 (nmb,) bool, prev_flags (nmb, 16) bool, rem_modes (nmb, 16),
     cbp_luma (nmb,) and tc_luma (nmb, 16) come from the arbitration
     wavefront (K6); the level arrays hold both candidates' levels, and
     choice4 selects the winner's. mode16/cmode (nmb,), cdc (2, nmb, 4),
-    cac (2, nmb, 4, 15), int32. Returns the dict of i16_slice_entropy plus
-    nz_luma (nmb, 16) bool. top_ctx, valid: as i16_slice_entropy's.
+    cac (2, nmb, 4, 15), int32. chroma (required; ValueError when None):
+    the frame's chroma setup (chroma_setup of the same cdc, cac and
+    top_ctx, computed once a frame), whose cbp_chroma and tc_chroma this
+    reads; only the chroma symbols are computed here. Returns the dict of
+    i16_slice_entropy plus nz_luma (nmb, 16) bool, cbp_chroma and tc_chroma
+    the setup's. top_ctx, valid: as i16_slice_entropy's.
     """
     nmb = wmb * hmb
     dev = choice4.device
-    ch = chroma_setup_plain(cdc, cac, wmb, hmb, None if top_ctx is None else top_ctx[2:])
-    cbp_c = ch["cbp_chroma"]
+    if chroma is None:
+        raise ValueError("chroma: the mixed slice entropy takes the slice's chroma setup "
+                         "(chroma_setup of the same cdc, cac and top_ctx)")
+    cbp_c, tc_c = chroma["cbp_chroma"], chroma["tc_chroma"]
+    ch = _chroma_streams(cdc, block_symbols_bulk(cac, 15), cbp_c, tc_c, wmb, hmb,
+                         None if top_ctx is None else top_ctx[2:])
     mb_type = torch.where(choice4, 0, 1 + mode16 + 4 * cbp_c
                           + torch.where(cbp_luma == 15, 12, 0)).to(I32)
 
@@ -292,7 +307,7 @@ def mixed_slice_entropy_plain(choice4, mode16, cmode, i16dc, i16ac, lv4, prev_fl
         "cbp_luma": cbp_luma,
         "cbp_chroma": cbp_c,
         "tc_luma": tc_luma,
-        "tc_chroma": ch["tc_chroma"],
+        "tc_chroma": tc_c,
         "nz_luma": nz_luma,
     }
 
@@ -438,15 +453,13 @@ def mixed_slice_entropy(choice4, mode16, cmode, i16dc, i16ac, lv4, prev_flags,
                         wmb: int, hmb: int, top_ctx=None, valid=None, *, chroma=None):
     """mixed_slice_entropy_plain's function: CUDA tensors go to K10, CPU
     tensors to the plain twin. chroma: the frame's chroma_setup output for
-    the same cdc, cac and top_ctx, required by K10 (ValueError without it),
-    which reads it in place of its own; the plain twin ignores it and
-    computes the setup again, so a setup of other inputs makes the two
-    routes differ."""
+    the same cdc, cac and top_ctx, required by both (ValueError without
+    it), which read its cbp_chroma and tc_chroma."""
     args = (choice4, mode16, cmode, i16dc, i16ac, lv4, prev_flags, rem_modes, cbp_luma,
             tc_luma, cdc, cac, wmb, hmb, top_ctx, valid)
     if _kernel(choice4):
         return cavlc_slice.mixed_entropy(*args, chroma=chroma)
-    return mixed_slice_entropy_plain(*args)
+    return mixed_slice_entropy_plain(*args, chroma=chroma)
 
 
 def p_slice_entropy(skip, mb_type, mvd, luma_levels, cdc, cac,

@@ -134,22 +134,41 @@ def function(name: str, symbol: str, argtypes):
     return fn
 
 
+_bound: dict = {}  # (name, symbol, which arguments are ints) → bound entry point
+# the current stream's handle on a device index, without building a
+# torch.cuda.Stream (the call torch's generated launchers make)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def current_stream_handle(device) -> int:
+    """The cudaStream_t of the current stream of CUDA `device`."""
+    if _raw_stream is not None and device.index is not None:
+        return _raw_stream(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def launch(wrapper, name: str, symbol: str, args, device) -> None:
     """Run the C entry point `symbol` of csrc/<name>.cu on the current
     stream of `device`. It takes `args` (a tensor or a numpy array as its
     data pointer, None as a null pointer, an int as an int), then the
     stream and an int* through which it reports how many launches it made,
     and returns the first CUDA error. Adds those launches to `wrapper.launches`, then raises
-    RuntimeError if the error is not 0."""
+    RuntimeError if the error is not 0. The entry point runs with `device`
+    current (switched to and back only when another device is)."""
     vp, i = ctypes.c_void_p, ctypes.c_int
-    ints = [isinstance(a, (int, np.integer)) for a in args]
-    fn = function(name, symbol, [i if n else vp for n in ints] + [vp, ctypes.POINTER(i)])
+    ints = tuple(isinstance(a, (int, np.integer)) for a in args)
+    fn = _bound.get((name, symbol, ints))
+    if fn is None:
+        fn = _bound[name, symbol, ints] = function(
+            name, symbol, [i if n else vp for n in ints] + [vp, ctypes.POINTER(i)])
     ptrs = [int(a) if n else None if a is None else a.ctypes.data
             if isinstance(a, np.ndarray) else a.data_ptr() for a, n in zip(args, ints)]
     launched = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        err = fn(*ptrs, torch.cuda.current_stream(device).cuda_stream,
-                 ctypes.byref(launched))
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = fn(*ptrs, current_stream_handle(device), ctypes.byref(launched))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*ptrs, current_stream_handle(device), ctypes.byref(launched))
     wrapper.launches += launched.value
     if err:
         raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")

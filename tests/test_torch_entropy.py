@@ -3,8 +3,9 @@ package's (ops/cavlc_jax.py, codec/tpu_entropy.i16_slice_entropy). The
 public slice entropies and chroma_setup route a CPU tensor to their plain
 twins with no K10 launch and refuse other devices; K10's table buffer
 holds the tables at csrc/cavlc.cuh's offsets; its wrappers refuse inputs
-of a wrong shape or dtype, and the mixed one a call without the chroma
-setup, before anything launches."""
+of a wrong shape or dtype before anything launches, and pass the rest in
+the slots of the C entry point's struct; the mixed form, on both routes,
+takes the chroma setup and refuses a call without it."""
 
 import pathlib
 import re
@@ -114,24 +115,33 @@ def _args(form, seed=5):
                  for a in chip_smoke.k10_random_args(form, WMB, HMB, rng))
 
 
-@pytest.mark.parametrize("form", FORMS)
-def test_cpu_tensors_route_to_the_plain_twin(form):
+@pytest.mark.parametrize("form,other_chroma", [(f, False) for f in FORMS] + [("mixed", True)])
+def test_cpu_tensors_route_to_the_plain_twin(form, other_chroma):
     """A CPU tensor takes the plain twin, launching nothing; every key of
     the result is the twin's (chroma_setup: its cbp_chroma, tc_chroma and
-    bits), and the words have the length K10 allocates."""
+    bits), and the words have the length K10 allocates. The mixed form
+    takes the chroma setup as K10 does: a setup of other chroma levels
+    changes its words, and the result is the twin's fed that setup."""
     fn, plain, wrapper = PUBLIC[form]
     args = _args(form)
+    kw = {"chroma": _chroma(form, seed=6 if other_chroma else 5)} if form == "mixed" else {}
     launches = [w.launches for _, _, w in PUBLIC.values()]
-    got = fn(*args, WMB, HMB)
-    want = plain(*args, WMB, HMB)
+    got = fn(*args, WMB, HMB, **kw)
+    want = plain(*args, WMB, HMB, **kw)
     assert [w.launches for _, _, w in PUBLIC.values()] == launches
     if form == "chroma":
         assert tuple(got) == entropy.CHROMA_KEYS
     else:
         assert set(got) == set(want)
         assert got["words"].shape == (cavlc_slice.n_words(form, WMB * HMB),)
+        assert tuple(want) == ("words", "nbits", *cavlc_slice.KEYS[form])
     for key in got:
         assert torch.equal(got[key], want[key]), key
+    if other_chroma:
+        own = fn(*args, WMB, HMB, chroma=_chroma(form))
+        assert not torch.equal(got["words"], own["words"])
+        for key in ("cbp_chroma", "tc_chroma"):
+            assert torch.equal(got[key], kw["chroma"][key]), key
 
 
 @pytest.mark.parametrize("form", FORMS)
@@ -161,9 +171,10 @@ def test_table_buffer_holds_each_table_at_its_header_offset(part):
     np.testing.assert_array_equal(buf[: k6.size], k6)
 
 
-def _chroma(form):
-    """The chroma setup of the form's random chroma levels (CPU, plain)."""
-    return entropy.chroma_setup(*_args(form)[-2:], WMB, HMB)
+def _chroma(form, seed=5):
+    """The chroma setup (CPU, plain) of the chroma levels of the form's
+    random arguments made from `seed`."""
+    return entropy.chroma_setup(*_args(form, seed)[-2:], WMB, HMB)
 
 
 def _bad(form, kind):
@@ -180,8 +191,10 @@ def _bad(form, kind):
 def test_wrapper_checks_its_inputs_before_launching(monkeypatch, form, kind):
     """With the device test and the launch stubbed, so that CPU tensors get
     as far as the launch: a wrong shape or dtype raises ValueError and
-    launches nothing; good inputs reach the C entry point as one argument
-    per ARGS name, the level arrays contiguous."""
+    launches nothing; good inputs make one call of the C entry point with
+    one int64 slot per ARGS name (the fields of csrc/cavlc_slice.cu's
+    struct Args, in order): the inputs' data pointers, the workspace's, the
+    grid."""
     calls = []
     monkeypatch.setattr(cavlc_slice, "_device", lambda t: t.device)
     monkeypatch.setattr(build, "launch", lambda *a: calls.append(a))
@@ -192,23 +205,49 @@ def test_wrapper_checks_its_inputs_before_launching(monkeypatch, form, kind):
             wrapper(*_bad(form, kind), WMB, HMB, **kw)
         assert not calls
         return
-    wrapper(*_args(form), WMB, HMB, **kw)
-    assert [c[3][0] for c in calls] == [cavlc_slice.FORMS[form]]
-    (_, name, symbol, vals, _) = calls[-1]
+    args = _args(form)
+    out = wrapper(*args, WMB, HMB, **kw)
+    assert len(calls) == 1
+    (_, name, symbol, vals, _) = calls[0]
     assert (name, symbol) == ("cavlc_slice", "cavlc_slice")
-    assert vals[0] == cavlc_slice.FORMS[form] and len(vals) == 1 + len(cavlc_slice.ARGS)
-    named = dict(zip(cavlc_slice.ARGS, vals[1:]))
+    assert vals[0] == cavlc_slice.FORMS[form] and vals[2] == len(cavlc_slice.ARGS)
+    source = (build.CSRC / "cavlc_slice.cu").read_text()
+    struct = source[source.index("struct Args {"): source.index("};", source.index("struct Args {"))]
+    fields = re.findall(r"(\w+)(?:, (\w+))?(?:, (\w+))?;", struct)
+    assert [f for group in fields for f in group if f] == list(cavlc_slice.ARGS)
+    named = dict(zip(cavlc_slice.ARGS, vals[1].tolist()))
     assert named["nmb"] == WMB * HMB and named["wmb"] == WMB
-    assert all(isinstance(named[k], int) for k in cavlc_slice.INT_ARGS)
-    assert named["cdc"].is_contiguous() and named["tabs"].shape == cavlc_slice.TABLES.shape
+    for i in chip_smoke.K10_LEVELS[form]:
+        assert args[i].data_ptr() in vals[1].tolist()
+    assert named["cdc"] == args[-2].data_ptr()
+    assert named["tabs"] == const(cavlc_slice.TABLES, "cpu").data_ptr()
+    nt = cavlc_slice.tickets(WMB * HMB)
+    nw = 0 if form == "chroma" else cavlc_slice.n_words(form, WMB * HMB) + 1
+    assert named["nwords"] == nw
+    ndesc = 0 if form == "chroma" else cavlc_slice.DESC_WORDS * nt
+    assert named["sync"] - named["words"] == 8 * (nw + 1 + ndesc)
+    # the entry point zeroes the words, nbits, descriptors and flags, not the state
+    assert named["zeroed"] == named["words"]
+    assert named["zeroed_bytes"] == 8 * (nw + 1 + ndesc + (nt + 2) // 2)
+    for key in cavlc_slice.STATE[form]:
+        state = out["bits" if key == "mb_bits" else key]
+        assert state.data_ptr() >= named["zeroed"] + named["zeroed_bytes"], key
+    if form != "chroma":
+        assert tuple(out) == ("words", "nbits", *cavlc_slice.KEYS[form])
+        assert named["words"] == out["words"].data_ptr()
+        assert named["nbits"] == out["nbits"].data_ptr() == named["words"] + 8 * nw
 
 
-def test_mixed_wrapper_requires_the_chroma_setup(monkeypatch):
-    """K10's mixed form computes no chroma setup of its own: without
-    `chroma` it raises ValueError and launches nothing."""
+@pytest.mark.parametrize("route", ["kernel", "twin", "dispatcher"])
+def test_mixed_wrapper_requires_the_chroma_setup(monkeypatch, route):
+    """The mixed form computes no chroma setup of its own: without `chroma`
+    K10's wrapper, the plain twin and the dispatcher raise ValueError, and
+    nothing launches."""
     calls = []
     monkeypatch.setattr(cavlc_slice, "_device", lambda t: t.device)
     monkeypatch.setattr(build, "launch", lambda *a: calls.append(a))
+    fn = {"kernel": cavlc_slice.mixed_entropy, "twin": entropy.mixed_slice_entropy_plain,
+          "dispatcher": entropy.mixed_slice_entropy}[route]
     with pytest.raises(ValueError, match="chroma setup"):
-        cavlc_slice.mixed_entropy(*_args("mixed"), WMB, HMB)
+        fn(*_args("mixed"), WMB, HMB)
     assert not calls

@@ -187,14 +187,22 @@ def test_band_entropy_spliced_equals_full_frame(clip, n):
                   mx["prev_flags"], mx["rem_modes"], mx["cbp_luma"], mx["tc_luma"], cdc, cac)
     for fn, args in ((i16_slice_entropy, i16_args), (mixed_slice_entropy, mixed_args)):
         chroma = {len(args) - 2, len(args) - 1}
+
+        def setup(a, hmb, ctx):
+            """The mixed entropy's chroma setup of the levels `a` hold."""
+            if fn is not mixed_slice_entropy:
+                return {}
+            return {"chroma": chroma_setup(a[-2], a[-1], WMB, hmb,
+                                           None if ctx is None else ctx[2:])}
+
         cut = [a[:, :real] if i in chroma else a[:real] for i, a in enumerate(args)]
-        want = payload(fn(*cut, wmb=WMB, hmb=HMB))
+        want = payload(fn(*cut, wmb=WMB, hmb=HMB, **setup(cut, HMB, None)))
         parts, ctx = [], None
         for t in range(n):
             band = [rows(a, t, hloc, WMB, 1 if i in chroma else 0) for i, a in enumerate(args)]
             valid = torch.arange(hloc * WMB) // WMB + t * hloc < HMB
             ent = fn(*band, wmb=WMB, hmb=hloc, top_ctx=ctx,
-                     valid=None if bool(valid.all()) else valid)
+                     valid=None if bool(valid.all()) else valid, **setup(band, hloc, ctx))
             parts.append((ent["words"], ent["nbits"]))
             ctx = last_row_ctx(ent)
         assert splice(parts) == want, fn.__name__

@@ -85,9 +85,10 @@ def test_mixed_slice_entropy_matches_jax(qcif_k6):
     want = jax_entropy(want_k6["choice4"], ins["mode16"], ins["cmode"],
                        *(want_k6[k] for k in KEYS[2:]), ins["cdc"], ins["cac"],
                        wmb=W // 16, hmb=H // 16)
+    ch = chroma_setup(port["cdc"], port["cac"], W // 16, H // 16)
     got = mixed_slice_entropy(got_k6["choice4"], port["mode16"], port["cmode"],
                               *(got_k6[k] for k in KEYS[2:]), port["cdc"],
-                              port["cac"], wmb=W // 16, hmb=H // 16)
+                              port["cac"], wmb=W // 16, hmb=H // 16, chroma=ch)
     for key in ENTROPY_KEYS:
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]),
                                       err_msg=key)
@@ -96,7 +97,6 @@ def test_mixed_slice_entropy_matches_jax(qcif_k6):
     assert (words_to_bytes(got["words"].numpy(), nbits)
             == jax_words_to_bytes(np.asarray(want["words"]), nbits))
     # the chroma bits K6 was given are the port's chroma setup's too
-    ch = chroma_setup(port["cdc"], port["cac"], W // 16, H // 16)
     assert torch.equal(ch["bits"], port["chroma_bits"])
     assert torch.equal(ch["cbp_chroma"], port["cbp_c"])
 
