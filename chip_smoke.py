@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero and prints no result line; each
 1080p path's stream must also have the byte count STREAM_BYTES gives it):
   1. print the card's name and power limit; build the CUDA kernels from
-     the ten sources in h264_fer_tpu_torch/kernels/csrc (one nvcc per
+     the eleven sources in h264_fer_tpu_torch/kernels/csrc (one nvcc per
      source, sm_90a) and the native slice decoder
      h264_fer_tpu_torch/native/decoder_native.cpp (g++), all started at
      once, and print each build's time and compiler report;
@@ -22,9 +22,10 @@ Phases (any failure exits non-zero and prints no result line; each
      1080p, counted (one launch);
   3. drive the all-intra path: GopIntraEncoder encodes 8 frames at
      1920x1088, QP 28, on the card with the launch counts set to 0 just
-     before (one K1t launch and one K10 launch per frame, no K1); the
-     stream must equal, byte for byte, the stream of the plain chain (mode
-     decision, plain K1t, plain entropy) on the card, and parse back into
+     before (one K1t launch, one K10 launch and one K11 I16-form launch
+     per frame, no K1); the stream must equal, byte for byte, the stream of
+     the plain chain (plain mode decision, plain K1t, plain entropy) on the
+     card, and parse back into
      SPS, PPS and 8 IDR slices; the QCIF stream of the 10 frames of
      tests/fixtures/clip_qcif_10f.y4m at QP 28 from the card must equal the
      CPU path's and have the SHA-256 DEVICE_DIGESTS gives it (the JAX
@@ -44,14 +45,16 @@ Phases (any failure exits non-zero and prints no result line; each
   5. drive the IPPP main path: GopIpppEncoder(1920, 1088, 28, gop_len=8)
      encodes 16 frames with the launch counts set to 0 just before; the
      stream of the first GOP's first 4 frames (the IDR and 3 P frames) must
-     equal, byte for byte, the stream of the plain chain on the card (plain
-     K1, all four plain P twins and the plain entropy), and the whole
+     equal, byte for byte, the stream of the plain chain on the card (the
+     plain decision, plain K1, all four plain P twins and the plain
+     entropy), and the whole
      stream parse back into SPS, PPS and per GOP an IDR and 7 P slice
      headers; the QCIF IPPP stream of the clip's first 6 frames (GOP 4, QP
      28) from the card must equal the CPU path's and have its
      DEVICE_DIGESTS digest (tests/test_torch_ippp.py). Prints e2e fps,
      device ms per P frame for each stage and the counted launches (one
-     K1t per IDR, one K4 per P frame, one K10 per frame);
+     K1t and one K11 I16 form per IDR, one K4 per P frame, one K10 per
+     frame);
   6. hold K4x4 (Intra_4x4 recon and levels), K7 (chroma wavefront writing
      its levels) and K6 (mixed arbitration wavefront), each one dataflow
      launch per frame, against their plain twins on the card, bit-exact on
@@ -70,9 +73,10 @@ Phases (any failure exits non-zero and prints no result line; each
      plain output;
   7. drive the mixed all-intra path: GopIntraEncoder(1920, 1088, 28,
      mode="mixed") encodes 8 frames with the launch counts set to 0 just
-     before (one K6 and one K7 launch per frame, one K10 launch of the
-     chroma setup, computed once a frame, and one of the slice, no K1 or
-     K1t, and no rebuild of the chroma levels from the recon); the first
+     before (one K6, one K7 and one K11 full-form launch per frame, one
+     K10 launch of the chroma setup, computed once a frame, and one of the
+     slice, no K1 or K1t, and no rebuild of the chroma levels from the
+     recon); the first
      frame's stream must equal, byte for byte, the stream of the plain
      chain on the card, and the whole stream parse back; the QCIF mixed
      stream of the clip's first 2 frames at QP 28 from the card must equal
@@ -90,11 +94,12 @@ Phases (any failure exits non-zero and prints no result line; each
      operations only on the lines that pass its alpha / beta test;
   9. drive the session path: Encoder(1920, 1088, EncoderConfig(qp=28,
      intra_every=8, deblock=True)) encodes 16 frames with the launch counts
-     set to 0 just before (one K1t launch per IDR, one K8 launch per frame,
-     one launch of each P kernel per P frame, one K10 per frame); the
-     first 3 frames' stream must equal, byte for byte, the plain chain's
-     (the same encoder with every kernel and K10 swapped for its plain
-     twin), and the stream parse back with the filter signalled in the PPS
+     set to 0 just before (one K1t and one K11 I16-form launch per IDR,
+     one K8 launch per frame, one launch of each P kernel per P frame, one
+     K10 per frame); the first 3 frames' stream must equal, byte for byte,
+     the plain chain's (the same encoder with every kernel, K10 and K11
+     swapped for its plain twin, none of them launching), and the stream
+     parse back with the filter signalled in the PPS
      and every slice header; QCIF session streams from the card, with i16
      IDRs and with mixed IDRs, must equal the CPU path's, and the i16 one
      (the clip's 10 frames, QP 30, intra_every 4, deblock) have its
@@ -104,8 +109,9 @@ Phases (any failure exits non-zero and prints no result line; each
   10. drive the host path, the reference encoder's exact per-MB loop on the
      host with the in-loop filter K8 on the card: Encoder(1920, 1088,
      EncoderConfig(qp=28, intra_every=8, deblock=True), iframe="host",
-     pframe="host") encodes 2 frames (an IDR and a P frame) with K8's
-     count set to 0 just before (one K8 launch per frame); the stream must
+     pframe="host") encodes 2 frames (an IDR and a P frame) with K8's and
+     K11's counts set to 0 just before (one K8 launch per frame, no K11);
+     the stream must
      parse back with the filter signalled, and K8 is held bit-exact against
      its plain twin on the last P frame's state before its filter. Prints
      the seconds per frame of the host loop and of K8's synchronised call,
@@ -116,7 +122,9 @@ Phases (any failure exits non-zero and prints no result line; each
      the clip) must have the SHA-256 HOST_DIGESTS gives it, the digest of
      the JAX package's host Encoder's stream (tests/test_torch_host_encoder
      .py recomputes them with JAX; three of them with me="topk", the JAX
-     Encoder's TpuMePipeline); each card stream must equal the CPU's.
+     Encoder's TpuMePipeline); each card stream must equal the CPU's, and
+     the device-modes stream on the card take one K11 full-form launch per
+     IDR (none on the CPU, none in the other streams).
      Then the --tpu-me path: hold K2 (SAD, ext = window) + K9 (the stable
      top-16 selection) bit-exact against their plain chain on the card
      (ops/me.full_search_topk) on QCIF, 64x208, a flat 1080p pair where
@@ -129,8 +137,8 @@ Phases (any failure exits non-zero and prints no result line; each
      deblock=True), iframe="i16", pframe="host", me="topk") (the CLI's
      `encode --tpu-iframe --tpu-me --deblock --intra-every 8`) on 2
      frames with the launch counts set to 0 just before (one K1t, K2 and
-     K9 launch, one K10 for the IDR, one K8 per frame, no other P kernel
-     and no K10 on the host P frame): the stream parses
+     K9 launch, one K10 and one K11 I16 form for the IDR, one K8 per frame,
+     no other P kernel and no K10 on the host P frame): the stream parses
      with the filter signalled and its candidates, read from plane 0 of
      the P frame's interpolated planes, equal the plain chain's. Times K9
      both ways on that P frame's map, its plain twin and one torch.topk
@@ -148,7 +156,8 @@ Phases (any failure exits non-zero and prints no result line; each
      entries, each with the band kernels' counts set to 0 just before (one
      launch of each band kernel of its mode per band per frame, and K10's
      one per slice or band, one more per band for the mixed chroma
-     setup); every
+     setup, and K11's one per band or frame, in the form of its mode);
+     every
      stream must equal the one-device stream of phase 3, 5 or 7, and the
      band encoders' recon must decode from it (decode_gate, untimed).
      Prints each one's median e2e fps of 3 after a warm-up, the profiled
@@ -174,8 +183,9 @@ Phases (any failure exits non-zero and prints no result line; each
      drive TileIpppEncoder(1920, 1088, 28, gop_len=8) in 4 bands of 17 MB
      rows and in 2 of 34, and GopTileIpppEncoder (2, 2), on entries of the
      card, each with the launch counts set to 0 just before (one K4-band,
-     K2, K3 and K5 launch per band per P frame, one K1t-band per band per
-     IDR, one K10 per band, no frame K4 or K1t): each stream must equal
+     K2, K3 and K5 launch per band per P frame, one K1t-band and one K11
+     I16 form per band per IDR, one K10 per band, no frame K4 or K1t):
+     each stream must equal
      phase 5's one-device
      stream and the bands' reference planes decode from it (decode_gate,
      spec mode, untimed); prints each one's median e2e fps of 3 after a
@@ -202,7 +212,18 @@ Phases (any failure exits non-zero and prints no result line; each
      and as band 1 of 4. Times each form both ways at 1080p QP 28 beside its
      plain twin, holding every timed call to the plain output, and the
      fill of its workspace alone;
-  14. the decode gate: decode each 1080p stream of phases 3, 5, 7, 9 and 10
+  14. hold K11 (the intra mode decision, one launch a frame or band) in
+     its I16 and full forms against their plain twins on the card,
+     bit-exact on mode16, satd16, mode4 and satd4, on the uint8 plane and
+     on it as int32: 1920x1088 content at QP 8, 28 and 46; band 1 of 4
+     with the source row above as top_row (QP 8, 28, 46) and with that row
+     holding -1 entries; seeded uniform-random frames (QP 8, 28, 46); flat
+     frames of 0, 128 and 255, where every mode ties and the gates and the
+     first-min order decide; vertical and horizontal stripes; and the
+     16x16, 176x144, 80x176, 16x144 and 176x16 grids (content, random at
+     QP 0 and 51, flat 255). Times both forms at 1080p QP 28 beside the
+     plain twins, holding every timed call to the plain output;
+  15. the decode gate: decode each 1080p stream of phases 3, 5, 7, 9 and 10
      (both of phase 10's)
      with the port's Decoder on the card (native form) and hold every
      frame, exactly, to the reconstruction the run has for it: the plain
@@ -215,7 +236,7 @@ Phases (any failure exits non-zero and prints no result line; each
      stream's frames, median decode fps of 5 runs after a warm-up and K8
      launches per frame; the QCIF session streams decode equal on the
      card and on the CPU (plain K8);
-  15. print the kernels line (K8's row also with its launches on the host
+  16. print the kernels line (K8's row also with its launches on the host
      path and on the session stream's decode, K2's with its launches on
      the --tpu-me path, K9's with torch.topk's time as library_ms) and,
      last,
@@ -247,7 +268,7 @@ CHECK_QPS = (8, 28, 46)
 SEED = 7
 KERNEL_SOURCES = ("wavefront_i16", "me_int", "me_qpel", "wavefront_p", "mc",
                   "wavefront_i4x4", "wavefront_mixed", "deblock", "me_topk",
-                  "cavlc_slice")
+                  "cavlc_slice", "mode_decision")
 NATIVE_DECODER = "decoder_native"  # h264_fer_tpu_torch/native, built by g++
 # the IPPP main path: bench.py's e2e_ippp_encode_1080p_fps configuration
 GOP_LEN, N_IPPP, WINDOW = 8, 16, 8
@@ -492,7 +513,7 @@ def i16_inputs(torch, dev, frame, qp, modes):
 
     y, cb, cr = (torch.from_numpy(p).to(dev) for p in frame)
     if modes is None:
-        m16 = intra16_mode_decision(y.to(torch.int32), qp)[0].to(torch.int32)
+        m16 = intra16_mode_decision(y, qp)[0]
         cm = torch.from_numpy(INTRA16_TO_CHROMA_MODE).to(dev)[m16.long()]
     else:
         m16, cm = (torch.from_numpy(m).to(dev) for m in modes)
@@ -701,12 +722,11 @@ def stage_times(torch, dev, frame):
 
     qpc = chroma_qp(QP)
     y, cb, cr = (torch.from_numpy(p).to(dev) for p in frame)
-    yi = y.to(torch.int32)
-    m16 = intra16_mode_decision(yi, QP)[0].to(torch.int32)
+    m16 = intra16_mode_decision(y, QP)[0]
     cm = torch.from_numpy(INTRA16_TO_CHROMA_MODE).to(dev)[m16.long()]
     _, i16dc, ac, _, _, cdc, cac = i16_frame(y, cb, cr, m16, cm, QP, qpc)
     return {
-        "mode_decision": cuda_ms(torch, lambda: intra16_mode_decision(yi, QP), 5),
+        "mode_decision": cuda_ms(torch, lambda: intra16_mode_decision(y, QP), 5),
         "k1t_recon_levels": cuda_ms(torch, lambda: i16_frame(y, cb, cr, m16, cm, QP, qpc), 5),
         "entropy": cuda_ms(torch, lambda: i16_slice_entropy(
             m16, cm, i16dc, ac, cdc, cac, wmb=W // 16, hmb=H // 16), 5),
@@ -1069,16 +1089,16 @@ def check_p_small_grids(torch, dev):
 
 
 def plain_i16_payload(torch, dev, enc, frame):
-    """One all-I16 frame through the oracle chain on the card: mode
-    decision, plain K1t (plain K1, then the levels from its recon) and the
-    plain entropy. Returns (payload dict, recon planes)."""
+    """One all-I16 frame through the oracle chain on the card: the plain
+    mode decision, plain K1t (plain K1, then the levels from its recon) and
+    the plain entropy. Returns (payload dict, recon planes)."""
     from h264_fer_tpu_torch.codec.entropy import i16_slice_entropy_plain
-    from h264_fer_tpu_torch.codec.intra_decision import intra16_mode_decision
+    from h264_fer_tpu_torch.codec.intra_decision import intra16_mode_decision_plain
     from h264_fer_tpu_torch.kernels.wavefront_i16 import i16_frame_plain
     from h264_fer_tpu_torch.ops.intra import INTRA16_TO_CHROMA_MODE
 
     y, cb, cr = (torch.tensor(p, device=dev) for p in frame)
-    m16 = intra16_mode_decision(y.to(torch.int32), enc.qp)[0].to(torch.int32)
+    m16 = intra16_mode_decision_plain(y, enc.qp)[0]
     cm = torch.from_numpy(INTRA16_TO_CHROMA_MODE).to(dev)[m16.long()]
     ry, i16dc, ac, rcb, rcr, cdc, cac = i16_frame_plain(y, cb, cr, m16, cm, enc.qp, enc.qpc)
     return (i16_slice_entropy_plain(m16, cm, i16dc, ac, cdc, cac, wmb=enc.wmb, hmb=enc.hmb),
@@ -1086,7 +1106,7 @@ def plain_i16_payload(torch, dev, enc, frame):
 
 
 def plain_chain(torch, dev, enc, frames):
-    """The stream of the oracle chain on the card (mode decision, plain
+    """The stream of the oracle chain on the card (plain mode decision,
     K1t and entropy per frame, stitched by the encoder) and each frame's
     recon planes."""
     out = [plain_i16_payload(torch, dev, enc, f) for f in frames]
@@ -1191,17 +1211,19 @@ def mixed_inputs(torch, frame, qp, chroma=None):
     """The mixed frame's stages up to K6 on one frame (y, cb, cr) on a
     device: returns (decision dict, chroma modes, chroma levels (cdc, cac),
     K6's arguments). chroma: K7 as a callable (cb, cr, cmodes, qpc) →
-    (rcb, rcr, cdc, cac), followed by the chroma setup on K10; by default
-    the plain chain, chroma_frame_plain and chroma_setup_plain."""
+    (rcb, rcr, cdc, cac), followed by the mode decision on K11 and the
+    chroma setup on K10; by default the plain chain, the plain decision,
+    chroma_frame_plain and chroma_setup_plain."""
     from h264_fer_tpu_torch.codec.entropy import chroma_setup, chroma_setup_plain
-    from h264_fer_tpu_torch.codec.intra_decision import intra_mode_decision
+    from h264_fer_tpu_torch.codec.intra_decision import (intra_mode_decision,
+                                                         intra_mode_decision_plain)
     from h264_fer_tpu_torch.kernels.wavefront_i16 import chroma_frame_plain
     from h264_fer_tpu_torch.ops.intra import INTRA16_TO_CHROMA_MODE
     from h264_fer_tpu_torch.ops.transform import chroma_qp
 
     y, cb, cr = frame
     h, w = y.shape
-    dec = intra_mode_decision(y.to(torch.int32), qp)
+    dec = (intra_mode_decision_plain if chroma is None else intra_mode_decision)(y, qp)
     cm = torch.from_numpy(INTRA16_TO_CHROMA_MODE).to(y.device)[dec["mode16"].long()]
     _, _, cdc, cac = (chroma or chroma_frame_plain)(cb, cr, cm, chroma_qp(qp))
     ch = (chroma_setup_plain if chroma is None else chroma_setup)(cdc, cac, w // 16, h // 16)
@@ -1322,8 +1344,9 @@ def check_mixed_kernels(torch, label, frame, qp, mode4=None, time_it=False,
 
 
 def plain_mixed_payload(torch, dev, enc, frame):
-    """One mixed frame through the oracle chain on a device: mode decision,
-    plain K7 and its levels, chroma setup, plain K6, mixed entropy."""
+    """One mixed frame through the oracle chain on a device: the plain mode
+    decision, plain K7 and its levels, chroma setup, plain K6, mixed
+    entropy."""
     from h264_fer_tpu_torch.kernels.wavefront_mixed import mixed_luma_plain
 
     planes = tuple(torch.tensor(p, device=dev) for p in frame)
@@ -1347,9 +1370,8 @@ def mixed_stage_times(torch, dev, frame):
         "i16dc", "i16ac", "lv4", "prev_flags", "rem_modes", "cbp_luma", "tc_luma")),
         cdc, cac)
     ch = chroma_setup(cdc, cac, W // 16, H // 16)
-    yi = y.to(torch.int32)
     return {
-        "mode_decision": cuda_ms(torch, lambda: intra_mode_decision(yi, QP), 5),
+        "mode_decision": cuda_ms(torch, lambda: intra_mode_decision(y, QP), 5),
         "k7_chroma_levels": cuda_ms(torch, lambda: chroma_frame(cb, cr, cm, qpc), 5),
         "chroma_setup": cuda_ms(torch, lambda: chroma_setup(cdc, cac, W // 16, H // 16), 5),
         "k6_mixed": cuda_ms(torch, lambda: mixed_luma(*args), 5),
@@ -1454,10 +1476,10 @@ def random_state(torch, dev, w, h, seed):
 def plain_patches():
     """Context managers that swap every kernel wrapper the session encoder
     calls for its plain twin, where the encoder's modules look it up: K10
-    for the plain entropy too."""
+    for the plain entropy and K11 for the plain mode decision too."""
     from unittest import mock
 
-    from h264_fer_tpu_torch.codec import encoder, entropy, iframe, pframe
+    from h264_fer_tpu_torch.codec import encoder, entropy, iframe, intra_decision, pframe
     from h264_fer_tpu_torch.kernels.deblock import deblock_frame_plain
     from h264_fer_tpu_torch.kernels.wavefront_i16 import i16_frame_plain
 
@@ -1473,7 +1495,13 @@ def plain_patches():
             mock.patch.object(iframe, "i16_slice_entropy", entropy.i16_slice_entropy_plain),
             mock.patch.object(iframe, "chroma_setup", entropy.chroma_setup_plain),
             mock.patch.object(iframe, "mixed_slice_entropy",
-                              entropy.mixed_slice_entropy_plain)]
+                              entropy.mixed_slice_entropy_plain),
+            mock.patch.object(iframe, "intra16_mode_decision",
+                              intra_decision.intra16_mode_decision_plain),
+            mock.patch.object(iframe, "intra_mode_decision",
+                              intra_decision.intra_mode_decision_plain),
+            mock.patch.object(encoder, "intra_mode_decision",
+                              intra_decision.intra_mode_decision_plain)]
 
 
 def plain_session_stream(torch, dev, cfg, frames, counted) -> bytes:
@@ -1559,7 +1587,7 @@ def check_band_kernels(torch, dev, frame, qp, time_it=False):
     def band(x, per_row):  # band 1's rows of a plane or a per-MB array
         return x[per_row * r0: per_row * (r0 + hloc)]
 
-    m16 = intra16_mode_decision(y.to(torch.int32), qp)[0].to(torch.int32)
+    m16 = intra16_mode_decision(y, qp)[0]
     cm = torch.from_numpy(INTRA16_TO_CHROMA_MODE).to(dev)[m16.long()]
     # K1t-band
     full = i16_frame(y, cb, cr, m16, cm, qp, qpc)
@@ -1749,7 +1777,7 @@ def multi_device_phase(torch, dev, name, to_decode):
 
     counted = {"wavefront_i16_levels_band": i16_band, "wavefront_chroma_band": chroma_band,
                "wavefront_mixed_band": mixed_luma_band,
-               **{fn.__name__: fn for fn in k10_counted()}}
+               **{fn.__name__: fn for fn in (*k10_counted(), *k11_counted())}}
     totals = dict.fromkeys(counted, 0)
     frames = {"all-intra": content(N_FRAMES, W, H), "mixed": content(N_FRAMES, W, H),
               "IPPP": content(N_IPPP, W, H)}
@@ -1769,14 +1797,17 @@ def multi_device_phase(torch, dev, name, to_decode):
             keys = (("wavefront_chroma_band", "wavefront_mixed_band") if enc.mode == "mixed"
                     else ("wavefront_i16_levels_band",))
             want.update({k: N_FRAMES * n_bands for k in keys})
-            slices = N_FRAMES * n_bands  # K10: one slice entropy per band
+            slices = N_FRAMES * n_bands  # K10: one slice entropy per band; K11 one decision
             want.update(k10_launches({"chroma": slices, "mixed": slices} if enc.mode == "mixed"
                                      else {"i16": slices}))
+            want.update(k11_launches({"full" if enc.mode == "mixed" else "i16": slices}))
         elif path == "IPPP":
             n_gops = len(frames[path]) // GOP_LEN
             want.update(k10_launches({"i16": n_gops, "p": len(frames[path]) - n_gops}))
+            want.update(k11_launches({"i16": n_gops}))
         else:
             want.update(k10_launches({"i16": len(frames[path])}))
+            want.update(k11_launches({"i16": len(frames[path])}))
         if got != want:
             raise AssertionError(f"{label}: band launches {got}, expected {want}")
         for k in totals:
@@ -2036,7 +2067,7 @@ def p_band_phase(torch, dev, name, to_decode):
     counted = {"pframe_decide_band": pframe_decide_band, "integer_score_map": integer_score_map,
                "qpel_refine_maps": qpel_refine_maps, "mc_bulk": mc_bulk, "i16_band": i16_band,
                "pframe_decide": pframe_decide, "i16_frame": i16_frame,
-               **{fn.__name__: fn for fn in k10_counted()}}
+               **{fn.__name__: fn for fn in (*k10_counted(), *k11_counted())}}
     frames = content(N_IPPP, W, H)
     n_gops = N_IPPP // GOP_LEN
     n_p = N_IPPP - n_gops
@@ -2052,7 +2083,8 @@ def p_band_phase(torch, dev, name, to_decode):
         want = {k: n_p * n_tile for k in ("pframe_decide_band", "integer_score_map",
                                           "qpel_refine_maps", "mc_bulk")}
         want.update(i16_band=n_gops * n_tile, pframe_decide=0, i16_frame=0,
-                    **k10_launches({"i16": n_gops * n_tile, "p": n_p * n_tile}))
+                    **k10_launches({"i16": n_gops * n_tile, "p": n_p * n_tile}),
+                    **k11_launches({"i16": n_gops * n_tile}))
         if got != want:
             raise AssertionError(f"{label}: launches {got}, expected {want}")
         launches += got["pframe_decide_band"]
@@ -2110,7 +2142,9 @@ def check_device_qcif(key: str, on_card: bytes, on_cpu: bytes) -> None:
 def host_qcif_streams(dev) -> dict:
     """The host path's QCIF streams on `dev`: "intra_qp28" (all-intra, QP 28,
     3 frames of the clip) and every HOST_QCIF stream (N_HOST_QCIF frames),
-    each as (stream, the encoder's reconstruction of its last frame)."""
+    each as (stream, the encoder's reconstruction of its last frame). Each
+    encode runs with K11's counts set to 0 just before: one full-form launch
+    per IDR where it takes device modes on a card, none otherwise."""
     from h264_fer_tpu_torch.codec.encoder import Encoder, EncoderConfig
     from h264_fer_tpu_torch.vio.y4m import Y4MReader
 
@@ -2120,7 +2154,14 @@ def host_qcif_streams(dev) -> dict:
     for name, (cfg, kw) in cases.items():
         enc = Encoder(176, 144, EncoderConfig(**cfg), iframe="host", pframe="host",
                       device=dev, **kw)
+        for fn in k11_counted():
+            fn.launches = 0
         stream = enc.encode_sequence(clip[:3] if name == "intra_qp28" else clip)
+        on_card = kw.get("device_modes") and str(dev).startswith("cuda")
+        want = k11_launches({"full": sum(st["idr"] for st in enc.stats) if on_card else 0})
+        if {fn.__name__: fn.launches for fn in k11_counted()} != want:
+            raise AssertionError(f"host QCIF {name} on {dev}: K11 launches "
+                                 f"{[fn.launches for fn in k11_counted()]}, expected {want}")
         out[name] = (stream, enc.reconstructed())
     return out
 
@@ -2153,8 +2194,9 @@ def check_host_qcif(streams: dict, where: str) -> None:
 
 
 def host_path(torch, dev, frames):
-    """Phase 10's 1080p run: the host path on `frames`, with K8's count set
-    to 0 just before; the stream must parse back. Returns (stream, the
+    """Phase 10's 1080p run: the host path on `frames`, with K8's and K11's
+    counts set to 0 just before (no K11 launch: its modes come from the
+    host); the stream must parse back. Returns (stream, the
     reference planes after each frame on the card, the K8 launches, the
     state of the last K8 call (planes and syntax state before its filter),
     per frame the seconds of the whole frame and of K8's synchronised call,
@@ -2177,7 +2219,8 @@ def host_path(torch, dev, frames):
 
     recon, frame_s = [], []
     torch.cuda.synchronize()
-    deblock_frame.launches = 0
+    for fn in (deblock_frame, *k11_counted()):
+        fn.launches = 0
     with mock.patch.object(encoder_host, "deblock_frame", timed_k8):
         stream = enc.headers()
         for f in frames:
@@ -2186,6 +2229,8 @@ def host_path(torch, dev, frames):
             frame_s.append(time.perf_counter() - t0)
             recon.append(tuple(torch.from_numpy(p).to(dev) for p in enc.reconstructed()))
     launches = deblock_frame.launches
+    if any(fn.launches for fn in k11_counted()):  # its modes come from the host
+        raise AssertionError("host path: K11 launched")
     parse_session_stream(stream, enc.stats, W, H, QP)
     return stream, recon, launches, tuple(last_state), frame_s, k8_s, enc.stats
 
@@ -2333,7 +2378,7 @@ def me_topk_path(torch, dev, frames):
         return out
 
     counted = (i16_frame, i16_recon, integer_score_map, topk_candidates, deblock_frame,
-               qpel_refine_maps, pframe_decide, mc_bulk, *k10_counted())
+               qpel_refine_maps, pframe_decide, mc_bulk, *k10_counted(), *k11_counted())
     torch.cuda.synchronize()
     for fn in counted:
         fn.launches = 0
@@ -2349,7 +2394,8 @@ def me_topk_path(torch, dev, frames):
     n_p = sum(not st["idr"] for st in enc.stats)
     want = {"i16_frame": len(frames) - n_p, "i16_recon": 0, "integer_score_map": n_p,
             "topk_candidates": n_p, "deblock_frame": len(frames), "qpel_refine_maps": 0,
-            "pframe_decide": 0, "mc_bulk": 0, **k10_launches({"i16": len(frames) - n_p})}
+            "pframe_decide": 0, "mc_bulk": 0, **k10_launches({"i16": len(frames) - n_p}),
+            **k11_launches({"i16": len(frames) - n_p})}
     if launches != want or len(searched) != n_p:
         raise AssertionError(f"--tpu-me path launches {launches} ({len(searched)} searches), "
                              f"expected {want}")
@@ -2687,6 +2733,147 @@ def k10_phase(torch, dev, name) -> tuple:
     return {form: (errs[form], *timed[form][1:]) for form in K10_ROWS}, fills
 
 
+# K11, the intra mode decision: its forms, the XLA program both replace
+# (tpu_intra.intra_mode_decision_impl with modes_only=True; i16_only=True
+# for the I16 form) and their rows in the kernels line
+K11_ROWS = {"i16": ("mode_decision_i16", "h264_fer_tpu/codec/tpu_intra.py:55"),
+            "full": ("mode_decision_full", "h264_fer_tpu/codec/tpu_intra.py:55")}
+K11_GRIDS = (("16x16", 16, 16), ("176x144", 176, 144), ("80x176", 80, 176),
+             ("16x144", 16, 144), ("176x16", 176, 16))
+
+
+def k11_functions():
+    """{form: (K11 dispatcher, plain twin, wrapper whose .launches count it)}."""
+    from h264_fer_tpu_torch.codec import intra_decision
+    from h264_fer_tpu_torch.kernels import mode_decision
+
+    return {"i16": (intra_decision.intra16_mode_decision,
+                    intra_decision.intra16_mode_decision_plain, mode_decision.i16_decision),
+            "full": (intra_decision.intra_mode_decision,
+                     intra_decision.intra_mode_decision_plain, mode_decision.full_decision)}
+
+
+def k11_counted() -> tuple:
+    """K11's two wrappers, whose .launches count its launches by form."""
+    return tuple(fn for _, _, fn in k11_functions().values())
+
+
+def k11_launches(want: dict) -> dict:
+    """{wrapper name: launches} of K11's wrappers; `want` by form, the
+    decisions of a run (one launch a frame or band), none of a form not
+    named."""
+    names = {form: fn.__name__ for form, (_, _, fn) in k11_functions().items()}
+    return {names[f]: want.get(f, 0) for f in names}
+
+
+def k11_ops(qp: int, nmb: int, full: bool) -> float:
+    """int32 operations of K11's function on nmb MBs. Per 4x4-block
+    candidate and sample: the residual, h = d ? 64 d - 32 : 0, the forward
+    core transform (k1_pixel_ops' count), the quantisation and the |.| sum;
+    the prediction: Intra16x16 V and H copy, DC and Plane from the MB's
+    parameters (36 and 54 a MB), a Plane sample ~5; Intra4x4 V and H copy, a
+    directional sample ~5, DC 10 a block; the gates and first-min scans (2
+    a mode), the sums of the 16 blocks."""
+    sample = 1 + 3 + 2 * 22 / 4 + (5 if qp < 24 else 4) + 2
+    i16 = nmb * (4 * 256 * sample + 256 * 5 + 36 + 54 + 4 * (16 + 2))
+    if not full:
+        return i16
+    return i16 + nmb * 16 * (9 * 16 * sample + 6 * 16 * 5 + 10 + 9 * 2 + 1)
+
+
+def k11_outputs(out) -> list:
+    """The outputs of either form as a list (the full form's in its keys'
+    order)."""
+    return list(out.values()) if isinstance(out, dict) else list(out)
+
+
+def check_k11(torch, label: str, y, qp: int, top_row=None, time_it=False) -> dict:
+    """K11's two forms (the dispatchers, on the uint8 card plane y and on y
+    as int32, with top_row) against their plain twins on the card,
+    bit-exact on every output. Returns {form: (max_abs_err, ms, plain_ms,
+    bound_ms, bound_by, queued_ms)} (times None unless time_it, taken on the
+    uint8 plane as the paths pass it; every timed call is held to the plain
+    output too)."""
+    from h264_fer_tpu_torch.kernels.wavefront_i4x4 import PRED4_TABLE
+
+    out = {}
+    for form, (fn, plain, _) in k11_functions().items():
+        want, plain_ms = timed_once(torch, lambda: k11_outputs(plain(y, qp, top_row)))
+        err = max(max_err(torch, k11_outputs(fn(plane, qp, top_row)), want)
+                  for plane in (y, y.to(torch.int32)))
+        ms = queued_ms = None
+        if time_it:
+            ms, queued_ms = kernel_ms(torch, lambda: k11_outputs(fn(y, qp, top_row)), 20,
+                                      same_as(torch, want, f"K11 {form} {label}"))
+            plain_ms = cuda_ms(torch, lambda: plain(y, qp, top_row), 3)
+        # the plane, the row above and (full) the prediction table read once,
+        # every output written once
+        moved = (nbytes(y, *want) + (0 if top_row is None else nbytes(top_row))
+                 + (PRED4_TABLE.nbytes if form == "full" else 0))
+        bound_ms, bound_by = bound(moved, k11_ops(qp, y.numel() // 256, form == "full"))
+        print(f"K11 {form} {label} qp{qp}: max_abs_err {err} (tolerance 0, every output, "
+              "uint8 and int32 planes)"
+              + (f", kernel {ms:.4f} ms (queued {queued_ms:.4f}), plain {plain_ms:.2f} ms"
+                 if time_it else "")
+              + f", bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+        if err != 0:
+            raise AssertionError(f"K11 {form} {label} qp{qp}: kernel != plain")
+        out[form] = (err, ms, plain_ms, bound_ms, bound_by, queued_ms)
+    return out
+
+
+def k11_phase(torch, dev, name) -> dict:
+    """Phase 14: K11's two forms against their plain twins, bit-exact on
+    every output (check_k11), on 1080p content at QP 8, 28 and 46 (timed at
+    QP 28), band 1 of 4 with the source row above as top_row and with that
+    row holding -1 entries, seeded uniform-random frames, flat frames of 0,
+    128 and 255 (every mode ties: the gates and the first-min order
+    decide), stripe frames, and the K11_GRIDS. Returns {form: (max_abs_err
+    over every check, ms, plain_ms, bound_ms, bound_by, queued_ms) at 1080p
+    QP 28}."""
+    t0 = time.perf_counter()
+    errs, timed = dict.fromkeys(K11_ROWS, 0), {}
+
+    def run(label, y, qp, top_row=None, time_it=False):
+        res = check_k11(torch, label, y, qp, top_row, time_it)
+        for form in K11_ROWS:
+            errs[form] = max(errs[form], res[form][0])
+        return res
+
+    def card_plane(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint8)).to(dev)
+
+    rng = np.random.default_rng(SEED + 11)
+    y = card_plane(content(1, W, H)[0][0])
+    for qp in CHECK_QPS:
+        res = run(f"{W}x{H} content", y, qp, time_it=qp == QP)
+        if qp == QP:
+            timed = res
+    hl = H // 16 // BAND_TILES  # band 1: MB rows [hl, 2 hl), the source row above it
+    band, top = y[16 * hl: 32 * hl], y[16 * hl - 1].to(torch.int32)
+    holes = top.clone()
+    holes[torch.from_numpy(rng.random(W) < 0.3).to(dev)] = -1
+    holes[:16] = -1
+    for qp in CHECK_QPS:
+        run(f"{W}x{H} band 1 of {BAND_TILES}, real top_row", band, qp, top)
+    run(f"{W}x{H} band 1 of {BAND_TILES}, top_row with -1 entries", band, QP, holes)
+    for qp in CHECK_QPS:
+        run(f"{W}x{H} uniform random", card_plane(rng.integers(0, 256, (H, W))), qp)
+    for v in (0, 128, 255):
+        run(f"{W}x{H} flat {v}", torch.full((H, W), v, dtype=torch.uint8, device=dev), QP)
+    yy, xx = np.mgrid[0:H, 0:W]
+    run(f"{W}x{H} vertical stripes", card_plane(xx // 3 % 2 * 255), QP)
+    run(f"{W}x{H} horizontal stripes", card_plane(yy // 5 % 2 * 200 + 20), 8)
+    for label, w, h in K11_GRIDS:
+        run(f"{label} content", card_plane(content(1, w, h)[0][0]), QP)
+        for qp in (0, 51):
+            run(f"{label} uniform random", card_plane(rng.integers(0, 256, (h, w))), qp)
+        run(f"{label} flat 255", torch.full((h, w), 255, dtype=torch.uint8, device=dev), QP)
+    print(f"K11 checks done: max_abs_err {errs} ({time.perf_counter() - t0:.1f} s) on {name}",
+          flush=True)
+    return {form: (errs[form], *timed[form][1:]) for form in K11_ROWS}
+
+
 def main() -> int:
     import torch
 
@@ -2751,8 +2938,8 @@ def main() -> int:
     enc = GopIntraEncoder(W, H, QP, device=dev)
     enc.encode_sequence(frames[:2])  # warm-up: allocator, library load
     torch.cuda.synchronize()
-    k10 = k10_counted()
-    for fn in (i16_recon, i16_frame, *k10):
+    k10, k11 = k10_counted(), k11_counted()
+    for fn in (i16_recon, i16_frame, *k10, *k11):
         fn.launches = 0
     t0 = time.perf_counter()
     stream = enc.encode_sequence(frames)
@@ -2764,6 +2951,9 @@ def main() -> int:
     k10_path = {"i16": {fn.__name__: fn.launches for fn in k10}}
     if k10_path["i16"] != k10_launches({"i16": N_FRAMES}):
         raise AssertionError(f"all-intra K10 launches {k10_path['i16']}")
+    k11_path = {"i16": {fn.__name__: fn.launches for fn in k11}}
+    if k11_path["i16"] != k11_launches({"i16": N_FRAMES}):
+        raise AssertionError(f"all-intra K11 launches {k11_path['i16']}")
     if k1_launches != 1:
         raise AssertionError(f"K1 launched {k1_launches} times in one call")
     plain, plain_recon = plain_chain(torch, dev, enc, frames)
@@ -2771,7 +2961,7 @@ def main() -> int:
         raise AssertionError("kernel-path stream != plain-chain stream")
     parse_stream(stream, N_FRAMES, W, H, QP)
     check_bytes("all-intra", stream)
-    # the decode gate (phase 14): the plain chain's recon of every frame
+    # the decode gate (phase 15): the plain chain's recon of every frame
     to_decode = {"all-intra": (stream, plain_recon, {})}
     qcif = qcif_clip(10)
     check_device_qcif("all-intra", *(GopIntraEncoder(176, 144, QP, device=d).encode_sequence(
@@ -2782,7 +2972,8 @@ def main() -> int:
         e2e_s.append(time.perf_counter() - t0)
     fps = sorted(N_FRAMES / t for t in e2e_s)
     print(f"main path: {N_FRAMES} frames {W}x{H} QP{QP}, {len(stream)} bytes, "
-          f"== plain chain, parses; K10 launches {k10_path['i16']}; QCIF == CPU == its "
+          f"== plain chain, parses; K10 launches {k10_path['i16']}, K11 {k11_path['i16']}; "
+          "QCIF == CPU == its "
           f"JAX digest; e2e fps median {fps[len(fps) // 2]:.2f} "
           f"(runs {', '.join(f'{v:.2f}' for v in fps)}) on {name}", flush=True)
 
@@ -2832,7 +3023,8 @@ def main() -> int:
     enc = GopIpppEncoder(W, H, QP, gop_len=GOP_LEN, device=dev)
     enc.encode_sequence(frames[:2])  # warm-up: allocator, library loads
     torch.cuda.synchronize()
-    counted = (i16_frame, integer_score_map, qpel_refine_maps, pframe_decide, mc_bulk, *k10)
+    counted = (i16_frame, integer_score_map, qpel_refine_maps, pframe_decide, mc_bulk, *k10,
+               *k11)
     for fn in counted:
         fn.launches = 0
     recon = []
@@ -2847,7 +3039,7 @@ def main() -> int:
     n_gops, n_p = N_IPPP // GOP_LEN, N_IPPP - N_IPPP // GOP_LEN
     want = {"i16_frame": n_gops, "integer_score_map": n_p,
             "qpel_refine_maps": n_p, "pframe_decide": n_p, "mc_bulk": n_p,
-            **k10_launches({"i16": n_gops, "p": n_p})}
+            **k10_launches({"i16": n_gops, "p": n_p}), **k11_launches({"i16": n_gops})}
     if p_launches != want:
         raise AssertionError(f"IPPP launches {p_launches}, expected {want}")
     lens = [GOP_LEN] * n_gops
@@ -2917,7 +3109,7 @@ def main() -> int:
     enc = GopIntraEncoder(W, H, QP, mode="mixed", device=dev)
     enc.encode_sequence(frames[:2])  # warm-up: allocator, library loads
     torch.cuda.synchronize()
-    counted = (mixed_luma, chroma_frame, i16_recon, i16_frame, *k10)
+    counted = (mixed_luma, chroma_frame, i16_recon, i16_frame, *k10, *k11)
     for fn in counted:
         fn.launches = 0
     recon = []
@@ -2933,7 +3125,8 @@ def main() -> int:
         raise AssertionError("the mixed path rebuilt the chroma levels from the recon")
     want = {"mixed_luma": N_FRAMES, "chroma_frame": N_FRAMES,
             "i16_recon": 0, "i16_frame": 0,
-            **k10_launches({"chroma": N_FRAMES, "mixed": N_FRAMES})}
+            **k10_launches({"chroma": N_FRAMES, "mixed": N_FRAMES}),
+            **k11_launches({"full": N_FRAMES})}
     if m_launches != want:
         raise AssertionError(f"mixed launches {m_launches}, expected {want}")
     plain = enc.stitch([plain_payload])
@@ -3005,7 +3198,7 @@ def main() -> int:
     Encoder(W, H, cfg, device=dev).encode_sequence(frames[:2])  # warm-up
     torch.cuda.synchronize()
     counted = (i16_frame, i16_recon, deblock_frame, integer_score_map,
-               qpel_refine_maps, pframe_decide, mc_bulk, *k10)
+               qpel_refine_maps, pframe_decide, mc_bulk, *k10, *k11)
     for fn in counted:
         fn.launches = 0
     enc = Encoder(W, H, cfg, device=dev)
@@ -3022,7 +3215,8 @@ def main() -> int:
     n_p = N_SESSION - n_idr
     want = {"i16_frame": n_idr, "i16_recon": 0, "deblock_frame": N_SESSION,
             "integer_score_map": n_p, "qpel_refine_maps": n_p,
-            "pframe_decide": n_p, "mc_bulk": n_p, **k10_launches({"i16": n_idr, "p": n_p})}
+            "pframe_decide": n_p, "mc_bulk": n_p, **k10_launches({"i16": n_idr, "p": n_p}),
+            **k11_launches({"i16": n_idr})}
     if s_launches != want or n_idr != N_SESSION // SESSION_INTRA_EVERY:
         raise AssertionError(f"session launches {s_launches} with {n_idr} IDRs, "
                              f"expected {want}")
@@ -3152,7 +3346,11 @@ def main() -> int:
     k10_rows, k10_fills = k10_phase(torch, dev, name)
 
     print(f"[phase 13 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
-    # ---- 14. decode gate ----------------------------------------------------
+    # ---- 14. K11 vs its plain twins ---------------------------------------
+    k11_rows = k11_phase(torch, dev, name)
+
+    print(f"[phase 14 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
+    # ---- 15. decode gate ----------------------------------------------------
     from h264_fer_tpu_torch.codec.decoder import Decoder
 
     decoded = {path: decode_gate(torch, dev, path, *to_decode[path], name)
@@ -3168,8 +3366,8 @@ def main() -> int:
           f"{len(decoded)} 1080p streams == their reconstruction; QCIF session "
           f"decodes card == CPU on {name}", flush=True)
 
-    print(f"[phase 14 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
-    # ---- 15. result -------------------------------------------------------
+    print(f"[phase 15 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
+    # ---- 16. result -------------------------------------------------------
     csrc = "h264_fer_tpu_torch/kernels/csrc/"
     rows = [("wavefront_i16", "h264_fer_tpu/kernels/wavefront_pallas.py:890",
              k1_launches, max(k1[q][0] for q in CHECK_QPS), k1[QP][1:]),
@@ -3213,12 +3411,19 @@ def main() -> int:
         wrapper = k10_functions()[form][2].__name__
         rows.append((kname, replaces, k10_runs[form][wrapper], k10_rows[form][0],
                      k10_rows[form][1:]))
+    # K11 by form: its launches on the all-intra (I16) and mixed (full) paths
+    k11_runs = {"i16": k11_path["i16"], "full": m_launches}
+    for form, (kname, replaces) in K11_ROWS.items():
+        wrapper = k11_functions()[form][2].__name__
+        rows.append((kname, replaces, k11_runs[form][wrapper], k11_rows[form][0],
+                     k11_rows[form][1:]))
     library = {"me_topk": k9[6]}
     sources = {"wavefront_chroma": "wavefront_i16", "wavefront_i16_levels": "wavefront_i16",
                "wavefront_i16_levels_band": "wavefront_i16",
                "wavefront_chroma_band": "wavefront_i16",
                "wavefront_mixed_band": "wavefront_mixed", "wavefront_p_band": "wavefront_p",
-               **{kname: "cavlc_slice" for kname, _ in K10_ROWS.values()}}
+               **{kname: "cavlc_slice" for kname, _ in K10_ROWS.values()},
+               **{kname: "mode_decision" for kname, _ in K11_ROWS.values()}}
     kernels = []
     for kname, replaces, n, err, timing in rows:
         if timing is None:  # a P kernel: its QP 28 run, errors over all tiers

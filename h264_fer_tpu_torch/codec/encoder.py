@@ -239,7 +239,7 @@ class Encoder:
         h = self.host
         modes = None
         if is_idr and self._device_modes:
-            dec = intra_mode_decision(y_dev.to(torch.int32), self.qpy)
+            dec = intra_mode_decision(y_dev, self.qpy)
             both = torch.cat([dec["mode16"][:, None], dec["mode4"]], dim=1).cpu().numpy()
             modes = (both[:, 0], both[:, 1:])
         rbsp = h.encode_slice(w, is_idr, *src, modes)

@@ -38,7 +38,7 @@ from ..ops.cavlc_bulk import (
     se_code,
     ue_code,
 )
-from ..ops.device import const
+from ..ops.device import const, on_card
 from ..ops.tables import CBP_TO_CODENUM_INTER, CBP_TO_CODENUM_INTRA, CHROMA_NBR, LUMA_NBR
 
 I32 = torch.int32
@@ -418,21 +418,11 @@ def p_slice_entropy_plain(skip, mb_type, mvd, luma_levels, cdc, cac,
 CHROMA_KEYS = ("cbp_chroma", "tc_chroma", "bits")
 
 
-def _kernel(x) -> bool:
-    """False for a CPU tensor (the plain twin runs), True for a CUDA one
-    (K10 runs); raises ValueError for any other device."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    return True
-
-
 def chroma_setup(cdc, cac, wmb: int, hmb: int, top_ctx=None):
     """chroma_setup_plain's cbp_chroma (nmb,), tc_chroma (2, nmb, 4) and
     bits (nmb,) (CHROMA_KEYS; its symbol streams stay inside the plain
     chain). CUDA tensors go to K10, CPU tensors to the plain twin."""
-    if _kernel(cdc):
+    if on_card(cdc):
         return cavlc_slice.chroma_entropy(cdc, cac, wmb, hmb, top_ctx)
     ch = chroma_setup_plain(cdc, cac, wmb, hmb, top_ctx)
     return {k: ch[k] for k in CHROMA_KEYS}
@@ -443,7 +433,7 @@ def i16_slice_entropy(mode16, cmode, i16dc, i16ac, cdc, cac,
     """i16_slice_entropy_plain's function: CUDA tensors go to K10, CPU
     tensors to the plain twin."""
     args = (mode16, cmode, i16dc, i16ac, cdc, cac, wmb, hmb, top_ctx, valid)
-    if _kernel(mode16):
+    if on_card(mode16):
         return cavlc_slice.i16_entropy(*args)
     return i16_slice_entropy_plain(*args)
 
@@ -457,7 +447,7 @@ def mixed_slice_entropy(choice4, mode16, cmode, i16dc, i16ac, lv4, prev_flags,
     it), which read its cbp_chroma and tc_chroma."""
     args = (choice4, mode16, cmode, i16dc, i16ac, lv4, prev_flags, rem_modes, cbp_luma,
             tc_luma, cdc, cac, wmb, hmb, top_ctx, valid)
-    if _kernel(choice4):
+    if on_card(choice4):
         return cavlc_slice.mixed_entropy(*args, chroma=chroma)
     return mixed_slice_entropy_plain(*args, chroma=chroma)
 
@@ -467,6 +457,6 @@ def p_slice_entropy(skip, mb_type, mvd, luma_levels, cdc, cac,
     """p_slice_entropy_plain's function: CUDA tensors go to K10 (a tensor
     run_lead is read on the card), CPU tensors to the plain twin."""
     args = (skip, mb_type, mvd, luma_levels, cdc, cac, wmb, hmb, top_ctx, run_lead)
-    if _kernel(skip):
+    if on_card(skip):
         return cavlc_slice.p_entropy(*args)
     return p_slice_entropy_plain(*args)

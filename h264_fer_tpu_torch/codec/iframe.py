@@ -46,8 +46,7 @@ def device_i16_frame(y, cb, cr, qp: int, qpc: int, deblock: bool = False):
     its PPS and slice headers."""
     h, w = y.shape
     wmb, hmb = w // 16, h // 16
-    m16, _ = intra16_mode_decision(y.to(torch.int32), qp)
-    m16 = m16.to(torch.int32)
+    m16, _ = intra16_mode_decision(y, qp)
     cmode = const(INTRA16_TO_CHROMA_MODE, y.device)[m16.long()]
     ry, i16dc, ac, rcb, rcr, cdc, cac = i16_frame(y, cb, cr, m16, cmode, qp, qpc)
     ent = i16_slice_entropy(m16, cmode, i16dc, ac, cdc, cac, wmb=wmb, hmb=hmb)
@@ -70,7 +69,7 @@ def device_mixed_frame(y, cb, cr, qp: int, qpc: int, deblock: bool = False):
     nz_luma)."""
     h, w = y.shape
     wmb, hmb = w // 16, h // 16
-    dec = intra_mode_decision(y.to(torch.int32), qp)
+    dec = intra_mode_decision(y, qp)
     m16, mode4 = dec["mode16"], dec["mode4"]
     cmode = const(INTRA16_TO_CHROMA_MODE, y.device)[m16.long()]
     rcb, rcr, cdc, cac = chroma_frame(cb, cr, cmode, qpc)

@@ -6,9 +6,15 @@ residual| at the real QP, intra.cpp:819) of each of the 4 Intra16x16 modes,
 and for every 4x4 block each of the 9 Intra4x4 modes, predicted from the
 SOURCE neighbours with availability gating, and the first mode of least
 SATD. `intra16_mode_decision` is its I16 half (i16_only=True), all that the
-all-I16 and IPPP paths need. Both take `top_row`, the source row above the
-plane (the last source row of the MB-row band above, parallel/tile.py), or
-None where the plane's top is the frame's.
+all-I16 and IPPP paths need. Both take a uint8 or int32 source plane and
+`top_row`, the int32 source row above the plane (the last source row of
+the MB-row band above, parallel/tile.py), or None where the plane's top is
+the frame's.
+
+Each dispatches on the plane's device: a CPU tensor goes to its plain
+twin (`intra16_mode_decision_plain`, `intra_mode_decision_plain`, the
+eager torch chain), a CUDA tensor to K11 (kernels/mode_decision.py, one
+launch), and any other device raises.
 """
 
 from __future__ import annotations
@@ -16,8 +22,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels import mode_decision
 from ..ops import intra, transform
-from ..ops.device import const
+from ..ops.device import const, on_card
 from ..ops.tables import RASTER_TO_LUMA_BLOCK
 from ..ops.tiles import mb_blocks, neighbours, to_mbs
 
@@ -48,9 +55,30 @@ def _first_min(cost):
 
 
 def intra16_mode_decision(y, qp: int, top_row=None):
-    """y: (H, W) int32 source luma; top_row: None, or the (W,) int32 source
-    row above it. Returns (mode16 (nmb,) int32, satd16 (nmb,) int32 of the
-    chosen mode)."""
+    """y: (H, W) uint8 or int32 source luma; top_row: None, or the (W,)
+    int32 source row above it. Returns (mode16 (nmb,) int32, satd16 (nmb,)
+    int32 of the chosen mode): K11's I16 form for CUDA tensors, the plain
+    twin for CPU ones."""
+    if on_card(y):
+        return mode_decision.i16_decision(y, qp, top_row)
+    return intra16_mode_decision_plain(y, qp, top_row)
+
+
+def intra_mode_decision(y, qp: int, top_row=None):
+    """The full decision. y: (H, W) uint8 or int32 source luma; top_row: as
+    intra16_mode_decision's. Returns dict: mode16 (nmb,), satd16 (nmb,),
+    mode4 (nmb, 16) Z-scan, satd4 (nmb,) (the sum of the 16 chosen blocks'
+    SATD), all int32: K11's full form for CUDA tensors, the plain twin for
+    CPU ones."""
+    if on_card(y):
+        return mode_decision.full_decision(y, qp, top_row)
+    return intra_mode_decision_plain(y, qp, top_row)
+
+
+def intra16_mode_decision_plain(y, qp: int, top_row=None):
+    """intra16_mode_decision in eager torch, on any device; y is taken as
+    int32 first (uint8 arithmetic would wrap)."""
+    y = y.to(torch.int32)
     p33 = neighbours(y, 16, top_row)
     preds = intra.predict_16x16_all_modes(p33)  # (4, nmb, 16, 16)
     satd = _satd(mb_blocks(to_mbs(y, 16)[None] - preds), qp).sum(
@@ -94,12 +122,11 @@ def _p13_source(y, top_row=None):
     return p13[:, const(_Z_OF_RASTER, dev)]
 
 
-def intra_mode_decision(y, qp: int, top_row=None):
-    """The full decision. y: (H, W) int32 source luma; top_row: as
-    intra16_mode_decision's. Returns dict: mode16 (nmb,), satd16 (nmb,),
-    mode4 (nmb, 16) Z-scan, satd4 (nmb,) (the sum of the 16 chosen blocks'
-    SATD), all int32."""
-    mode16, satd16 = intra16_mode_decision(y, qp, top_row)
+def intra_mode_decision_plain(y, qp: int, top_row=None):
+    """intra_mode_decision in eager torch, on any device; y is taken as
+    int32 first."""
+    y = y.to(torch.int32)
+    mode16, satd16 = intra16_mode_decision_plain(y, qp, top_row)
     p13 = _p13_source(y, top_row)
     preds = intra.predict_4x4_all_modes(p13)  # (9, nmb, 16, 4, 4)
     satd = _satd(mb_blocks(to_mbs(y, 16))[None] - preds, qp)  # (9, nmb, 16)

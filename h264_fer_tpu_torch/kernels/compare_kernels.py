@@ -10,11 +10,14 @@ that checkout's kernels, times K2, K3, K4, K5, K6, K4x4, K1t, K1, K7
 (through chroma_frame: recon and levels), K8 (on the session encoder's
 P-frame state), K9 (the top-16 of K2's SAD map, metric 0 at window 8,
 of the content pair's second luma plane against the first, edge-padded)
-and, where the checkout has it, K10 in each form (on the slices of
-chip_smoke.k10_frame_args) with CUDA events at 1920x1088, QP 28, on
+and, where the checkout has them, K10 in each form (on the slices of
+chip_smoke.k10_frame_args) and K11 in each form (the I16 and the full
+mode decision of the content frame's uint8 luma plane, as the paths pass
+it) with CUDA events at 1920x1088, QP 28, on
 chip_smoke.py's inputs (K2-K5 on the chained P frame), and reports a
 checksum of each kernel's outputs, so that the turns also show both
-checkouts compute the same function. Each
+checkouts compute the same function (a kernel one checkout lacks is
+reported as absent there). Each
 kernel is timed two ways, with the same code in both checkouts: "queued",
 its calls issued behind a kernel that spins the card (the device's time
 for the work, back to back), and "paced", its calls issued one after
@@ -102,6 +105,9 @@ if hasattr(cs, "k10_frame_args"):  # a checkout with K10
     for form, (a, kw) in cs.k10_frame_args(torch, dev, planes, pair, cs.QP).items():
         runs[f"K10 {form}"] = (lambda fn=fns[form][0], a=a, kw=kw:
                                fn(*a, cs.W // 16, cs.H // 16, **kw), 20)
+if hasattr(cs, "k11_functions"):  # a checkout with K11
+    for form, (fn, _, _) in cs.k11_functions().items():
+        runs[f"K11 {form}"] = (lambda fn=fn: fn(y, cs.QP), 20)
 out = {}
 for name, (fn, reps) in runs.items():
     res = fn()
@@ -134,13 +140,17 @@ def main(argv) -> int:
         results.append((label, res))
         print(label, {k: (round(v[0], 4), round(v[1], 4)) for k, v in res.items()},
               flush=True)
-    for name in results[0][1]:
+    names = list(dict.fromkeys(k for _, r in results for k in r))
+    for name in names:
         for i, how in ((0, "queued"), (1, "paced")):
-            ms = {lab: [round(r[name][i], 4) for lb, r in results if lb == lab]
+            ms = {lab: [round(r[name][i], 4) for lb, r in results if lb == lab and name in r]
                   for lab in ("other", "this")}
-            print(f"{name} {how}: other {ms['other']} ms, this {ms['this']} ms")
-        same = len({r[name][2] for _, r in results}) == 1
-        print(f"{name}: outputs equal across checkouts: {same}")
+            print(f"{name} {how}: "
+                  + ", ".join(f"{lab} {f'{v} ms' if v else 'absent'}" for lab, v in ms.items()))
+        absent = sorted({lab for lab, r in results if name not in r})
+        same = len({r[name][2] for _, r in results if name in r}) == 1
+        print(f"{name}: outputs equal across checkouts: {same}"
+              + (f" (absent in {absent[0]})" if absent else ""))
     return 0
 
 

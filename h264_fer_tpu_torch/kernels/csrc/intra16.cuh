@@ -2,6 +2,8 @@
 // shared by the K1 and K1t wavefronts (both), K7 (chroma; all three in
 // csrc/wavefront_i16.cu) and K6 (the I16 candidate, csrc/wavefront_mixed.cu):
 // the device forms of kernels/wavefront_i16._i16_luma_code and _chroma_code.
+// K11 (csrc/mode_decision.cu) takes the Intra16x16 predictor alone
+// (i16_params, i16_pred).
 //
 // One thread per sample: 256 for the luma, 128 for the chroma (64 of Cb, then
 // 64 of Cr). The source MB is read through a pointer and a row stride, so a
@@ -23,6 +25,41 @@ struct I16Scratch {
   int v[16], r[16], dcv[16];
 };
 
+// The Intra16x16 predictor's parameters of one MB, by one thread: par[0] the
+// DC value, par[1..3] the Plane's a, b and c, from its top / left samples
+// and corner (-1 where unavailable). DC averages top and left where both_ok,
+// else the left or the top alone, else 128 (intra.cpp:426-533).
+__device__ __forceinline__ void i16_params(const int* top, const int* left, int corner,
+                                           bool both_ok, bool left_ok, bool top_ok,
+                                           int* par) {
+  int st = 0, sl = 0, hg = 0, vg = 0;
+  for (int i = 0; i < 16; ++i) { st += top[i]; sl += left[i]; }
+  for (int i = 0; i < 8; ++i) {
+    const int tm = i == 7 ? corner : top[6 - i];
+    const int lm = i == 7 ? corner : left[6 - i];
+    hg += (i + 1) * (top[8 + i] - tm);
+    vg += (i + 1) * (left[8 + i] - lm);
+  }
+  par[0] = both_ok ? (st + sl + 16) >> 5
+         : left_ok ? (sl + 8) >> 4
+         : top_ok  ? (st + 8) >> 4 : 128;
+  par[1] = (left[15] + top[15]) * 16;
+  par[2] = (5 * hg + 32) >> 6;
+  par[3] = (5 * vg + 32) >> 6;
+}
+
+// The Intra16x16 prediction of sample (x, y) in `mode` (0 V, 1 H, 2 DC,
+// 3 Plane), with par from i16_params.
+__device__ __forceinline__ int i16_pred(int mode, int x, int y, const int* top,
+                                        const int* left, const int* par) {
+  switch (mode) {
+    case 0: return top[x];
+    case 1: return left[y];
+    case 2: return par[0];
+    default: return clip255((par[1] + par[2] * (x - 7) + par[3] * (y - 7) + 16) >> 5);
+  }
+}
+
 // Code one MB as Intra16x16 luma in `mode`; the 256 threads t = 0..255 that
 // use barrier `bar` call it, thread t owning sample (t / 16, t % 16). top /
 // left: the 16 reconstructed samples above and to the left, corner the
@@ -37,31 +74,9 @@ __device__ int i16_luma_mb(const int* top, const int* left, int corner,
                            const QpTab& tab, I16Scratch& s, int* dc, int* ac,
                            int t, int bar) {
   const int y = t >> 4, x = t & 15;
-  if (t == 0) {
-    int st = 0, sl = 0, hg = 0, vg = 0;
-    for (int i = 0; i < 16; ++i) { st += top[i]; sl += left[i]; }
-    for (int i = 0; i < 8; ++i) {
-      const int tm = i == 7 ? corner : top[6 - i];
-      const int lm = i == 7 ? corner : left[6 - i];
-      hg += (i + 1) * (top[8 + i] - tm);
-      vg += (i + 1) * (left[8 + i] - lm);
-    }
-    s.par[0] = left_ok && top_ok ? (st + sl + 16) >> 5
-             : left_ok           ? (sl + 8) >> 4
-             : top_ok            ? (st + 8) >> 4 : 128;
-    s.par[1] = (left[15] + top[15]) * 16;
-    s.par[2] = (5 * hg + 32) >> 6;
-    s.par[3] = (5 * vg + 32) >> 6;
-  }
+  if (t == 0) i16_params(top, left, corner, left_ok && top_ok, left_ok, top_ok, s.par);
   group_sync(bar, 256);
-  int pred;
-  switch (mode) {
-    case 0: pred = top[x]; break;
-    case 1: pred = left[y]; break;
-    case 2: pred = s.par[0]; break;
-    default:
-      pred = clip255((s.par[1] + s.par[2] * (x - 7) + s.par[3] * (y - 7) + 16) >> 5);
-  }
+  const int pred = i16_pred(mode, x, y, top, left, s.par);
   {
     const int diff = (int)src[y * W + x] - pred;
     s.a[t] = diff == 0 ? 0 : diff * 64 - 32;

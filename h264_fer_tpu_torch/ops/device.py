@@ -53,6 +53,17 @@ def resolve_devices(devices) -> list:
     return devs
 
 
+def on_card(x) -> bool:
+    """Which route a kernel's dispatcher takes for tensor x: False for a
+    CPU tensor (the plain twin), True for a CUDA one (the kernel); raises
+    ValueError for any other device."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return True
+
+
 @functools.lru_cache(maxsize=256)
 def _const(data: bytes, dtype: str, shape: tuple, device: torch.device):
     arr = np.frombuffer(data, dtype=np.dtype(dtype)).reshape(shape)

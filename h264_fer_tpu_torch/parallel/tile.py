@@ -70,8 +70,8 @@ def _last_row_state(ent, wmb: int) -> dict:
 
 
 def _decide_i16(y, top_row, qp: int) -> dict:
-    m16, _ = intra16_mode_decision(y.to(I32), qp, top_row)
-    return {"mode16": m16.to(I32)}
+    m16, _ = intra16_mode_decision(y, qp, top_row)
+    return {"mode16": m16}
 
 
 def _code_i16(y, cb, cr, dec, halo, valid, qp: int, qpc: int) -> dict:
@@ -91,7 +91,7 @@ def _code_i16(y, cb, cr, dec, halo, valid, qp: int, qpc: int) -> dict:
 
 
 def _decide_mixed(y, top_row, qp: int) -> dict:
-    return intra_mode_decision(y.to(I32), qp, top_row)
+    return intra_mode_decision(y, qp, top_row)
 
 
 def _code_mixed(y, cb, cr, dec, halo, valid, qp: int, qpc: int) -> dict:
