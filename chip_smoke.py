@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero and prints no result line; each
 1080p path's stream must also have the byte count STREAM_BYTES gives it):
   1. print the card's name and power limit; build the CUDA kernels from
-     the eleven sources in h264_fer_tpu_torch/kernels/csrc (one nvcc per
+     the thirteen sources in h264_fer_tpu_torch/kernels/csrc (one nvcc per
      source, sm_90a) and the native slice decoder
      h264_fer_tpu_torch/native/decoder_native.cpp (g++), all started at
      once, and print each build's time and compiler report;
@@ -31,17 +31,23 @@ Phases (any failure exits non-zero and prints no result line; each
      CPU path's and have the SHA-256 DEVICE_DIGESTS gives it (the JAX
      GopIntraEncoder's stream, recomputed by tests/test_torch_iframe.py).
      Prints e2e fps, device frame fps and the per-stage device times;
-  4. hold K2 (integer search), K3 (qpel refine), K4 (P decision wavefront,
-     one launch per frame) and K5 (MC, one thread per quadrant row reading
-     aligned words) against their plain twins on the card, bit-exact: at
-     1920x1088 for QP 28, 40 and 46 (the three metric tiers) on the maps
-     and MVs of a content pair, then on QCIF grids with random previous MVs
-     beyond the search limit, random MC MVs over the whole ±limit (K4 also
-     with its grid forced to 1 and to 3 blocks), and flat content where
-     every score ties, the random MVs again at window 7 (luma rows W + 18
-     bytes, only 2-byte aligned), and on a tall 64x208, a one-MB-wide
-     16x144 and a one-MB-tall 176x16 content pair; time kernel and plain at
-     QP 28, holding every timed call to the plain output;
+  4. hold K13 (the 16 interpolated planes, one launch a reference), K2
+     (integer search), K3 (qpel refine), K4 (P decision wavefront, one
+     launch per frame), K5 (MC, one thread per quadrant row reading aligned
+     words) and K12 (the P residual / recon, one launch a frame) against
+     their plain twins on the card, bit-exact: at 1920x1088 for QP 28, 40
+     and 46 (the three metric tiers) on the maps and MVs of a content pair,
+     then on QCIF grids with random previous MVs beyond the search limit,
+     random MC MVs over the whole ±limit (K4 also with its grid forced to 1
+     and to 3 blocks), and flat content where every score ties, the random
+     MVs again at window 7 (luma rows W + 18 bytes, only 2-byte aligned),
+     and on a tall 64x208, a one-MB-wide 16x144 and a one-MB-tall 176x16
+     content pair; K12 also on a 1080p P frame's decided inputs with the
+     prefilter on and off at MAXDIFF 3 and 255, every MB skipped and none,
+     and prediction 0 against source 255 and the reverse at QP 28, 40 and
+     46; K13 also on a 0/255 checkerboard reference (its 6-taps clip) at
+     windows 8 and 7, frame and band 1 of 4 (check_k12_k13); time kernel
+     and plain at QP 28, holding every timed call to the plain output;
   5. drive the IPPP main path: GopIpppEncoder(1920, 1088, 28, gop_len=8)
      encodes 16 frames with the launch counts set to 0 just before; the
      stream of the first GOP's first 4 frames (the IDR and 3 P frames) must
@@ -53,8 +59,8 @@ Phases (any failure exits non-zero and prints no result line; each
      28) from the card must equal the CPU path's and have its
      DEVICE_DIGESTS digest (tests/test_torch_ippp.py). Prints e2e fps,
      device ms per P frame for each stage and the counted launches (one
-     K1t and one K11 I16 form per IDR, one K4 per P frame, one K10 per
-     frame);
+     K1t and one K11 I16 form per IDR, one K13, K2, K3, K4, K5 and K12
+     per P frame, one K10 per frame);
   6. hold K4x4 (Intra_4x4 recon and levels), K7 (chroma wavefront writing
      its levels) and K6 (mixed arbitration wavefront), each one dataflow
      launch per frame, against their plain twins on the card, bit-exact on
@@ -95,10 +101,11 @@ Phases (any failure exits non-zero and prints no result line; each
   9. drive the session path: Encoder(1920, 1088, EncoderConfig(qp=28,
      intra_every=8, deblock=True)) encodes 16 frames with the launch counts
      set to 0 just before (one K1t and one K11 I16-form launch per IDR,
-     one K8 launch per frame, one launch of each P kernel per P frame, one
-     K10 per frame); the first 3 frames' stream must equal, byte for byte,
-     the plain chain's (the same encoder with every kernel, K10 and K11
-     swapped for its plain twin, none of them launching), and the stream
+     one K8 launch per frame, one launch of each P kernel, K13 and K12
+     among them, per P frame, one K10 per frame); the first 3 frames'
+     stream must equal, byte for byte, the plain chain's (the same encoder
+     with every kernel, K10-K13 among them, swapped for its plain twin,
+     none of them launching), and the stream
      parse back with the filter signalled in the PPS
      and every slice header; QCIF session streams from the card, with i16
      IDRs and with mixed IDRs, must equal the CPU path's, and the i16 one
@@ -109,8 +116,10 @@ Phases (any failure exits non-zero and prints no result line; each
   10. drive the host path, the reference encoder's exact per-MB loop on the
      host with the in-loop filter K8 on the card: Encoder(1920, 1088,
      EncoderConfig(qp=28, intra_every=8, deblock=True), iframe="host",
-     pframe="host") encodes 2 frames (an IDR and a P frame) with K8's and
-     K11's counts set to 0 just before (one K8 launch per frame, no K11);
+     pframe="host") encodes 2 frames (an IDR and a P frame) with K8's,
+     K11's, K12's and K13's counts set to 0 just before (one K8 launch per
+     frame, one K13 per P frame for the planes its search reads, no K11,
+     no K12);
      the stream must
      parse back with the filter signalled, and K8 is held bit-exact against
      its plain twin on the last P frame's state before its filter. Prints
@@ -136,9 +145,9 @@ Phases (any failure exits non-zero and prints no result line; each
      Encoder(1920, 1088, EncoderConfig(qp=28, intra_every=8,
      deblock=True), iframe="i16", pframe="host", me="topk") (the CLI's
      `encode --tpu-iframe --tpu-me --deblock --intra-every 8`) on 2
-     frames with the launch counts set to 0 just before (one K1t, K2 and
-     K9 launch, one K10 and one K11 I16 form for the IDR, one K8 per frame,
-     no other P kernel and no K10 on the host P frame): the stream parses
+     frames with the launch counts set to 0 just before (one K1t, K2, K9
+     and K13 launch, one K10 and one K11 I16 form for the IDR, one K8 per
+     frame, no other P kernel and no K10 on the host P frame): the stream parses
      with the filter signalled and its candidates, read from plane 0 of
      the P frame's interpolated planes, equal the plain chain's. Times K9
      both ways on that P frame's map, its plain twin and one torch.topk
@@ -175,16 +184,18 @@ Phases (any failure exits non-zero and prints no result line; each
      band 1 of 4 of the 1080p IPPP content pair (phase 4's chained pair) at
      QP 28, 40 and 46 with a real halo (the frame K4's last MB row of band
      0), and on QCIF in 3 bands with random previous MVs beyond the search
-     limit (also with its grid forced to 1 and to 3 blocks); K4-band, K2,
-     K3 and K5 on the band's inputs (banded planes equal to the frame
-     planes' rows) must also equal the frame kernels' rows of the band;
+     limit (also with its grid forced to 1 and to 3 blocks); K13's band
+     form (from the band's rows between real rows of its neighbours), K2,
+     K3, K4-band, K5 and K12 on the band's inputs, each held to its plain
+     twin, must also equal the frame kernels' rows of the band;
      time K4-band at QP 28, holding every timed call to the plain output,
      and print the device ms of each stage of that band's P frame. Then
      drive TileIpppEncoder(1920, 1088, 28, gop_len=8) in 4 bands of 17 MB
      rows and in 2 of 34, and GopTileIpppEncoder (2, 2), on entries of the
-     card, each with the launch counts set to 0 just before (one K4-band,
-     K2, K3 and K5 launch per band per P frame, one K1t-band and one K11
-     I16 form per band per IDR, one K10 per band, no frame K4 or K1t):
+     card, each with the launch counts set to 0 just before (one K13, K2,
+     K3, K4-band, K5 and K12 launch per band per P frame, one K1t-band and
+     one K11 I16 form per band per IDR, one K10 per band, no frame K4 or
+     K1t):
      each stream must equal
      phase 5's one-device
      stream and the bands' reference planes decode from it (decode_gate,
@@ -238,12 +249,14 @@ Phases (any failure exits non-zero and prints no result line; each
      card and on the CPU (plain K8);
   16. print the kernels line (K8's row also with its launches on the host
      path and on the session stream's decode, K2's with its launches on
-     the --tpu-me path, K9's with torch.topk's time as library_ms) and,
-     last,
+     the --tpu-me path, K9's with torch.topk's time as library_ms, K12's
+     and K13's with their launches on the P-band paths and K13's on the
+     host and --tpu-me paths) and, last,
      {"ok": true, "device": {...}}.
      Each kernel's time is taken two ways (kernel_ms): `ms` with its
      calls issued as the host gets to them, as a path issues them, and
-     `queued_ms` with them queued ahead of the card, the device's own time.
+     `queued_ms` with them queued ahead of the card, the device's own time
+     (behind a spin that is doubled until it outlasts the host's issue).
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -268,7 +281,7 @@ CHECK_QPS = (8, 28, 46)
 SEED = 7
 KERNEL_SOURCES = ("wavefront_i16", "me_int", "me_qpel", "wavefront_p", "mc",
                   "wavefront_i4x4", "wavefront_mixed", "deblock", "me_topk",
-                  "cavlc_slice", "mode_decision")
+                  "cavlc_slice", "mode_decision", "residual_p", "interp")
 NATIVE_DECODER = "decoder_native"  # h264_fer_tpu_torch/native, built by g++
 # the IPPP main path: bench.py's e2e_ippp_encode_1080p_fps configuration
 GOP_LEN, N_IPPP, WINDOW = 8, 16, 8
@@ -373,8 +386,10 @@ def card() -> str:
 
 
 # cycles the card spins per timed call before cuda_ms's queued calls (0.1
-# ms at 1.98 GHz): time for the host to issue them all first
+# ms at 1.98 GHz): time for the host to issue them all first; doubled up to
+# QUEUE_DOUBLINGS times while the host's issue outlasts it
 QUEUE_CYCLES_PER_REP = 198_000
+QUEUE_DOUBLINGS = 6
 
 
 def cuda_ms(torch, fn, reps: int, check=None, queued=False) -> float:
@@ -384,32 +399,45 @@ def cuda_ms(torch, fn, reps: int, check=None, queued=False) -> float:
     kernel's queued_ms) the timed calls wait behind a kernel that spins the
     card (torch.cuda._sleep) while the host issues them, so the events time
     the device's work back to back, not the host's pace of issuing it: a
-    wrapper's own host time can exceed a short kernel's device time. With `check`, every
-    call's output (the warm-up too) is kept and passed to check() after the
-    timing, so that a race shows as a mismatch in any repetition; an
+    wrapper's own host time can exceed a short kernel's device time. The
+    spin must outlast the issue: if the start event has passed when the
+    last call is issued, the round is timed again with twice the spin
+    (AssertionError after QUEUE_DOUBLINGS doublings). With `check`, every
+    call's output is passed to check(), a timed round's kept until the
+    round's end, so that a race shows as a mismatch in any repetition; an
     untimed round of `reps` calls, kept and checked the same way, first
     grows the allocator's cache to hold them, so that no device allocation
     for the kept outputs lands in the timed round."""
-    outs = [fn()]
+    first = fn()
     if check is not None:
+        check(first)
         for out in [fn() for _ in range(reps)]:
             check(out)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    if queued:
-        torch.cuda._sleep(QUEUE_CYCLES_PER_REP * reps)
-    start.record()
-    for _ in range(reps):
-        out = fn()
-        if check is not None:
-            outs.append(out)
-    end.record()
-    torch.cuda.synchronize()
-    if check is not None:
+    cycles = QUEUE_CYCLES_PER_REP * reps
+    for doubling in range(QUEUE_DOUBLINGS + 1):
+        outs = []
+        torch.cuda.synchronize()
+        if queued:
+            torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            out = fn()
+            if check is not None:
+                outs.append(out)
+        covered = not (queued and start.query())
+        end.record()
+        torch.cuda.synchronize()
         for out in outs:
             check(out)
-    return start.elapsed_time(end) / reps
+        if covered:
+            return start.elapsed_time(end) / reps
+        print(f"queued timing: a spin of {cycles} cycles ended before the host had issued "
+              f"{reps} calls; again with {2 * cycles}", flush=True)
+        cycles *= 2
+    raise AssertionError(f"queued timing: the host's issue of {reps} calls outlasted a spin "
+                         f"of {cycles // 2} cycles")
 
 
 def kernel_ms(torch, fn, reps: int, check=None):
@@ -810,38 +838,56 @@ def max_err(torch, got, want) -> int:
                for g, w in zip(got, want))
 
 
-P_KERNELS = ("me_int", "me_qpel", "wavefront_p", "mc")
+P_KERNELS = ("interp", "me_int", "me_qpel", "wavefront_p", "mc", "residual_recon")
 DECIDE_KEYS = ("skip", "mb_type", "mv", "mvd")
 
 
 def p_kernels(plain: bool) -> dict:
-    """K2-K5, K4-band and the slice entropy (K10) as the stage callables of
-    p_frame_stages: the wrappers, which launch the kernels on the card, or
-    with `plain` their plain twins."""
+    """K13 (frame and band), K2-K5, K4-band, K12 and the slice entropy (K10)
+    as the stage callables of p_frame_stages: the wrappers and dispatchers,
+    which launch the kernels on the card, or with `plain` their plain
+    twins."""
     from h264_fer_tpu_torch.codec.entropy import p_slice_entropy, p_slice_entropy_plain
+    from h264_fer_tpu_torch.codec.pframe import (pframe_residual_recon,
+                                                 pframe_residual_recon_plain)
     from h264_fer_tpu_torch.kernels.mc import mc_bulk, mc_bulk_plain
     from h264_fer_tpu_torch.kernels.me_int import integer_score_map, integer_score_map_plain
     from h264_fer_tpu_torch.kernels.me_qpel import qpel_refine_map_plain, qpel_refine_maps
     from h264_fer_tpu_torch.kernels.wavefront_p import (pframe_decide, pframe_decide_band,
                                                         pframe_decide_plain)
+    from h264_fer_tpu_torch.ops.interp import (interpolated_planes,
+                                               interpolated_planes_banded,
+                                               interpolated_planes_banded_plain,
+                                               interpolated_planes_plain)
 
     if not plain:
-        return {"me_int": integer_score_map, "me_qpel": qpel_refine_maps,
+        return {"interp": interpolated_planes, "interp_band": interpolated_planes_banded,
+                "me_int": integer_score_map, "me_qpel": qpel_refine_maps,
                 "wavefront_p": pframe_decide, "wavefront_p_band": pframe_decide_band,
-                "mc": mc_bulk, "entropy": p_slice_entropy}
-    return {"me_int": integer_score_map_plain,
+                "mc": mc_bulk, "residual_recon": pframe_residual_recon,
+                "entropy": p_slice_entropy}
+    return {"interp": interpolated_planes_plain,
+            "interp_band": interpolated_planes_banded_plain,
+            "me_int": integer_score_map_plain,
             "me_qpel": lambda y, planes, c1, c2, ext, metric: (
                 qpel_refine_map_plain(y, planes, c1, ext, metric),
                 qpel_refine_map_plain(y, planes, c2, ext, metric)),
             "wavefront_p": pframe_decide_plain, "wavefront_p_band": pframe_decide_plain,
-            "mc": mc_bulk_plain, "entropy": p_slice_entropy_plain}
+            "mc": mc_bulk_plain, "residual_recon": pframe_residual_recon_plain,
+            "entropy": p_slice_entropy_plain}
+
+
+def stage_fn(kern: dict, name: str, band: bool = False):
+    """The callable of stage `name` among p_kernels' `kern`: K13's band
+    form for "interp" with `band`."""
+    return kern["interp_band" if band and name == "interp" else name]
 
 
 def p_frame_stages(torch, kern, frame, ref, qp, mc_mv=None, window=WINDOW, band=False,
                    top=None):
     """One P frame through device_p_frame's stages (search window +-window,
-    adaptive MAXDIFF, the prefilter below QP 36), with K2-K5 the callables
-    `kern` of p_kernels. frame: (y, cb, cr) uint8 planes on one device;
+    adaptive MAXDIFF, the prefilter below QP 36), with K13, K2-K5 and K12
+    the callables `kern` of p_kernels. frame: (y, cb, cr) uint8 planes on one device;
     ref: (ref_y, ref_cb, ref_cr, prev_mv); mc_mv: MVs for K5 in place of
     the decision's. With `band`, one MB-row band's P step as
     parallel/tile_p.py runs it: frame the band's rows, ref's planes its
@@ -851,11 +897,8 @@ def p_frame_stages(torch, kern, frame, ref, qp, mc_mv=None, window=WINDOW, band=
     Returns (fns, args, outs): each stage's callable, its arguments and its
     output, by stage name."""
     from h264_fer_tpu_torch.codec.pframe import (adaptive_maxdiff, blocks_to_mbq,
-                                                 me_centres, me_params,
-                                                 pframe_residual_recon)
-    from h264_fer_tpu_torch.ops.interp import (interpolated_planes,
-                                               interpolated_planes_banded, pad_chroma,
-                                               pad_chroma_banded)
+                                                 me_centres, me_params)
+    from h264_fer_tpu_torch.ops.interp import pad_chroma, pad_chroma_banded
     from h264_fer_tpu_torch.ops.transform import chroma_qp
 
     y, cb, cr = frame
@@ -866,8 +909,7 @@ def p_frame_stages(torch, kern, frame, ref, qp, mc_mv=None, window=WINDOW, band=
     ext_c = ext // 2 + 1
     metric_id, lam = me_params(qp)
     mbq = lambda x: blocks_to_mbq(x, wmb, hmb)  # noqa: E731
-    fns = {"interp": interpolated_planes_banded if band else interpolated_planes, **kern,
-           "residual_recon": pframe_residual_recon,
+    fns = {**kern, "interp": stage_fn(kern, "interp", band),
            "entropy": lambda *a: kern["entropy"](*a, wmb=wmb, hmb=hmb)}
     pad = pad_chroma_banded if band else pad_chroma
     args, outs = {}, {}
@@ -895,10 +937,14 @@ def p_frame_stages(torch, kern, frame, ref, qp, mc_mv=None, window=WINDOW, band=
 
 
 def kernel_outputs(out) -> list:
-    """A K2-K5 output as a list of tensors (K4's dict in DECIDE_KEYS order)."""
+    """A K13, K2-K5 or K12 output as a list of tensors (K4's dict in
+    DECIDE_KEYS order; K12's levels dict in its order, then the recon
+    planes)."""
     if isinstance(out, dict):
         return [out[k] for k in DECIDE_KEYS]
-    return [out] if hasattr(out, "shape") else list(out)
+    if hasattr(out, "shape"):
+        return [out]
+    return [t for o in out for t in (o.values() if isinstance(o, dict) else (o,))]
 
 
 def distinct(torch, size: int, index_sets) -> int:
@@ -966,8 +1012,8 @@ def mc_reads(torch, planes, c_pad, mv, ext, ext_c, wmb, hmb) -> int:
 
 
 def p_work(torch, args, outs, k4: str = "wavefront_p") -> dict:
-    """{kernel: (bytes, int32 operations)} that each of K2-K5's functions
-    needs on these inputs: each input sample it reads counted once, each
+    """{kernel: (bytes, int32 operations)} that each of K13's, K2-K5's and
+    K12's functions needs on these inputs: each input sample it reads counted once, each
     output once. Operations per sample difference 3 (subtract, abs or
     multiply, add); K3's in packed bytes, 2 per 4 samples (a per-byte
     absolute difference, a 4-way dot product that sums it or its square).
@@ -986,6 +1032,7 @@ def p_work(torch, args, outs, k4: str = "wavefront_p") -> dict:
     # trial's four at every MB whose final type shows it ran (coded, type
     # != 0); a trial that unified the MB (type 0) is not counted
     trials = int(((~dec["skip"]) & (dec["mb_type"] != 0)).sum())
+    res = args["residual_recon"]
     return {
         "me_int": (nbytes(y, plane0, outs["me_int"]), nb * S2 * 64 * 3),
         "me_qpel": (nbytes(y, c1, c2_blk, *outs["me_qpel"])
@@ -1000,13 +1047,22 @@ def p_work(torch, args, outs, k4: str = "wavefront_p") -> dict:
         "mc": (nbytes(mv, *outs["mc"])
                + mc_reads(torch, planes, cb_pad, mv, ext, ext_c, wmb, hmb),
                h * w * 8 + (h * w // 2) * 20),
+        # each half-pel value once: three 6-taps a position (hv, b, j: six
+        # multiply-adds, rounding, shift, two-sided clip, ~10 each) and
+        # twelve averages (add, +1, shift)
+        "interp": (nbytes(args["interp"][0], outs["interp"]),
+                   outs["interp"][0].numel() * (3 * 10 + 12 * 3)),
+        # K1's per-sample pipeline at this QP, and the prefilter's subtract,
+        # abs, compare and select where it is on
+        "residual_recon": (nbytes(*res[:8], *kernel_outputs(outs["residual_recon"])),
+                           h * w * 3 // 2 * (k1_pixel_ops(res[10]) + 4 * bool(res[12]))),
     }
 
 
 def check_p_kernels(torch, label, ref, src, prev_mv, qp, mc_mv=None,
                     time_it=False, blocks=(), window=WINDOW):
-    """K2-K5 kernel vs plain twin on one frame pair, each kernel fed the
-    plain chain's inputs. ref / src: (y, cb, cr) uint8 planes on the card;
+    """K13, K2-K5 and K12 kernel vs plain twin on one frame pair, each
+    kernel fed the plain chain's inputs. ref / src: (y, cb, cr) uint8 planes on the card;
     prev_mv: the previous frame's MVs (nmb, 4, 2); mc_mv: MVs for K5 (the
     plain decision's when None); blocks: grid sizes to force on K4 in
     further checks; window: the search range (ext = window + 2). Returns
@@ -1086,6 +1142,65 @@ def check_p_small_grids(torch, dev):
         f0, f1 = pair(w, h)
         nmb = (w // 16) * (h // 16)
         check_p_kernels(torch, f"{w}x{h}", f0, f1, rand_mv(-lim - 4, lim + 5, nmb), QP)
+
+
+def checkerboard(h: int, w: int) -> np.ndarray:
+    """An (h, w) uint8 plane of 2x2 cells of 0 and 255: the 6-taps over it
+    clip at both ends."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    return np.where((yy // 2 + xx // 2) % 2, 255, 0).astype(np.uint8)
+
+
+def check_k12_k13(torch, dev) -> dict:
+    """K12 and K13 against their plain twins on the card, bit-exact, on
+    inputs the content pairs do not reach: on the decided inputs of a
+    1080p QP 28 P frame, the prefilter on and off with MAXDIFF 3 and 255 in
+    every MB, and every MB skipped and none; prediction 0 against source
+    255 and the reverse at each P QP (the prefilter on below QP 36); K13 on
+    a 0/255 checkerboard reference at windows 8 and 7, the frame and band
+    1 of 4. Returns {stage: max_abs_err}."""
+    from h264_fer_tpu_torch.ops.transform import chroma_qp
+
+    kern, plain = p_kernels(plain=False), p_kernels(plain=True)
+    pair = [tuple(torch.from_numpy(p).to(dev) for p in f) for f in content(2, W, H)]
+    nmb = (W // 16) * (H // 16)
+    zero = torch.zeros((nmb, 4, 2), dtype=torch.int32, device=dev)
+    a = list(p_frame_stages(torch, kern, pair[1], (*pair[0], zero), QP)[1]["residual_recon"])
+    full = lambda v, dtype: torch.full((nmb,), v, dtype=dtype, device=dev)  # noqa: E731
+    cases = [(f"maxdiff {md}, prefilter {pf}", a[:7] + [full(md, torch.int32)] + a[8:12] + [pf])
+             for md in (3, 255) for pf in (True, False)]
+    cases += [(f"{'every' if sk else 'no'} MB skipped", a[:6] + [full(sk, torch.bool)] + a[7:])
+              for sk in (True, False)]
+    for qp in P_QPS:
+        for s_val, p_val in ((255, 0), (0, 255)):
+            src = [torch.full_like(x, s_val) for x in pair[1]]
+            pred = [torch.full(x.shape, p_val, dtype=torch.int32, device=dev) for x in pair[1]]
+            cases.append((f"source {s_val}, prediction {p_val}, qp{qp}",
+                          [*src, *pred, full(False, torch.bool), full(3, torch.int32),
+                           W // 16, H // 16, qp, chroma_qp(qp), qp < 36]))
+    errs = {"residual_recon": 0, "interp": 0}
+    for label, c in cases:
+        err = max_err(torch, kernel_outputs(kern["residual_recon"](*c)),
+                      kernel_outputs(plain["residual_recon"](*c)))
+        print(f"residual_recon {W}x{H} {label}: max_abs_err {err} (tolerance 0)", flush=True)
+        errs["residual_recon"] = max(errs["residual_recon"], err)
+    board = torch.from_numpy(checkerboard(H, W)).to(dev)
+    for window in (WINDOW, 7):
+        ext = window + 2
+        frame = kern["interp"](board, ext)
+        band = band_reference((board, board[::2, ::2], board[::2, ::2], zero), 1, P_BAND_TILES,
+                              window)[0].contiguous()
+        r0 = H // P_BAND_TILES
+        got = kern["interp_band"](band, ext)
+        err = max(max_err(torch, [frame], [plain["interp"](board, ext)]),
+                  max_err(torch, [got], [plain["interp_band"](band, ext)]),
+                  max_err(torch, [got], [frame[:, r0: 2 * r0 + 2 * ext]]))
+        print(f"interp {W}x{H} checkerboard window {window}, frame and band 1 of "
+              f"{P_BAND_TILES}: max_abs_err {err} (tolerance 0)", flush=True)
+        errs["interp"] = max(errs["interp"], err)
+    if any(errs.values()):
+        raise AssertionError(f"K12 / K13 != plain: {errs}")
+    return errs
 
 
 def plain_i16_payload(torch, dev, enc, frame):
@@ -1476,15 +1591,22 @@ def random_state(torch, dev, w, h, seed):
 def plain_patches():
     """Context managers that swap every kernel wrapper the session encoder
     calls for its plain twin, where the encoder's modules look it up: K10
-    for the plain entropy and K11 for the plain mode decision too."""
+    for the plain entropy, K11 for the plain mode decision, K12 and K13
+    (in codec/pframe.py and parallel/tile_p.py) for the plain residual /
+    recon and planes too."""
     from unittest import mock
 
     from h264_fer_tpu_torch.codec import encoder, entropy, iframe, intra_decision, pframe
     from h264_fer_tpu_torch.kernels.deblock import deblock_frame_plain
     from h264_fer_tpu_torch.kernels.wavefront_i16 import i16_frame_plain
+    from h264_fer_tpu_torch.parallel import tile_p
 
     plain = p_kernels(plain=True)
     return [mock.patch.object(iframe, "i16_frame", i16_frame_plain),
+            mock.patch.object(pframe, "interpolated_planes", plain["interp"]),
+            mock.patch.object(pframe, "pframe_residual_recon", plain["residual_recon"]),
+            mock.patch.object(tile_p, "interpolated_planes_banded", plain["interp_band"]),
+            mock.patch.object(tile_p, "pframe_residual_recon", plain["residual_recon"]),
             mock.patch.object(iframe, "deblock_frame", deblock_frame_plain),
             mock.patch.object(encoder, "deblock_frame", deblock_frame_plain),
             mock.patch.object(pframe, "integer_score_map", plain["me_int"]),
@@ -1891,13 +2013,21 @@ def multi_device_phase(torch, dev, name, to_decode):
 
 
 P_BAND_TILES = 4  # K4-band's checks: band 1 of 4 bands of 17 MB rows at 1080p
-P_BAND_KERNELS = ("me_int", "me_qpel", "wavefront_p_band", "mc")
+P_BAND_KERNELS = ("interp", "me_int", "me_qpel", "wavefront_p_band", "mc", "residual_recon")
 
 
-def band_rows(name: str, out, r0: int, hl: int, wmb: int) -> list:
-    """The rows of MB rows [r0, r0 + hl) of a frame's K2-K5 output, as a
-    list of tensors: K2's and K3's per 8x8 block, K4's per MB (DECIDE_KEYS
-    order), K5's per sample."""
+def band_rows(name: str, out, r0: int, hl: int, wmb: int, ext: int = WINDOW + 2) -> list:
+    """The rows of MB rows [r0, r0 + hl) of a frame's K13, K2-K5 or K12
+    output, as a list of tensors: K13's planes with their ext rows above
+    and below, K2's and K3's per 8x8 block, K4's per MB (DECIDE_KEYS
+    order), K5's per sample, K12's levels per MB and recon per sample."""
+    if name == "interp":
+        return [out[:, 16 * r0: 16 * (r0 + hl) + 2 * ext]]
+    if name == "residual_recon":
+        levels, *recon = out
+        mbs = slice(wmb * r0, wmb * (r0 + hl))
+        return [levels["luma"][mbs], levels["cdc"][:, mbs], levels["cac"][:, mbs],
+                *(p[n * r0: n * (r0 + hl)] for p, n in zip(recon, (16, 8, 8)))]
     if name in ("me_int", "me_qpel"):
         blk = slice(4 * wmb * r0, 4 * wmb * (r0 + hl))
         return [x[blk] for x in kernel_outputs(out)]
@@ -1928,13 +2058,14 @@ def check_p_band(torch, label, ref, src, prev_mv, qp, n_tile, t, time_it=False,
     """K4-band kernel vs plain twin on band t of n_tile of one frame pair
     (card planes ref / src, prev_mv the previous frame's MVs), with a real
     halo: the frame K4's final MVs and types of the MB row above, as the
-    frame kernel leaves them. K4-band, K2, K3 and K5 on the band's inputs
-    (its banded planes, which must be the frame planes' rows) must also
-    equal the frame kernels' rows of the band; K4-band also with its grid
-    forced to `blocks`. Returns (K4-band's (max_abs_err, ms, plain_ms,
-    bound_ms, bound_by, queued_ms), times None unless time_it, every timed
-    call held to the plain output; with time_it the band's stages with the
-    kernels (fns, args) of p_frame_stages, else None)."""
+    frame kernel leaves them. K13's band form, K2, K3, K4-band, K5 and K12
+    on the band's inputs, each held to its plain twin, must also equal the
+    frame kernels' rows of the band (K13: the frame planes' rows); K4-band
+    also with its grid forced to `blocks`. Returns (K4-band's
+    (max_abs_err, ms, plain_ms, bound_ms, bound_by, queued_ms), times None
+    unless time_it, every timed call held to the plain output; with
+    time_it the band's stages with the kernels (fns, args) of
+    p_frame_stages, else None; {stage: max_abs_err})."""
     from h264_fer_tpu_torch.kernels.wavefront_p import MB_SKIP, pframe_decide_band
 
     h, w = src[0].shape
@@ -1952,11 +2083,9 @@ def check_p_band(torch, label, ref, src, prev_mv, qp, n_tile, t, time_it=False,
     band_ref = band_reference((*ref, prev_mv), t, n_tile)
     plain, args, outs = p_frame_stages(torch, p_kernels(plain=True), band_src, band_ref, qp,
                                        band=True, top=top)
-    ext = WINDOW + 2
-    errs = {"interp": max_err(torch, [outs["interp"]],
-                              [frame["interp"][:, 16 * r0: 16 * (r0 + hl) + 2 * ext]])}
+    errs = {}
     for name in P_BAND_KERNELS:
-        got = kernel_outputs(kern[name](*args[name]))
+        got = kernel_outputs(stage_fn(kern, name, band=True)(*args[name]))
         torch.cuda.synchronize()
         rows = band_rows(name, frame["wavefront_p" if name == "wavefront_p_band" else name],
                          r0, hl, wmb)
@@ -1986,7 +2115,7 @@ def check_p_band(torch, label, ref, src, prev_mv, qp, n_tile, t, time_it=False,
           + f", K4-band bound {bound_ms:.4f} ms ({bound_by})", flush=True)
     if any(errs.values()):
         raise AssertionError(f"P band {label} band {t} qp{qp}: {errs}")
-    return (errs["wavefront_p_band"], ms, plain_ms, bound_ms, bound_by, queued_ms), stages
+    return (errs["wavefront_p_band"], ms, plain_ms, bound_ms, bound_by, queued_ms), stages, errs
 
 
 def p_band_configs(dev):
@@ -2016,24 +2145,34 @@ def tile_p_qcif_streams(dev) -> dict:
 
 
 def p_band_phase(torch, dev, name, to_decode):
-    """The P-frame bands: K4-band (and K2, K3, K5 on band inputs) held
-    against plain and the frame kernels' rows at 1080p (QP 28, 40, 46) and
-    on QCIF in 3 bands; then TileIpppEncoder in 4 and 2 bands and
-    GopTileIpppEncoder (2, 2) at 1080p on entries of the card, each with
-    the launch counts set to 0 just before (one K4-band, K2, K3 and K5 per
-    band per P frame, one K1t-band per band per IDR, no frame K4 or K1t):
+    """The P-frame bands: K4-band (and K13, K2, K3, K5 and K12 on band
+    inputs) held against plain and the frame kernels' rows at 1080p (QP 28,
+    40, 46) and on QCIF in 3 bands; then TileIpppEncoder in 4 and 2 bands
+    and GopTileIpppEncoder (2, 2) at 1080p on entries of the card, each
+    with the launch counts set to 0 just before (one K13, K2, K3, K4-band,
+    K5 and K12 per band per P frame, one K1t-band per band per IDR, no
+    frame K4 or K1t):
     each stream must equal the one-device IPPP stream of phase 5 and the
     bands' reference planes must decode from it (decode_gate, spec mode,
     untimed). Prints the median e2e fps of 3 after a warm-up, the device
     ms of each stage of one band's P frame and the profiled busy share of 4
     frames in 4 bands; checks the QCIF band streams
-    against TILE_P_DIGESTS. Returns ({qp: K4-band's check tuple}, K4-band
-    launches)."""
+    against TILE_P_DIGESTS. Returns ({qp: K4-band's check tuple}, the
+    launches of K4-band, K12 and K13 over the configurations, and K12's
+    and K13's largest band error)."""
+    from h264_fer_tpu_torch.kernels.interp import interp_planes
     from h264_fer_tpu_torch.kernels.mc import mc_bulk
     from h264_fer_tpu_torch.kernels.me_int import integer_score_map
     from h264_fer_tpu_torch.kernels.me_qpel import qpel_refine_maps
+    from h264_fer_tpu_torch.kernels.residual_p import residual_recon
     from h264_fer_tpu_torch.kernels.wavefront_i16 import i16_band, i16_frame
     from h264_fer_tpu_torch.kernels.wavefront_p import pframe_decide, pframe_decide_band
+
+    band_errs = {"interp": 0, "residual_recon": 0}
+
+    def keep(errs):
+        for k in band_errs:
+            band_errs[k] = max(band_errs[k], errs[k])
 
     # 1080p: frame 2 from frame 1 with frame 1's MVs (phase 4's chained pair)
     pair = [tuple(torch.from_numpy(p).to(dev) for p in f) for f in content(3, W, H)]
@@ -2043,8 +2182,9 @@ def p_band_phase(torch, dev, name, to_decode):
     for qp in P_QPS:
         mv1 = p_frame_stages(torch, p_kernels(plain=False), pair[1], (*pair[0], zero),
                              qp)[2]["wavefront_p"]["mv"]
-        k4b[qp], band_stages = check_p_band(torch, f"{W}x{H}", pair[1], pair[2], mv1, qp,
-                                            P_BAND_TILES, 1, time_it=qp == QP)
+        k4b[qp], band_stages, errs = check_p_band(torch, f"{W}x{H}", pair[1], pair[2], mv1,
+                                                  qp, P_BAND_TILES, 1, time_it=qp == QP)
+        keep(errs)
         if qp == QP:
             stages = band_stages
     # QCIF in 3 bands: random previous MVs beyond the search limit
@@ -2055,9 +2195,10 @@ def p_band_phase(torch, dev, name, to_decode):
         prev = torch.from_numpy(rng.integers(-lim - 4, lim + 5, (99, 4, 2))
                                 .astype(np.int32)).to(dev)
         for t in range(3):
-            err = check_p_band(torch, "176x144 random MVs", *qcif, prev, qp, 3, t,
-                               blocks=(1, 3) if qp == QP else ())[0][0]
-            k4b[qp] = (max(k4b[qp][0], err), *k4b[qp][1:])
+            k4, _, errs = check_p_band(torch, "176x144 random MVs", *qcif, prev, qp, 3, t,
+                                       blocks=(1, 3) if qp == QP else ())
+            k4b[qp] = (max(k4b[qp][0], k4[0]), *k4b[qp][1:])
+            keep(errs)
     fns, args = stages  # the entropy here without its band contexts (a few more ops)
     times = {k: cuda_ms(torch, lambda k=k: fns[k](*args[k]), 5) for k in args}
     print(f"P band stages (device ms, band 1 of {P_BAND_TILES}, one P frame): "
@@ -2067,11 +2208,12 @@ def p_band_phase(torch, dev, name, to_decode):
     counted = {"pframe_decide_band": pframe_decide_band, "integer_score_map": integer_score_map,
                "qpel_refine_maps": qpel_refine_maps, "mc_bulk": mc_bulk, "i16_band": i16_band,
                "pframe_decide": pframe_decide, "i16_frame": i16_frame,
+               "residual_recon": residual_recon, "interp_planes": interp_planes,
                **{fn.__name__: fn for fn in (*k10_counted(), *k11_counted())}}
     frames = content(N_IPPP, W, H)
     n_gops = N_IPPP // GOP_LEN
     n_p = N_IPPP - n_gops
-    launches = 0
+    launches = dict.fromkeys(("pframe_decide_band", "residual_recon", "interp_planes"), 0)
     for label, n, n_tile, make in p_band_configs(dev):
         make().encode_sequence(frames[:2])  # warm-up: allocator, library loads
         torch.cuda.synchronize()
@@ -2081,13 +2223,15 @@ def p_band_phase(torch, dev, name, to_decode):
         stream = enc.encode_sequence(frames, keep_recon=True)
         got = {k: fn.launches for k, fn in counted.items()}
         want = {k: n_p * n_tile for k in ("pframe_decide_band", "integer_score_map",
-                                          "qpel_refine_maps", "mc_bulk")}
+                                          "qpel_refine_maps", "mc_bulk", "residual_recon",
+                                          "interp_planes")}
         want.update(i16_band=n_gops * n_tile, pframe_decide=0, i16_frame=0,
                     **k10_launches({"i16": n_gops * n_tile, "p": n_p * n_tile}),
                     **k11_launches({"i16": n_gops * n_tile}))
         if got != want:
             raise AssertionError(f"{label}: launches {got}, expected {want}")
-        launches += got["pframe_decide_band"]
+        for k in launches:
+            launches[k] += got[k]
         if stream != to_decode["IPPP"][0]:
             raise AssertionError(f"{label}: stream != the one-device IPPP stream")
         recon = [tuple(torch.from_numpy(p) for p in f) for f in enc.recon]
@@ -2114,7 +2258,7 @@ def p_band_phase(torch, dev, name, to_decode):
             raise AssertionError(f"QCIF P-band stream {key} != its JAX digest")
     print(f"QCIF P-band streams {sorted(qcif_streams)} == their JAX digests "
           f"({time.perf_counter() - t0:.1f} s) on {name}", flush=True)
-    return k4b, launches
+    return k4b, launches, band_errs
 
 
 def repo_file(rel: str) -> pathlib.Path:
@@ -2194,16 +2338,19 @@ def check_host_qcif(streams: dict, where: str) -> None:
 
 
 def host_path(torch, dev, frames):
-    """Phase 10's 1080p run: the host path on `frames`, with K8's and K11's
-    counts set to 0 just before (no K11 launch: its modes come from the
-    host); the stream must parse back. Returns (stream, the
-    reference planes after each frame on the card, the K8 launches, the
+    """Phase 10's 1080p run: the host path on `frames`, with K8's, K11's,
+    K12's and K13's counts set to 0 just before (no K11 launch: its modes
+    come from the host; one K13 a P frame, for its planes; no K12); the
+    stream must parse back. Returns (stream, the reference planes after
+    each frame on the card, the K8 and K13 launches, the
     state of the last K8 call (planes and syntax state before its filter),
     per frame the seconds of the whole frame and of K8's synchronised call,
     and the encoder's per-frame stats)."""
     from h264_fer_tpu_torch.codec import encoder_host
     from h264_fer_tpu_torch.codec.encoder import Encoder, EncoderConfig
     from h264_fer_tpu_torch.kernels.deblock import deblock_frame
+    from h264_fer_tpu_torch.kernels.interp import interp_planes
+    from h264_fer_tpu_torch.kernels.residual_p import residual_recon
 
     cfg = EncoderConfig(qp=QP, intra_every=SESSION_INTRA_EVERY, deblock=True)
     enc = Encoder(W, H, cfg, iframe="host", pframe="host", device=dev)
@@ -2219,7 +2366,7 @@ def host_path(torch, dev, frames):
 
     recon, frame_s = [], []
     torch.cuda.synchronize()
-    for fn in (deblock_frame, *k11_counted()):
+    for fn in (deblock_frame, interp_planes, residual_recon, *k11_counted()):
         fn.launches = 0
     with mock.patch.object(encoder_host, "deblock_frame", timed_k8):
         stream = enc.headers()
@@ -2228,9 +2375,14 @@ def host_path(torch, dev, frames):
             stream += enc.encode_frame(*f)
             frame_s.append(time.perf_counter() - t0)
             recon.append(tuple(torch.from_numpy(p).to(dev) for p in enc.reconstructed()))
-    launches = deblock_frame.launches
+    launches = {"deblock_frame": deblock_frame.launches,
+                "interp_planes": interp_planes.launches}
     if any(fn.launches for fn in k11_counted()):  # its modes come from the host
         raise AssertionError("host path: K11 launched")
+    n_p = sum(not st["idr"] for st in enc.stats)
+    if interp_planes.launches != n_p or residual_recon.launches:
+        raise AssertionError(f"host path: {interp_planes.launches} K13 launches for {n_p} P "
+                             f"frames, {residual_recon.launches} K12")
     parse_session_stream(stream, enc.stats, W, H, QP)
     return stream, recon, launches, tuple(last_state), frame_s, k8_s, enc.stats
 
@@ -2352,19 +2504,21 @@ def me_topk_path(torch, dev, frames):
     """Phase 10's --tpu-me run at 1080p (the CLI's `encode --tpu-iframe
     --tpu-me --deblock --intra-every 8`): Encoder(..., iframe="i16",
     pframe="host", me="topk") on `frames` with the launch counts set to 0
-    just before; one K1t, K2 and K9 launch, K10's one for the IDR and one
-    K8 per frame, no other P kernel; the stream parses with the filter
-    signalled. Returns (stream,
+    just before; one K1t, K2, K9 and K13 launch, K10's one for the IDR and
+    one K8 per frame, no other P kernel (no K3, K4, K5 or K12); the stream
+    parses with the filter signalled. Returns (stream,
     the reference planes after each frame on the card, launches, per frame
     the seconds, the encoder's stats, and the recorded (src, plane0, ext,
     window, candidates) of the P frame's search)."""
     from h264_fer_tpu_torch.codec import encoder_host
     from h264_fer_tpu_torch.codec.encoder import Encoder, EncoderConfig
     from h264_fer_tpu_torch.kernels.deblock import deblock_frame
+    from h264_fer_tpu_torch.kernels.interp import interp_planes
     from h264_fer_tpu_torch.kernels.mc import mc_bulk
     from h264_fer_tpu_torch.kernels.me_int import integer_score_map
     from h264_fer_tpu_torch.kernels.me_qpel import qpel_refine_maps
     from h264_fer_tpu_torch.kernels.me_topk import topk_candidates
+    from h264_fer_tpu_torch.kernels.residual_p import residual_recon
     from h264_fer_tpu_torch.kernels.wavefront_i16 import i16_frame, i16_recon
     from h264_fer_tpu_torch.kernels.wavefront_p import pframe_decide
 
@@ -2378,7 +2532,8 @@ def me_topk_path(torch, dev, frames):
         return out
 
     counted = (i16_frame, i16_recon, integer_score_map, topk_candidates, deblock_frame,
-               qpel_refine_maps, pframe_decide, mc_bulk, *k10_counted(), *k11_counted())
+               qpel_refine_maps, pframe_decide, mc_bulk, interp_planes, residual_recon,
+               *k10_counted(), *k11_counted())
     torch.cuda.synchronize()
     for fn in counted:
         fn.launches = 0
@@ -2394,7 +2549,8 @@ def me_topk_path(torch, dev, frames):
     n_p = sum(not st["idr"] for st in enc.stats)
     want = {"i16_frame": len(frames) - n_p, "i16_recon": 0, "integer_score_map": n_p,
             "topk_candidates": n_p, "deblock_frame": len(frames), "qpel_refine_maps": 0,
-            "pframe_decide": 0, "mc_bulk": 0, **k10_launches({"i16": len(frames) - n_p}),
+            "pframe_decide": 0, "mc_bulk": 0, "interp_planes": n_p, "residual_recon": 0,
+            **k10_launches({"i16": len(frames) - n_p}),
             **k11_launches({"i16": len(frames) - n_p})}
     if launches != want or len(searched) != n_p:
         raise AssertionError(f"--tpu-me path launches {launches} ({len(searched)} searches), "
@@ -2882,9 +3038,11 @@ def main() -> int:
               "needs an NVIDIA card", file=sys.stderr)
         return 1
     from h264_fer_tpu_torch.codec import gop
+    from h264_fer_tpu_torch.kernels.interp import interp_planes
     from h264_fer_tpu_torch.kernels.mc import mc_bulk
     from h264_fer_tpu_torch.kernels.me_int import integer_score_map
     from h264_fer_tpu_torch.kernels.me_qpel import qpel_refine_maps
+    from h264_fer_tpu_torch.kernels.residual_p import residual_recon
     from h264_fer_tpu_torch.kernels import wavefront_i16
     from h264_fer_tpu_torch.kernels.deblock import deblock_frame
     from h264_fer_tpu_torch.kernels.wavefront_i16 import chroma_frame, i16_frame, i16_recon
@@ -3015,7 +3173,8 @@ def main() -> int:
         _, dec = check_p_kernels(torch, f"{W}x{H}", pair[0], pair[1], zero_mv, qp)
         pk[qp], _ = check_p_kernels(torch, f"{W}x{H} chained", pair[1], pair[2],
                                     dec["mv"], qp, time_it=qp == QP)
-    print(f"K2-K5 checks done on {name}", flush=True)
+    k1213 = check_k12_k13(torch, dev)
+    print(f"K13, K2-K5 and K12 checks done on {name}", flush=True)
 
     print(f"[phase 4 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- 5. IPPP main path -----------------------------------------------------
@@ -3023,8 +3182,8 @@ def main() -> int:
     enc = GopIpppEncoder(W, H, QP, gop_len=GOP_LEN, device=dev)
     enc.encode_sequence(frames[:2])  # warm-up: allocator, library loads
     torch.cuda.synchronize()
-    counted = (i16_frame, integer_score_map, qpel_refine_maps, pframe_decide, mc_bulk, *k10,
-               *k11)
+    counted = (i16_frame, interp_planes, integer_score_map, qpel_refine_maps, pframe_decide,
+               mc_bulk, residual_recon, *k10, *k11)
     for fn in counted:
         fn.launches = 0
     recon = []
@@ -3037,8 +3196,9 @@ def main() -> int:
     # its P frames' chroma decodes right in the spec-correct mode only
     to_decode["IPPP"] = (stream, recon, {"spec_mode": True})
     n_gops, n_p = N_IPPP // GOP_LEN, N_IPPP - N_IPPP // GOP_LEN
-    want = {"i16_frame": n_gops, "integer_score_map": n_p,
+    want = {"i16_frame": n_gops, "interp_planes": n_p, "integer_score_map": n_p,
             "qpel_refine_maps": n_p, "pframe_decide": n_p, "mc_bulk": n_p,
+            "residual_recon": n_p,
             **k10_launches({"i16": n_gops, "p": n_p}), **k11_launches({"i16": n_gops})}
     if p_launches != want:
         raise AssertionError(f"IPPP launches {p_launches}, expected {want}")
@@ -3197,8 +3357,8 @@ def main() -> int:
     frames = content(N_SESSION, W, H)
     Encoder(W, H, cfg, device=dev).encode_sequence(frames[:2])  # warm-up
     torch.cuda.synchronize()
-    counted = (i16_frame, i16_recon, deblock_frame, integer_score_map,
-               qpel_refine_maps, pframe_decide, mc_bulk, *k10, *k11)
+    counted = (i16_frame, i16_recon, deblock_frame, interp_planes, integer_score_map,
+               qpel_refine_maps, pframe_decide, mc_bulk, residual_recon, *k10, *k11)
     for fn in counted:
         fn.launches = 0
     enc = Encoder(W, H, cfg, device=dev)
@@ -3214,8 +3374,9 @@ def main() -> int:
     n_idr = sum(st["idr"] for st in enc.stats)
     n_p = N_SESSION - n_idr
     want = {"i16_frame": n_idr, "i16_recon": 0, "deblock_frame": N_SESSION,
-            "integer_score_map": n_p, "qpel_refine_maps": n_p,
-            "pframe_decide": n_p, "mc_bulk": n_p, **k10_launches({"i16": n_idr, "p": n_p}),
+            "interp_planes": n_p, "integer_score_map": n_p, "qpel_refine_maps": n_p,
+            "pframe_decide": n_p, "mc_bulk": n_p, "residual_recon": n_p,
+            **k10_launches({"i16": n_idr, "p": n_p}),
             **k11_launches({"i16": n_idr})}
     if s_launches != want or n_idr != N_SESSION // SESSION_INTRA_EVERY:
         raise AssertionError(f"session launches {s_launches} with {n_idr} IDRs, "
@@ -3272,8 +3433,9 @@ def main() -> int:
     print(f"[phase 9 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- 10. host path ----------------------------------------------------
     frames = content(N_HOST, W, H)
-    stream, recon, host_launches, host_state, frame_s, k8_s, stats = host_path(
+    stream, recon, host_runs, host_state, frame_s, k8_s, stats = host_path(
         torch, dev, frames)
+    host_launches = host_runs["deblock_frame"]
     if host_launches != N_HOST:
         raise AssertionError(f"host path: K8 launched {host_launches} times for "
                              f"{N_HOST} frames")
@@ -3281,8 +3443,8 @@ def main() -> int:
     k8_host, _ = check_k8(torch, f"{W}x{H} host P state", host_state, QP)
     print(f"host path: {N_HOST} frames {W}x{H} QP{QP} deblock ({sum(s['idr'] for s in stats)} "
           f"IDR), {len(stream)} bytes, parses; K8 {host_launches / N_HOST:g} launches per "
-          f"frame, == plain on the last P frame's state; e2e fps {N_HOST / sum(frame_s):.4f} "
-          f"on {name}", flush=True)
+          f"frame, K13 {host_runs['interp_planes']} (one a P frame), == plain on the last P "
+          f"frame's state; e2e fps {N_HOST / sum(frame_s):.4f} on {name}", flush=True)
     for i, (fs, ks, st) in enumerate(zip(frame_s, k8_s, stats)):
         print(f"host frame {i} ({'IDR' if st['idr'] else 'P'}, {st['bytes']} bytes, mb types "
               f"{st['mb_types']}): {fs:.2f} s, host loop {fs - ks:.2f} s, K8 call "
@@ -3338,7 +3500,7 @@ def main() -> int:
     print(f"[phase 11 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- 12. P-frame bands -----------------------------------------------
     t0 = time.perf_counter()
-    k4b, k4b_launches = p_band_phase(torch, dev, name, to_decode)
+    k4b, band_p_launches, band_p_errs = p_band_phase(torch, dev, name, to_decode)
     print(f"P-band phase: {time.perf_counter() - t0:.1f} s on {name}", flush=True)
 
     print(f"[phase 12 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
@@ -3399,8 +3561,18 @@ def main() -> int:
             ("wavefront_mixed_band", "h264_fer_tpu/kernels/wavefront_mixed.py:54")):
         rows.append((kname, replaces, band_launches[kname],
                      max(bk[q][kname][0] for q in CHECK_QPS), bk[QP][kname][1:]))
-    rows.append(("wavefront_p_band", "h264_fer_tpu/kernels/wavefront_p.py:177", k4b_launches,
-                 max(k4b[q][0] for q in P_QPS), k4b[QP][1:]))
+    rows.append(("wavefront_p_band", "h264_fer_tpu/kernels/wavefront_p.py:177",
+                 band_p_launches["pframe_decide_band"], max(k4b[q][0] for q in P_QPS),
+                 k4b[QP][1:]))
+    # K12 and K13: their launches on the IPPP path, errors over phase 4's
+    # inputs (every tier, the small grids, check_k12_k13's) and phase 12's bands
+    for kname, stage, wrapper, replaces in (
+            ("residual_p", "residual_recon", "residual_recon",
+             "h264_fer_tpu/codec/tpu_pframe.py:343"),
+            ("interp", "interp", "interp_planes", "h264_fer_tpu/ops/interp.py:131")):
+        rows.append((kname, replaces, p_launches[wrapper],
+                     max(k1213[stage], band_p_errs[stage], *(pk[q][stage][0] for q in P_QPS)),
+                     pk[QP][stage][1:]))
     rows.append(("me_topk", "h264_fer_tpu/ops/me.py:56", me_launches["topk_candidates"],
                  max(k9_errs), k9[1:6]))
     # K10 by form: its launches on the all-intra (i16), IPPP (P) and mixed
@@ -3441,6 +3613,12 @@ def main() -> int:
             kernels[-1]["decode_launches"] = decoded["session"][2]
         if kname == "me_int":  # K2 also searches the --tpu-me path's candidates
             kernels[-1]["me_topk_path_launches"] = me_launches["integer_score_map"]
+        if kname in ("residual_p", "interp"):  # one a band a P frame on the band paths
+            kernels[-1]["band_launches"] = band_p_launches[
+                "residual_recon" if kname == "residual_p" else "interp_planes"]
+        if kname == "interp":  # one a host P frame on the host and --tpu-me paths
+            kernels[-1]["host_launches"] = host_runs["interp_planes"]
+            kernels[-1]["me_topk_path_launches"] = me_launches["interp_planes"]
         k10_form = {kn: form for form, (kn, _) in K10_ROWS.items()}.get(kname)
         if k10_form:  # K10's queued ms includes its workspace fill
             kernels[-1]["fill_queued_ms"] = k10_fills[k10_form]

@@ -238,8 +238,7 @@ class HostEncoder:
         planes as they lie on the device."""
         self._interp_ext = self.cfg.window_size // 2 + 2
         self._interp_extc = self._interp_ext // 2 + 1
-        ref = torch.from_numpy(self.ref_y).to(self.device)
-        planes = interpolated_planes(ref, self._interp_ext)
+        planes = interpolated_planes(upload(self.ref_y, self.device), self._interp_ext)
         self._interp = planes.cpu().numpy()
         self._interp_cb, self._interp_cr = (
             pad_chroma(torch.from_numpy(p), self._interp_extc).numpy()

@@ -11,9 +11,10 @@ that checkout's kernels, times K2, K3, K4, K5, K6, K4x4, K1t, K1, K7
 P-frame state), K9 (the top-16 of K2's SAD map, metric 0 at window 8,
 of the content pair's second luma plane against the first, edge-padded)
 and, where the checkout has them, K10 in each form (on the slices of
-chip_smoke.k10_frame_args) and K11 in each form (the I16 and the full
+chip_smoke.k10_frame_args), K11 in each form (the I16 and the full
 mode decision of the content frame's uint8 luma plane, as the paths pass
-it) with CUDA events at 1920x1088, QP 28, on
+it), K12 and K13 (on the chained P frame's residual / recon and reference
+plane) with CUDA events at 1920x1088, QP 28, on
 chip_smoke.py's inputs (K2-K5 on the chained P frame), and reports a
 checksum of each kernel's outputs, so that the turns also show both
 checkouts compute the same function (a kernel one checkout lacks is
@@ -22,8 +23,12 @@ kernel is timed two ways, with the same code in both checkouts: "queued",
 its calls issued behind a kernel that spins the card (the device's time
 for the work, back to back), and "paced", its calls issued one after
 another as the host gets to them (what the path sees when the host
-issues more slowly than the card runs).
-Prints one line per turn and two per kernel.
+issues more slowly than the card runs). A queued time is the device's
+only where the spin outlasted the host's issue of every call: each
+queued time comes with the host's issue time a call and whether the
+spin covered it (its start event still pending once the last call was
+issued).
+Prints one line per turn and three per kernel.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ import subprocess
 import sys
 
 TURN = r'''
-import json, sys
+import importlib.util, json, sys, time
 sys.path.insert(0, ".")
 import torch
 import chip_smoke as cs
@@ -69,21 +74,24 @@ sad_map = integer_score_map(pair[1][0], edge_pad(pair[0][0], cs.WINDOW).contiguo
 
 
 def timed(fn, reps, queued):
-    """Mean ms of fn() over reps calls between two CUDA events: a copy of
-    chip_smoke.cuda_ms (queued / paced), kept only while the checkout
-    compared with may lack cuda_ms's `queued` option; once both have it,
-    call cs.cuda_ms and delete this copy."""
+    """(mean ms of fn() over reps calls between two CUDA events, the host's
+    ms a call to issue them, whether the spin was still running when the
+    last was issued): chip_smoke.cuda_ms's queued / paced timing at its
+    first spin length, the same code in both checkouts."""
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     if queued:
         torch.cuda._sleep(198_000 * reps)  # chip_smoke.QUEUE_CYCLES_PER_REP
     start.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
+    issue_ms = (time.perf_counter() - t0) * 1e3 / reps
+    covered = not start.query()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, issue_ms, covered
 
 
 runs = {
@@ -108,18 +116,27 @@ if hasattr(cs, "k10_frame_args"):  # a checkout with K10
 if hasattr(cs, "k11_functions"):  # a checkout with K11
     for form, (fn, _, _) in cs.k11_functions().items():
         runs[f"K11 {form}"] = (lambda fn=fn: fn(y, cs.QP), 20)
+if importlib.util.find_spec("h264_fer_tpu_torch.kernels.residual_p"):  # K12 and K13
+    from h264_fer_tpu_torch.kernels.interp import interp_planes
+    from h264_fer_tpu_torch.kernels.residual_p import residual_recon
+    runs["K12"] = (lambda: residual_recon(*args["residual_recon"]), 20)
+    runs["K13"] = (lambda: interp_planes(*args["interp"]), 20)
 out = {}
 for name, (fn, reps) in runs.items():
     res = fn()
     ts = list(res.values()) if isinstance(res, dict) else list(res)
+    ts = [v for t in ts for v in (t.values() if isinstance(t, dict) else [t])]
     digest = sum(int(t.to(torch.int64).sum()) * (i + 1) for i, t in enumerate(ts))
-    out[name] = (timed(fn, reps, True), timed(fn, reps, False), digest)
+    queued_ms, issue_ms, covered = timed(fn, reps, True)
+    out[name] = (queued_ms, timed(fn, reps, False)[0], digest, issue_ms, covered)
 print("RESULT " + json.dumps(out), flush=True)
 '''
 
 
 def turn(root: str) -> dict:
-    """{kernel: (queued ms, paced ms, checksum)} of the checkout at `root`."""
+    """{kernel: (queued ms, paced ms, checksum, host issue ms a call of the
+    queued timing, whether its spin covered the issue)} of the checkout at
+    `root`."""
     proc = subprocess.run([sys.executable, "-c", TURN], cwd=root, capture_output=True,
                           text=True)
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
@@ -147,6 +164,9 @@ def main(argv) -> int:
                   for lab in ("other", "this")}
             print(f"{name} {how}: "
                   + ", ".join(f"{lab} {f'{v} ms' if v else 'absent'}" for lab, v in ms.items()))
+        print(f"{name} queued issue ms a call (covered by the spin): "
+              + ", ".join(f"{lb} {r[name][3]:.4f} ({r[name][4]})"
+                          for lb, r in results if name in r))
         absent = sorted({lab for lab, r in results if name not in r})
         same = len({r[name][2] for _, r in results if name in r}) == 1
         print(f"{name}: outputs equal across checkouts: {same}"

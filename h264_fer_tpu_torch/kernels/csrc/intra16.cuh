@@ -263,7 +263,7 @@ __device__ void chroma_mb(const uint8_t* __restrict__ cbs,
   if (t < 8) {
     const int a = s.r[k * 4 + i * 2], b = s.r[k * 4 + i * 2 + 1];
     const int fdc = ((j ? a - b : a + b) + 2) >> 2;
-    s.v[t] = (((fdc * 32) >> (qpc / 6)) * tab.lq[0] + 16384) >> 15;
+    s.v[t] = quant_dc_chroma(fdc, qpc, tab.lq[0]);
     if (cdc) cdc[k * nmb * 4 + i * 2 + j] = s.v[t];
   }
   group_sync(bar, 128);
@@ -274,7 +274,7 @@ __device__ void chroma_mb(const uint8_t* __restrict__ cbs,
   group_sync(bar, 128);
   if (t < 8) {
     const int a = s.r[k * 4 + i * 2], b = s.r[k * 4 + i * 2 + 1];
-    s.dcv[t] = ((j ? a - b : a + b) * tab.ls[0] * pow2(qpc / 6)) >> 5;
+    s.dcv[t] = scale_dc_chroma(j ? a - b : a + b, qpc, tab.ls[0]);
   }
   group_sync(bar, 128);
   // dequantised coefficients (DC from the DC path), inverse transform

@@ -73,12 +73,6 @@ __device__ __forceinline__ void load_pred_table(I4Scratch& sc, const int32_t* ta
   for (int i = tid; i < 144; i += nthreads) sc.pred[i] = table[i];
 }
 
-// zig-zag index of raster position i (0..15) of a 4x4 block, from a
-// register constant (INV_ZIGZAG_FLAT, four bits each)
-__device__ __forceinline__ int inv_zigzag(int i) {
-  return (int)((0xFEA9DB83C7426510ull >> (4 * i)) & 15);
-}
-
 // The do-nothing hook of i4x4_mb's steps (K6 runs it so: the code
 // compiles as if there were no hook). A hook with kActive true (K4x4's
 // EdgeHook, csrc/wavefront_i4x4.cu) takes over the MB's neighbour samples: i4x4_mb then leaves row 0 and column 0

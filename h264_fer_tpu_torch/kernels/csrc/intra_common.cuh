@@ -77,6 +77,29 @@ __device__ __forceinline__ int inv_step(int j, int d0, int d1, int d2, int d3) {
   return j < 2 ? u + v : u - v;
 }
 
+// quantisationChromaDC (quantizationTransform.cpp:264-282) of one
+// forward-Hadamard output f (already (.. + 2) >> 2)
+__device__ __forceinline__ int quant_dc_chroma(int f, int qp, int lq0) {
+  return (((f * 32) >> (qp / 6)) * lq0 + 16384) >> 15;
+}
+
+// scaleChromaDC (scaleTransform.cpp:408-445) of one inverse-Hadamard output
+__device__ __forceinline__ int scale_dc_chroma(int f, int qp, int ls0) {
+  return (f * ls0 * pow2(qp / 6)) >> 5;
+}
+
+// zig-zag index of raster position i (0..15) of a 4x4 block, from a
+// register constant (INV_ZIGZAG_FLAT, four bits each)
+__device__ __forceinline__ int inv_zigzag(int i) {
+  return (int)((0xFEA9DB83C7426510ull >> (4 * i)) & 15);
+}
+
+// raster position of zig-zag index k (0..15) of a 4x4 block (ZIGZAG_FLAT,
+// four bits each): with k known at compile time, an index into registers
+__device__ __forceinline__ int zigzag(int k) {
+  return (int)((0xFEB7ADC963258410ull >> (4 * k)) & 15);
+}
+
 // LEVEL_QUANTIZE / LEVEL_SCALE of one QP in the 3-value pattern:
 // [0] (even, even), [1] (odd, odd), [2] mixed position parity.
 struct QpTab {
@@ -99,5 +122,9 @@ __constant__ int kInvZigzag[16] = {0, 1, 5, 6, 2, 4, 7, 12,
 // raster 4x4 block of an MB (4 * row + column) → its Z-scan index
 __constant__ int kRasterToZ[16] = {0, 1, 4, 5, 2, 3, 6, 7,
                                    8, 9, 12, 13, 10, 11, 14, 15};
+
+// The column and row (in 4x4 blocks) of Z-scan block z of an MB.
+__device__ __forceinline__ int z_col(int z) { return ((z >> 2) & 1) * 2 + (z & 1); }
+__device__ __forceinline__ int z_row(int z) { return ((z >> 3) & 1) * 2 + ((z >> 1) & 1); }
 
 }  // namespace

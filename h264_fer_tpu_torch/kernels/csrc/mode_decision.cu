@@ -107,10 +107,6 @@ __device__ __forceinline__ int block_satd(const int (&d)[16], int qp, const int 
   return sum;
 }
 
-// The column and row (in 4x4 blocks) of Z-scan block z of an MB.
-__device__ __forceinline__ int z_col(int z) { return ((z >> 2) & 1) * 2 + (z & 1); }
-__device__ __forceinline__ int z_row(int z) { return ((z >> 3) & 1) * 2 + ((z >> 1) & 1); }
-
 // Sample x of the source row above MB row r (y0 its first sample row): the
 // plane's row y0 - 1, or top_row on the first MB row (-1 without one), -1
 // beyond the plane's width W.

@@ -48,6 +48,8 @@ The plain wavefronts and the levels run the per-MB functions
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -165,11 +167,15 @@ def chroma_recon_plain(cb, cr, cmodes, qpc: int, top=None):
     return cpad[0, 1:, 1:].to(torch.uint8), cpad[1, 1:, 1:].to(torch.uint8)
 
 
+@functools.lru_cache(maxsize=None)
 def qtab(qp: int) -> np.ndarray:
     """LEVEL_QUANTIZE and LEVEL_SCALE of qp in the 3-value pattern (even,
-    even), (odd, odd), mixed: the 6 ints of the kernels' QpTab."""
-    return np.array([int(t[qp % 6][i, j]) for t in (LEVEL_QUANTIZE, LEVEL_SCALE)
-                     for i, j in ((0, 0), (1, 1), (0, 1))], dtype=np.int32)
+    even), (odd, odd), mixed: the 6 ints of the kernels' QpTab, read-only
+    and made once per qp (the wrappers pass it on every launch)."""
+    tab = np.array([int(t[qp % 6][i, j]) for t in (LEVEL_QUANTIZE, LEVEL_SCALE)
+                    for i, j in ((0, 0), (1, 1), (0, 1))], dtype=np.int32)
+    tab.flags.writeable = False
+    return tab
 
 
 def _check_planes(y, cb, cr, modes, cmodes):

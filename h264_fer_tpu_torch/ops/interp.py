@@ -15,15 +15,23 @@ window of the band bit for bit.
 
 The arithmetic is int32; every plane value lies in 0..255, so the planes
 are returned as uint8 (a quarter of the bytes for the kernels that read
-them). Elementwise work only, in plain PyTorch, as the reference computes
-it outside any Pallas kernel. mc_macroblock_from_planes is the decoder's
-host-side (numpy) MC of one MB from these planes.
+them). interpolated_planes and interpolated_planes_banded dispatch on the
+reference's device: a CPU tensor goes to their plain twins
+(interpolated_planes_plain, interpolated_planes_banded_plain, elementwise
+PyTorch, as the reference computes the planes outside any Pallas kernel),
+a CUDA tensor to K13 (kernels/interp.py, one launch), and any other device
+raises. The padded chroma stays plain PyTorch on every device.
+mc_macroblock_from_planes is the decoder's host-side (numpy) MC of one MB
+from these planes.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..kernels.interp import interp_planes
+from .device import on_card
 
 
 def edge_pad(x, n: int, rows: bool = True):
@@ -75,20 +83,39 @@ def _planes(P, h: int, w: int, ext: int):
 
 def interpolated_planes(ref, ext: int = 0):
     """(16, H + 2 ext, W + 2 ext) uint8 planes of the (H, W) reference
-    plane `ref` (any integer dtype): planes[frac][ext + y][ext + x] is the
-    prediction sample of integer position (x, y) at that frac."""
-    h, w = ref.shape
-    # ext for the MV range, 3 taps, 1 for the x+1 / y+1 averages
-    return _planes(edge_pad(ref.to(torch.int32), ext + 4), h, w, ext)
+    plane `ref`: planes[frac][ext + y][ext + x] is the prediction sample of
+    integer position (x, y) at that frac. K13 for a uint8 CUDA plane, the
+    plain twin for a CPU one."""
+    if on_card(ref):
+        return interp_planes(ref, ext)
+    return interpolated_planes_plain(ref, ext)
 
 
 def interpolated_planes_banded(ref_v, ext: int = 0):
     """The planes of an MB-row band, (16, hb + 2 ext, W + 2 ext) uint8, from
     ref_v (hb + 2 (ext + 4), W): the band's reference rows with ext + 4 rows
     of the band above and of the band below around them (at a frame edge,
-    the band's edge row repeated). Pads only horizontally, so the planes
-    are the row window of interpolated_planes(frame, ext) that covers the
-    band (interpolated_planes_banded_jax)."""
+    the band's edge row repeated); the row window of
+    interpolated_planes(frame, ext) that covers the band
+    (interpolated_planes_banded_jax). K13 for a uint8 CUDA plane, the
+    plain twin for a CPU one."""
+    if on_card(ref_v):
+        return interp_planes(ref_v, ext, band=True)
+    return interpolated_planes_banded_plain(ref_v, ext)
+
+
+def interpolated_planes_plain(ref, ext: int = 0):
+    """interpolated_planes in elementwise torch, on any device; ref of any
+    integer dtype."""
+    h, w = ref.shape
+    # ext for the MV range, 3 taps, 1 for the x+1 / y+1 averages
+    return _planes(edge_pad(ref.to(torch.int32), ext + 4), h, w, ext)
+
+
+def interpolated_planes_banded_plain(ref_v, ext: int = 0):
+    """interpolated_planes_banded in elementwise torch, on any device: pads
+    only horizontally, so the planes are the row window of the frame
+    planes that covers the band."""
     pad = ext + 4
     hv, w = ref_v.shape
     return _planes(edge_pad(ref_v.to(torch.int32), pad, rows=False), hv - 2 * pad, w, ext)

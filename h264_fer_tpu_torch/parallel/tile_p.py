@@ -156,12 +156,12 @@ class _PBands(_Bands, GopIpppEncoder):
                                           dec["mb_type"][-wmb:]).to(I32),
                          "run": torch.stack([last, ent["nbits"] + bits]),
                          **_last_row_state(ent, wmb)}
+                # on the lane's stream, which orders it after the recon
+                u8 = torch.uint8
+                recon = {"recon_y": ry.to(u8), "recon_cb": rcb.to(u8), "recon_cr": rcr.to(u8)}
                 event = lane.record()
-            u8 = torch.uint8
             outs.append({"words": ent["words"], "nbits": ent["nbits"], "halo": above,
-                         "skip": dec["skip"],
-                         "out": {"recon_y": ry.to(u8), "recon_cb": rcb.to(u8),
-                                 "recon_cr": rcr.to(u8), "mv": dec["mv"]}})
+                         "skip": dec["skip"], "out": {**recon, "mv": dec["mv"]}})
         # the frame's trailing run and the drop's inputs, on the last lane
         with band_lanes[-1].queue():
             last, bits = above["run"]

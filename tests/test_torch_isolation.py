@@ -131,13 +131,15 @@ def test_multi_device_encoders_leave_jax_out_of_sys_modules():
 
 
 KERNEL_MODULES = ("wavefront_i16", "me_int", "me_qpel", "wavefront_p", "mc", "wavefront_i4x4",
-                  "wavefront_mixed", "deblock", "me_topk", "cavlc_slice", "mode_decision")
+                  "wavefront_mixed", "deblock", "me_topk", "cavlc_slice", "mode_decision",
+                  "residual_p", "interp")
 
 
 @pytest.mark.parametrize("module", KERNEL_MODULES)
 def test_kernel_module_imports_without_a_build(module):
     """Each kernel wrapper module (K10: cavlc_slice, its source
-    csrc/cavlc_slice.cu; K11: mode_decision, csrc/mode_decision.cu) imports
+    csrc/cavlc_slice.cu; K11: mode_decision, csrc/mode_decision.cu; K12:
+    residual_p, csrc/residual_p.cu; K13: interp, csrc/interp.cu) imports
     on a machine without nvcc and builds nothing until a launch;
     chip_smoke.py builds every source."""
     import chip_smoke

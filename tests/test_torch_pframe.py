@@ -29,7 +29,8 @@ from h264_fer_tpu_torch.codec import pframe as tp
 from h264_fer_tpu_torch.codec.entropy import p_slice_entropy
 from h264_fer_tpu_torch.kernels import mc, me_int, me_qpel, wavefront_p
 from h264_fer_tpu_torch.ops.cavlc_bulk import words_to_bytes
-from h264_fer_tpu_torch.ops.interp import interpolated_planes, pad_chroma
+from h264_fer_tpu_torch.ops.interp import (interpolated_planes, interpolated_planes_plain,
+                                           pad_chroma)
 
 torch.set_num_threads(1)
 
@@ -126,9 +127,10 @@ def _case(cases, geom, qp, flat=False):
 def test_interpolated_planes_and_pad_chroma(cases, geom, qp):
     c = _case(cases, geom, qp)
     ext = geom[2] + 2
-    planes = interpolated_planes(_t(c["ref"][0]), ext)
+    planes = interpolated_planes_plain(_t(c["ref"][0]), ext)
     assert planes.dtype == torch.uint8
     _eq(planes, c["planes"])
+    assert torch.equal(interpolated_planes(_t(c["ref"][0]), ext), planes)  # the dispatcher
     ext_c = ext // 2 + 1
     _eq(pad_chroma(_t(c["ref"][1]), ext_c),
         pad_chroma_jax(jnp.asarray(c["ref"][1]), ext_c))
@@ -310,27 +312,29 @@ def _levels_and_entropy(c, geom, qp, prefilter):
     src = [jnp.asarray(p, jnp.int32) for p in c["src"]]
     ref = _jax_residual_recon(*src, *pred, jnp.asarray(dec["skip"]), c["md"],
                               wmb, hmb, qp, qpc, prefilter)
-    got = tp.pframe_residual_recon(*(_t(p) for p in c["src"]),
-                                   *(_t(p) for p in pred), _t(dec["skip"]),
-                                   _t(c["md"]), wmb, hmb, qp, qpc, prefilter)
-    return dec, ref, got
+    args = (*(_t(p) for p in c["src"]), *(_t(p) for p in pred), _t(dec["skip"]),
+            _t(c["md"]), wmb, hmb, qp, qpc, prefilter)
+    return dec, ref, tp.pframe_residual_recon_plain(*args), args
 
 
 @pytest.mark.parametrize("geom,qp,prefilter", [(GEOMS[1], 28, True),
                                                (GEOMS[1], 40, False),
                                                (GEOMS[1], 46, True)])
 def test_pframe_residual_recon_matches_jax(cases, geom, qp, prefilter):
-    _, ref, got = _levels_and_entropy(_case(cases, geom, qp), geom, qp, prefilter)
+    _, ref, got, args = _levels_and_entropy(_case(cases, geom, qp), geom, qp, prefilter)
     for key in ("luma", "cdc", "cac"):
         _eq(got[0][key], ref[0][key], key)
     for k in (1, 2, 3):
         _eq(got[k], ref[k], f"recon {k}")
+    disp = tp.pframe_residual_recon(*args)  # the dispatcher: CPU tensors take the twin
+    assert all(torch.equal(disp[0][k], got[0][k]) for k in got[0])
+    assert all(torch.equal(a, b) for a, b in zip(disp[1:], got[1:]))
 
 
 @pytest.mark.parametrize("geom,qp", [(GEOMS[1], qp) for qp in QPS])
 def test_p_slice_entropy_matches_jax(cases, geom, qp):
     w, h, _ = geom
-    dec, ref, got = _levels_and_entropy(_case(cases, geom, qp), geom, qp, qp < 36)
+    dec, ref, got, _ = _levels_and_entropy(_case(cases, geom, qp), geom, qp, qp < 36)
     lv = got[0]
     want = jax_p_entropy(jnp.asarray(dec["skip"]), jnp.asarray(dec["mb_type"]),
                          jnp.asarray(dec["mvd"]), ref[0]["luma"], ref[0]["cdc"],
