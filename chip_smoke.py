@@ -358,10 +358,13 @@ P_QPS = (28, 40, 46)  # SAD, SSD and 2*SSD tiers
 STREAM_BYTES = {"all-intra": 3_227_147, "IPPP": 7_478_701, "mixed": 3_202_684,
                 "session": 7_081_712, "host_me_topk": 844_436}
 # H100 SXM at 700 W: HBM3 rate (data sheet), and the int32 rate of the CUDA
-# cores (H100 whitepaper: 132 SMs x 64 int32 lanes x 1.98 GHz boost); K1's
+# cores: 132 SMs x 128 lanes a clock x 1.98 GHz boost, the SM's issue rate
+# (4 schedulers x 32 lanes), which int32 work reaches with IMAD and dp4a on
+# the FMA pipe beside the 64 INT32 lanes, as the fp32 peak counts 128 lanes
+# a clock (K11's full form runs above the 64-lane rate on the card); K1's
 # work is int32.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+INT32_OPS_PER_S = 132 * 128 * 1.98e9
 
 
 def content(n: int, w: int, h: int, seed: int = SEED):
@@ -1157,8 +1160,10 @@ def check_k12_k13(torch, dev) -> dict:
     1080p QP 28 P frame, the prefilter on and off with MAXDIFF 3 and 255 in
     every MB, and every MB skipped and none; prediction 0 against source
     255 and the reverse at each P QP (the prefilter on below QP 36); K13 on
-    a 0/255 checkerboard reference at windows 8 and 7, the frame and band
-    1 of 4. Returns {stage: max_abs_err}."""
+    a 0/255 checkerboard reference at windows 8 and 7 (rows of W + 2 ext =
+    0 and 2 mod 4 bytes), the frame and the K13_BANDS, each band also
+    against the frame planes' rows, and on rows under 32 bytes and a plane
+    of odd width at an odd address. Returns {stage: max_abs_err}."""
     from h264_fer_tpu_torch.ops.transform import chroma_qp
 
     kern, plain = p_kernels(plain=False), p_kernels(plain=True)
@@ -1188,15 +1193,27 @@ def check_k12_k13(torch, dev) -> dict:
     for window in (WINDOW, 7):
         ext = window + 2
         frame = kern["interp"](board, ext)
-        band = band_reference((board, board[::2, ::2], board[::2, ::2], zero), 1, P_BAND_TILES,
-                              window)[0].contiguous()
-        r0 = H // P_BAND_TILES
-        got = kern["interp_band"](band, ext)
-        err = max(max_err(torch, [frame], [plain["interp"](board, ext)]),
-                  max_err(torch, [got], [plain["interp_band"](band, ext)]),
-                  max_err(torch, [got], [frame[:, r0: 2 * r0 + 2 * ext]]))
-        print(f"interp {W}x{H} checkerboard window {window}, frame and band 1 of "
-              f"{P_BAND_TILES}: max_abs_err {err} (tolerance 0)", flush=True)
+        err = max_err(torch, [frame], [plain["interp"](board, ext)])
+        for n_tile, t in K13_BANDS:
+            band = band_reference((board, board[::2, ::2], board[::2, ::2], zero), t, n_tile,
+                                  window)[0].contiguous()
+            r0 = 16 * (H // 16 // n_tile) * t
+            got = kern["interp_band"](band, ext)
+            err = max(err, max_err(torch, [got], [plain["interp_band"](band, ext)]),
+                      max_err(torch, [got], [frame[:, r0: r0 + got.shape[1]]]))
+        print(f"interp {W}x{H} checkerboard window {window}, frame and bands "
+              + ", ".join(f"{t} of {n}" for n, t in K13_BANDS)
+              + f": max_abs_err {err} (tolerance 0)", flush=True)
+        errs["interp"] = max(errs["interp"], err)
+    # rows under 32 bytes (stored byte by byte), and a plane of odd width at
+    # an odd address (byte reads of the reference)
+    rng = np.random.default_rng(SEED + 13)
+    odd = torch.from_numpy(rng.integers(0, 256, 37 * 51 + 1, dtype=np.uint8)).to(dev)[1:]
+    for label, ref, ext in (("16x16", torch.from_numpy(rng.integers(
+            0, 256, (16, 16), dtype=np.uint8)).to(dev), 3), ("51x37 at an odd address",
+                                                             odd.view(37, 51), 0)):
+        err = max_err(torch, [kern["interp"](ref, ext)], [plain["interp"](ref, ext)])
+        print(f"interp {label} ext {ext}: max_abs_err {err} (tolerance 0)", flush=True)
         errs["interp"] = max(errs["interp"], err)
     if any(errs.values()):
         raise AssertionError(f"K12 / K13 != plain: {errs}")
@@ -2013,6 +2030,10 @@ def multi_device_phase(torch, dev, name, to_decode):
 
 
 P_BAND_TILES = 4  # K4-band's checks: band 1 of 4 bands of 17 MB rows at 1080p
+# K13's bands in check_k12_k13, (bands, band): the P-band paths' band 1 of
+# 4, and bands 1 of 3 and 4 of 6, whose rows K13's grid splits unevenly
+# (band 4 of 6 has fewer rows than the card holds blocks: a block a row)
+K13_BANDS = ((P_BAND_TILES, 1), (3, 1), (6, 4))
 P_BAND_KERNELS = ("interp", "me_int", "me_qpel", "wavefront_p_band", "mc", "residual_recon")
 
 
@@ -2950,8 +2971,6 @@ def check_k11(torch, label: str, y, qp: int, top_row=None, time_it=False) -> dic
     bound_ms, bound_by, queued_ms)} (times None unless time_it, taken on the
     uint8 plane as the paths pass it; every timed call is held to the plain
     output too)."""
-    from h264_fer_tpu_torch.kernels.wavefront_i4x4 import PRED4_TABLE
-
     out = {}
     for form, (fn, plain, _) in k11_functions().items():
         want, plain_ms = timed_once(torch, lambda: k11_outputs(plain(y, qp, top_row)))
@@ -2962,10 +2981,8 @@ def check_k11(torch, label: str, y, qp: int, top_row=None, time_it=False) -> dic
             ms, queued_ms = kernel_ms(torch, lambda: k11_outputs(fn(y, qp, top_row)), 20,
                                       same_as(torch, want, f"K11 {form} {label}"))
             plain_ms = cuda_ms(torch, lambda: plain(y, qp, top_row), 3)
-        # the plane, the row above and (full) the prediction table read once,
-        # every output written once
-        moved = (nbytes(y, *want) + (0 if top_row is None else nbytes(top_row))
-                 + (PRED4_TABLE.nbytes if form == "full" else 0))
+        # the plane and the row above read once, every output written once
+        moved = nbytes(y, *want) + (0 if top_row is None else nbytes(top_row))
         bound_ms, bound_by = bound(moved, k11_ops(qp, y.numel() // 256, form == "full"))
         print(f"K11 {form} {label} qp{qp}: max_abs_err {err} (tolerance 0, every output, "
               "uint8 and int32 planes)"

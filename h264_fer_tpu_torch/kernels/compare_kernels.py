@@ -14,7 +14,11 @@ and, where the checkout has them, K10 in each form (on the slices of
 chip_smoke.k10_frame_args), K11 in each form (the I16 and the full
 mode decision of the content frame's uint8 luma plane, as the paths pass
 it), K12 and K13 (on the chained P frame's residual / recon and reference
-plane) with CUDA events at 1920x1088, QP 28, on
+plane; K13 also as "K13 held", into a fresh output each call, every output
+kept until the timing's end, as chip_smoke.py's kernels line times it,
+where the other rows reuse the freed output, and as "K13 band", band 1 of
+4 of the same reference) with CUDA events at
+1920x1088, QP 28, on
 chip_smoke.py's inputs (K2-K5 on the chained P frame), and reports a
 checksum of each kernel's outputs, so that the turns also show both
 checkouts compute the same function (a kernel one checkout lacks is
@@ -121,14 +125,33 @@ if importlib.util.find_spec("h264_fer_tpu_torch.kernels.residual_p"):  # K12 and
     from h264_fer_tpu_torch.kernels.residual_p import residual_recon
     runs["K12"] = (lambda: residual_recon(*args["residual_recon"]), 20)
     runs["K13"] = (lambda: interp_planes(*args["interp"]), 20)
+    held = []
+
+    def k13_held():
+        held.append(interp_planes(*args["interp"]))
+        return held[-1]
+
+    runs["K13 held"] = (k13_held, 20)
+    # band 1 of 4 of the same reference (tile_p's window), as the P-band paths run it
+    band = cs.band_reference((*pair[1], zero), 1, cs.P_BAND_TILES)[0].contiguous()
+    runs["K13 band"] = (lambda: interp_planes(band, args["interp"][1], band=True), 20)
 out = {}
 for name, (fn, reps) in runs.items():
     res = fn()
     ts = list(res.values()) if isinstance(res, dict) else list(res)
     ts = [v for t in ts for v in (t.values() if isinstance(t, dict) else [t])]
     digest = sum(int(t.to(torch.int64).sum()) * (i + 1) for i, t in enumerate(ts))
+    keep = name == "K13 held"  # its outputs kept: the allocator holds reps of them first
+    if keep:
+        [fn() for _ in range(reps)]
+        held.clear()
     queued_ms, issue_ms, covered = timed(fn, reps, True)
-    out[name] = (queued_ms, timed(fn, reps, False)[0], digest, issue_ms, covered)
+    if keep:
+        held.clear()
+    paced_ms = timed(fn, reps, False)[0]
+    if keep:
+        held.clear()
+    out[name] = (queued_ms, paced_ms, digest, issue_ms, covered)
 print("RESULT " + json.dumps(out), flush=True)
 '''
 

@@ -2,8 +2,6 @@
 // shared by the K1 and K1t wavefronts (both), K7 (chroma; all three in
 // csrc/wavefront_i16.cu) and K6 (the I16 candidate, csrc/wavefront_mixed.cu):
 // the device forms of kernels/wavefront_i16._i16_luma_code and _chroma_code.
-// K11 (csrc/mode_decision.cu) takes the Intra16x16 predictor alone
-// (i16_params, i16_pred).
 //
 // One thread per sample: 256 for the luma, 128 for the chroma (64 of Cb, then
 // 64 of Cr). The source MB is read through a pointer and a row stride, so a

@@ -24,16 +24,25 @@ def _cuda(t) -> None:
                          "the plain twins")
 
 
+# the widest plane row K13 takes: two strips of 120 positions for each of a
+# block's 18 warps (csrc/interp.cu kStrip, kMaxWarps)
+MAX_ROW = 2 * 18 * 120
+
+
 def _check(ref, ext: int, band: bool) -> tuple[int, int]:
     """(he, row_off) of the launch; ValueError unless ref is a contiguous
-    uint8 plane, ext >= 0 and, for a band, ref holds more than
-    the 2 (ext + 4) rows around the band's own."""
+    uint8 plane, ext >= 0, the planes' rows (W + 2 ext) are at most MAX_ROW
+    wide and, for a band, ref holds more than the 2 (ext + 4) rows around
+    the band's own."""
     if (ref.dim() != 2 or not ref.numel() or ref.dtype != torch.uint8
             or not ref.is_contiguous()):
         raise ValueError(f"ref: expected a contiguous uint8 plane, got "
                          f"{ref.dtype} {tuple(ref.shape)}")
     if ext < 0:
         raise ValueError(f"ext {ext} < 0")
+    if ref.shape[1] + 2 * ext > MAX_ROW:
+        raise ValueError(f"rows of {ref.shape[1] + 2 * ext} positions: K13 takes at most "
+                         f"{MAX_ROW}")
     rows = ref.shape[0]
     if not band:
         return rows + 2 * ext, -ext

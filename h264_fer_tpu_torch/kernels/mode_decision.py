@@ -16,10 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.device import const
 from . import build
 from .wavefront_i16 import qtab
-from .wavefront_i4x4 import PRED4_TABLE
 
 I32 = torch.int32
 PLANE_DTYPES = (torch.uint8, torch.int32)
@@ -56,8 +54,7 @@ def _launch(wrapper, y, qp: int, top_row, full: bool):
     nmb = wmb * hmb
     out = torch.empty(((19 if full else 2) * nmb,), dtype=I32, device=y.device)
     build.launch(wrapper, "mode_decision", "mode_decision",
-                 (y, int(y.dtype == torch.uint8), top_row,
-                  const(PRED4_TABLE, y.device) if full else None, out, wmb, hmb, qp,
+                 (y, int(y.dtype == torch.uint8), top_row, int(full), out, wmb, hmb, qp,
                   qtab(qp)), y.device)
     return out, nmb
 

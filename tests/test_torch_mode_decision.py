@@ -55,8 +55,15 @@ def test_equal_satd_takes_first_mode():
 # --- K11 (kernels/mode_decision.py, csrc/mode_decision.cu) -------------------
 
 PRED4 = intra.packed_mode_table()
-GATE4 = (0, 1, 2, 0, 3, 3, 3, 0, 1)  # mode_decision.cu kGate4: top, left, none, corner
-UNREAD = 10 ** 6  # ext cells the kernel leaves unwritten
+GATE4 = (0, 1, 2, 0, 3, 3, 3, 0, 1)  # mode_decision.cu gate4: top, left, none, corner
+KWARPS = 4  # mode_decision.cu: warps a block, two MBs a warp
+
+
+def _kernel_table() -> np.ndarray:
+    """kPred4, the Intra4x4 table compiled into csrc/mode_decision.cu."""
+    text = (build.CSRC / "mode_decision.cu").read_text()
+    body = text[text.index("kPred4[144] = {") + len("kPred4[144] = {"):]
+    return np.array([int(v, 16) for v in body[:body.index("}")].split(",")], np.int64)
 
 
 def _fwd_step(i, v0, v1, v2, v3):
@@ -67,129 +74,147 @@ def _fwd_step(i, v0, v1, v2, v3):
     return ((odd if i & 1 else even) + 512) >> 10
 
 
-def _block_satd(d, qp, lq):
+def _quant(qp, lq):
+    """mode_decision.cu make_quant: (s, mul[3], add[3])."""
+    if qp < 24:
+        return 0, [v * (1 << (4 - qp // 6)) for v in lq], [16384 - (1 << (3 - qp // 6)) * v
+                                                             for v in lq]
+    return qp // 6 - 4, list(lq), [16384] * 3
+
+
+def _block_satd(d, q):
     """mode_decision.cu block_satd on int32 arrays d[k] (k = 4 y + x), with
     int32 wrap-around as on the card."""
+    s, mul, add = q
     a = [np.where(v == 0, 0, v * 64 - 32).astype(np.int32) for v in d]
     f = [None] * 16
     for x in range(4):
         for i in range(4):
             f[4 * i + x] = _fwd_step(i, a[x], a[4 + x], a[8 + x], a[12 + x])
-    total = 0
+    total = np.int32(0)
     for y in range(4):
         for j in range(4):
-            coef = _fwd_step(j, *f[4 * y: 4 * y + 4])
-            lqv = np.int32(lq[0 if not (y | j) & 1 else 1 if y & j & 1 else 2])  # pat
-            if qp < 24:
-                q = ((coef * np.int32(1 << (4 - qp // 6)) - np.int32(1 << (3 - qp // 6)))
-                     * lqv + 16384) >> 15
-            else:
-                q = ((coef >> (qp // 6 - 4)) * lqv + 16384) >> 15
-            total = total + np.abs(q)
+            k = 0 if not (y | j) & 1 else 1 if y & j & 1 else 2  # pat
+            v = (((_fwd_step(j, *f[4 * y: 4 * y + 4]) >> s) * np.int32(mul[k]))
+                 + np.int32(add[k])) >> 15
+            total = total + np.abs(v).astype(np.int32)
     return total.astype(np.int32)
 
 
-def _taps(code, rep):
-    """intra4x4.cuh pack_taps."""
-    taps = ((code >> 12) & 0x3FF) << 21
-    for k in range(3):
-        idx = (code >> (4 * k)) & 15
-        row = idx if 1 <= idx <= 4 else 0
-        col = 0 if idx < 5 else (4 if rep and idx >= 9 else idx - 4)
-        taps |= (row * 21 + col) << (7 * k)
-    return taps
-
-
-def _k11_model(y, qp, top_row=None):
-    """A numpy model of K11 (csrc/mode_decision.cu), its threads vectorised
-    over the MBs: the staged ext cells (rows 1-16, columns 17-20 left
-    unwritten), each (mode, block) thread's prediction from them (the
-    Intra16x16 predictor's parameters; Intra4x4's packed taps with the
-    replica rule) and SATD, the gates and the first-min scans. Returns the
-    full form's dict."""
+def _k11_model(y, qp, top_row=None, full=True):
+    """A numpy model of K11 (csrc/mode_decision.cu), lane by lane over the
+    grid's warps (a half-warp an MB in raster order, a half past the last MB
+    scoring it again and writing nothing; a lane a raster 4x4 block): each
+    lane's 16 source and 13 neighbour samples, the Intra16x16 sums by xor
+    shuffles within the half-warp and the MB's top and left by shuffles, the
+    modes' predictions (Intra4x4 from kPred4's three taps) and SATDs, the
+    gates and first-min choices, and the writes into the kernel's one
+    buffer, each int exactly once. Returns the twin's dict of the form."""
     h, w = y.shape
     wmb, hmb = w // 16, h // 16
     nmb = wmb * hmb
-    lq = wavefront_i16.qtab(qp)[:3]
-    y = y.astype(np.int32)
-    above = np.full((hmb, w + 4), -1, np.int32)
-    above[1:, :w] = y[15:h - 1:16]
-    if top_row is not None:
-        above[0, :w] = top_row
-    ext = np.full((hmb, wmb, 17, 21), UNREAD, np.int32)
-    ext[:, :, 0, 1:] = np.stack([above[:, 16 * c: 16 * c + 20] for c in range(wmb)], 1)
-    ext[:, :, 0, 0] = -1
-    ext[:, 1:, 0, 0] = above[:, 15:w - 1:16]
-    tiles = y.reshape(hmb, 16, wmb, 16).transpose(0, 2, 1, 3)
-    ext[:, :, 1:, 1:17] = tiles
-    ext[:, :, 1:, 0] = -1
-    ext[:, 1:, 1:, 0] = tiles[:, :-1, :, 15]
-    ext = ext.reshape(nmb, 17, 21)
-    last_col = (np.arange(nmb) % wmb) == wmb - 1
-    flat = ext.reshape(nmb, -1)
-    top, left, corner = ext[:, 0, 1:17], ext[:, 1:, 0], ext[:, 0, 0]
-    # Intra16x16: i16_params, then 4 x 16 (mode, block) threads
-    st, sl = top.sum(1), left.sum(1)
-    hg = sum((i + 1) * (top[:, 8 + i] - (corner if i == 7 else top[:, 6 - i])) for i in range(8))
-    vg = sum((i + 1) * (left[:, 8 + i] - (corner if i == 7 else left[:, 6 - i])) for i in range(8))
-    dcv = np.where(corner != -1, (st + sl + 16) >> 5, np.where(
-        left[:, 0] != -1, (sl + 8) >> 4, np.where(top[:, 0] != -1, (st + 8) >> 4, 128)))
-    pa, pb, pc = (left[:, 15] + top[:, 15]) * 16, (5 * hg + 32) >> 6, (5 * vg + 32) >> 6
-    zxy = [(4 * (((z >> 2) & 1) * 2 + (z & 1)), 4 * (((z >> 3) & 1) * 2 + ((z >> 1) & 1)))
-           for z in range(16)]
-    d16 = []  # per (mode, block) thread: the residual, (16 samples, nmb)
+    q = _quant(qp, wavefront_i16.qtab(qp)[:3])
+    pairs = -(-nmb // (2 * KWARPS)) * KWARPS
+    pair = np.arange(pairs)[:, None]
+    pair = pair[2 * pair[:, 0] < nmb]  # the warps past the last MB return
+    lane = np.arange(32)[None, :]
+    hh, base = lane & 15, lane & 16
+    live = 2 * pair + (lane >> 4) < nmb
+    mb = np.where(live, 2 * pair + (lane >> 4), nmb - 1)
+    c = mb % wmb
+    i, j = hh & 3, hh >> 2
+    bx, by = 16 * c + 4 * i, 16 * (mb // wmb) + 4 * j
+    plane = y.astype(np.int32)
+    row = None if top_row is None else np.asarray(top_row, np.int32)
+
+    def sample(x, yy):
+        inside = (x >= 0) & (x < w)
+        v = np.where(inside & (yy >= 0), plane[np.clip(yy, 0, h - 1), np.clip(x, 0, w - 1)], -1)
+        if row is not None:
+            v = np.where(inside & (yy < 0), row[np.clip(x, 0, w - 1)], v)
+        return v
+
+    def shfl(v, src):
+        return np.take_along_axis(v, np.broadcast_to(src, v.shape), axis=1)
+
+    def half_sum(v):
+        for off in (8, 4, 2, 1):
+            v = v + shfl(v, lane ^ off)
+        return v
+
+    src = [plane[by + (k >> 2), bx + (k & 3)] for k in range(16)]
+    p = [sample(bx - 1, by - 1)] + [sample(bx - 1, by + k) for k in range(4)] + \
+        [sample(bx + k, by - 1) for k in range(4)]
+    top = [shfl(p[5 + k], base + i) for k in range(4)]
+    left = [shfl(p[1 + k], base + 4 * j) for k in range(4)]
+    corner, top0, left0 = (shfl(p[k], base) for k in (0, 5, 1))
+    top15, left15 = shfl(p[8], base + 3), shfl(p[4], base + 12)
+    st = half_sum(sum(np.where(j == 0, p[5 + k], 0) for k in range(4)))
+    sl = half_sum(sum(np.where(i == 0, p[1 + k], 0) for k in range(4)))
+    hg = half_sum(sum(np.where(j == 0, (4 * i + k - 7) * p[5 + k], 0) for k in range(4)))
+    vg = half_sum(sum(np.where(i == 0, (4 * j + k - 7) * p[1 + k], 0) for k in range(4)))
+    hg, vg = hg - 8 * corner, vg - 8 * corner
+    dc16 = np.where(corner != -1, (st + sl + 16) >> 5, np.where(
+        left0 != -1, (sl + 8) >> 4, np.where(top0 != -1, (st + 8) >> 4, 128)))
+    pa, pb, pc = (left15 + top15) * 16, (5 * hg + 32) >> 6, (5 * vg + 32) >> 6
+    sum16 = []
     for m in range(4):
-        for bx, by in zxy:
-            X, Y = bx + np.arange(16) % 4, by + np.arange(16) // 4
-            pred = (top[:, X], left[:, Y], dcv[:, None], np.clip(
-                (pa[:, None] + pb[:, None] * (X - 7) + pc[:, None] * (Y - 7) + 16) >> 5,
-                0, 255))[m]
-            d16.append((ext[:, 1 + Y, 1 + X] - pred).T)
-    satd16 = _block_satd(np.stack(d16, 1), qp, lq).reshape(4, 16, nmb)
-    sum16 = satd16.sum(1, dtype=np.int32)
-    gate16 = np.stack([np.where(top[:, 0] != -1, 0, 1 << 30), np.where(left[:, 0] != -1, 0, 1 << 30),
-                       np.zeros(nmb, np.int64), np.where(corner != -1, 0, 1 << 30)])
-    cost16 = sum16 + gate16
-    mode16 = np.zeros(nmb, np.int32)
-    best16 = cost16[0].copy()
+        d = []
+        for k in range(16):
+            x, yy = k & 3, k >> 2
+            pred = (top[x], left[yy], dc16, np.clip(
+                (pa + pb * (4 * i + x - 7) + pc * (4 * j + yy - 7) + 16) >> 5, 0, 255))[m]
+            d.append(src[k] - pred)
+        sum16.append(half_sum(_block_satd(d, q)))
+    gate16 = [np.where(top0 != -1, 0, 1 << 30), np.where(left0 != -1, 0, 1 << 30), 0,
+              np.where(corner != -1, 0, 1 << 30)]
+    best16, mode16 = sum16[0] + gate16[0], np.zeros_like(mb)
     for m in range(1, 4):
-        better = cost16[m] < best16
-        best16, mode16 = np.where(better, cost16[m], best16), np.where(better, m, mode16)
-    # Intra4x4: 9 x 16 (mode, block) threads
-    mode4, best4 = np.zeros((nmb, 16), np.int32), np.zeros((nmb, 16), np.int64)
-    for z, (bx, by) in enumerate(zxy):
-        base = by * 21 + bx  # the block's corner cell e[0]
+        better = sum16[m] + gate16[m] < best16
+        best16, mode16 = np.where(better, sum16[m] + gate16[m], best16), np.where(better, m, mode16)
+    out = np.zeros((19 if full else 2) * nmb, np.int64)
+    writes = np.zeros_like(out)
 
-        def e(off):
-            return flat[:, base + off]
+    def write(at, v, where):
+        np.add.at(writes, at[where], 1)
+        out[at[where]] = v[where]
 
-        top4, left4 = e(1) + e(2) + e(3) + e(4), e(21) + e(42) + e(63) + e(84)
-        dc = np.where(e(0) != -1, (top4 + left4 + 4) >> 3, np.where(
-            e(21) != -1, (left4 + 2) >> 2, np.where(e(1) != -1, (top4 + 2) >> 2, 128)))
-        rep = (z in (3, 11)) | ((bx == 12) & ((by > 0) | last_col))
-        src = e(np.array([(1 + (k >> 2)) * 21 + 1 + (k & 3) for k in range(16)]))
-        d4, gates = [], []
+    first = live & (hh == 0)
+    write(mb, mode16, first)
+    write(nmb + mb, best16, first)
+    if full:
+        z = ((j >> 1) << 3) | ((i >> 1) << 2) | ((j & 1) << 1) | (i & 1)
+        rep = (z == 3) | (z == 11) | ((i == 3) & ((j > 0) | (c + 1 == wmb)))
+        p += [np.where(rep, p[8], sample(bx + 4 + k, by - 1)) for k in range(4)]
+        top4, left4 = sum(p[5:9]), sum(p[1:5])
+        dc = np.where(p[0] != -1, (top4 + left4 + 4) >> 3, np.where(
+            p[1] != -1, (left4 + 2) >> 2, np.where(p[5] != -1, (top4 + 2) >> 2, 128)))
+        table = _kernel_table()
+        best4 = mode4 = None
         for m in range(9):
-            preds = []
-            for r in (False, True):
-                tp = np.array([_taps(int(PRED4[16 * m + k]), r) for k in range(16)])
-                tab3 = (((tp >> 27) & 3) + ((tp >> 21) & 3) * e(tp & 127)
-                        + ((tp >> 23) & 3) * e((tp >> 7) & 127)
-                        + ((tp >> 25) & 3) * e((tp >> 14) & 127))
-                preds.append(tab3 >> ((tp >> 29) & 3))
-            pred = dc[:, None] if m == 2 else np.where(rep[:, None], preds[1], preds[0])
-            d4.append((src - pred).T)
+            d = []
+            for k in range(16):
+                t = int(table[16 * m + k])
+                pred = dc if m == 2 else (((t >> 12) & 3) * p[t & 15] + ((t >> 14) & 3)
+                                          * p[(t >> 4) & 15] + ((t >> 16) & 3) * p[(t >> 8) & 15]
+                                          + ((t >> 18) & 3)) >> ((t >> 20) & 3)
+                d.append(src[k] - pred)
             g = GATE4[m]
-            ok = True if g == 2 else (e(1) if g == 0 else e(21) if g == 1 else e(0)) != -1
-            gates.append(np.broadcast_to(np.where(ok, 0, 1 << 30), (nmb,)))
-        costs = _block_satd(np.stack(d4, 1), qp, lq) + np.stack(gates)
-        best = costs[0].astype(np.int64)
-        for m in range(1, 9):
-            better = costs[m] < best
-            best, mode4[:, z] = np.where(better, costs[m], best), np.where(better, m, mode4[:, z])
-        best4[:, z] = best
-    return {"mode16": mode16, "satd16": best16.astype(np.int32), "mode4": mode4,
-            "satd4": best4.sum(1).astype(np.int32)}
+            ok = True if g == 2 else (p[5] if g == 0 else p[1] if g == 1 else p[0]) != -1
+            cost = _block_satd(d, q) + np.where(ok, 0, 1 << 30)
+            if m == 0:
+                best4, mode4 = cost, np.zeros_like(mb)
+            else:
+                better = cost < best4
+                best4, mode4 = np.where(better, cost, best4), np.where(better, m, mode4)
+        write(3 * nmb + 16 * mb + z, mode4, live)
+        write(2 * nmb + mb, half_sum(best4), first)
+    assert (writes == 1).all()
+    out = out.astype(np.int32)
+    got = {"mode16": out[:nmb], "satd16": out[nmb: 2 * nmb]}
+    if full:
+        got.update(mode4=out[3 * nmb:].reshape(nmb, 16), satd4=out[2 * nmb: 3 * nmb])
+    return got
 
 
 def _frames():
@@ -216,16 +241,24 @@ def _frames():
 
 
 def test_k11_model_equals_the_twin():
-    """The numpy model of the kernel's threads equals the plain twins on
-    every kind of input the chip phase holds K11 to (both forms: the I16
-    form writes the full form's mode16 and satd16)."""
+    """The numpy model of the kernel's lanes equals the plain twins on every
+    kind of input the chip phase holds K11 to, in both forms (the I16 form
+    writes the full form's mode16 and satd16), on grids whose MB count is
+    not a multiple of a block's 8 MBs and whose warps straddle MB-row ends
+    (48 x 32, 80 x 176, 16 x 144, 176 x 16, 176 x 144); and the Intra4x4
+    table compiled into the kernel is ops/intra's."""
+    np.testing.assert_array_equal(_kernel_table(), PRED4)
     for label, y, top_row, qp in _frames():
         want = intra_mode_decision_plain(torch.from_numpy(y), qp, top_row)
-        got = _k11_model(y, qp, None if top_row is None else top_row.numpy())
+        row = None if top_row is None else top_row.numpy()
+        got = _k11_model(y, qp, row)
         for key in want:
             np.testing.assert_array_equal(got[key], want[key].numpy(), err_msg=f"{label} {key}")
         m16, s16 = intra16_mode_decision_plain(torch.from_numpy(y), qp, top_row)
         assert torch.equal(m16, want["mode16"]) and torch.equal(s16, want["satd16"]), label
+        got16 = _k11_model(y, qp, row, full=False)
+        np.testing.assert_array_equal(got16["mode16"], m16.numpy(), err_msg=label)
+        np.testing.assert_array_equal(got16["satd16"], s16.numpy(), err_msg=label)
 
 
 def test_cpu_tensors_route_to_the_plain_twins(monkeypatch):
@@ -274,8 +307,8 @@ def test_k11_wrapper_launch_arguments(monkeypatch):
     """With the device test and the launch stubbed, so that CPU tensors get
     as far as the launch: one call of the C entry point with one argument
     for each of its parameters before the stream, the plane as uint8 or
-    int32, the prediction table in the full form only, and outputs that are
-    views of the one buffer it writes, in the C comment's order."""
+    int32, the form's flag, and outputs that are views of the one buffer it
+    writes, in the C comment's order."""
     calls = []
     monkeypatch.setattr(mode_decision, "_cuda", lambda y: None)
     monkeypatch.setattr(build, "launch", lambda *a: calls.append(a))
@@ -304,9 +337,7 @@ def test_k11_wrapper_launch_arguments(monkeypatch):
         assert buf.numel() == (19 if full else 2) * 6
         assert [t.data_ptr() for t in parts] == [buf.data_ptr() + 4 * 6 * k
                                                  for k in range(len(parts))]
+        assert named["full"] == int(full)
         if full:
-            np.testing.assert_array_equal(named["pred4"].numpy(), PRED4)
             assert list(out) == ["mode16", "satd16", "mode4", "satd4"]
             assert out["mode4"].shape == (6, 16)
-        else:
-            assert named["pred4"] is None

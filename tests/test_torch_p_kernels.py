@@ -22,53 +22,172 @@ from h264_fer_tpu_torch.ops.transform import chroma_qp
 torch.set_num_threads(1)
 
 # ---- K13 -------------------------------------------------------------------
-KTX, KTY = 64, 16  # csrc/interp.cu's tile of positions
+KSTRIP, KMAXWARPS = 120, 18  # csrc/interp.cu: a warp's strip, a block's warps
+U32 = np.uint32
+SHIFTS = np.array([0, 8, 16, 24], U32)
 
 
-def _tap6(a, b, c, d, e, f):
-    return np.clip((a - 5 * b + 20 * c + 20 * d - 5 * e + f + 16) >> 5, 0, 255)
+def _dp4a_us(a, taps: int, c):
+    """dp4a.u32.s32: the bytes of the words a as unsigned samples times the
+    bytes of `taps` as signed ints, plus c."""
+    t = np.array([(taps >> int(k)) & 0xFF for k in SHIFTS], np.uint8).view(np.int8)
+    return c + ((a[..., None] >> SHIFTS) & 0xFF).astype(np.int32) @ t.astype(np.int32)
 
 
-def _avg(a, b):
-    return (a + b + 1) >> 1
+def _pack(v):
+    return (v[0] | v[1] << 8 | v[2] << 16 | v[3] << 24).astype(U32)
 
 
-def _k13_model(ref, ext: int, band: bool):
-    """csrc/interp.cu's function, tile by tile: each block's window of
-    reference samples at clamped coordinates (rows Y + row_off, columns X -
-    ext), its hv and b arrays, then the 16 planes of the tile's positions
-    inside the grid. Every position is written exactly once; in the band
-    form no row of a stored position is clamped."""
+def _tap6_h(w0, w1, w2):
+    """interp.cu tap6_h: the clipped horizontal 6-tap of the positions x ..
+    x + 3 whose samples x - 4 .. x + 7 are the bytes of w0, w1, w2."""
+    v = [_dp4a_us(w1, 0x01FB1414, _dp4a_us(w0, 0xFB010000, 16)),
+         _dp4a_us(w2, 0x00000001, _dp4a_us(w1, 0xFB1414FB, _dp4a_us(w0, 0x01000000, 16))),
+         _dp4a_us(w2, 0x000001FB, _dp4a_us(w1, 0x1414FB01, 16)),
+         _dp4a_us(w2, 0x0001FB14, _dp4a_us(w1, 0x14FB0100, 16))]
+    return _pack([np.clip(x >> 5, 0, 255).astype(U32) for x in v])
+
+
+def _tap6_v(r):
+    """interp.cu tap6_v on uint32 words of two 16-bit lanes (rows r[0..5]),
+    asserting that no lane carries or borrows."""
+    lanes = [(w & 0xFFFF).astype(np.int64) for w in r], [(w >> 16).astype(np.int64) for w in r]
+    for x in lanes:
+        t = x[0] + x[5] + 20 * (x[2] + x[3]) + 2576 - 5 * (x[1] + x[4])
+        assert (26 <= t).all() and (t <= 13286).all()
+    t = (r[0] + r[5]) + U32(20) * (r[2] + r[3]) + (U32(0x0A100A10) - U32(5) * (r[1] + r[4]))
+    v = (t >> U32(5)) & U32(0x07FF07FF)
+    lo, hi = (np.clip(x, 80, 335) - 80 for x in (v & U32(0xFFFF), v >> U32(16)))
+    return (lo | hi << U32(16)).astype(U32)
+
+
+def _avg4(a, b):
+    return (a | b) - (((a ^ b) & U32(0xFEFEFEFE)) >> U32(1))
+
+
+def _funnel8(lo, hi):
+    return ((lo >> U32(8)) | (hi << U32(24))).astype(U32)
+
+
+def _k13_model(ref, ext: int, band: bool, grid: int = 7):
+    """csrc/interp.cu's function on a grid of `grid` blocks (fewer where the
+    planes have fewer rows), row by row as each block walks its rows,
+    vectorised over the blocks, warps and lanes: each lane's packed
+    reference word a row (the aligned words it reads where no column of the
+    strip clamps, asserted inside the row), the SIMD vertical tap,
+    dp4a.u32.s32 6-taps, the shuffles down (a lane past 31 keeps its own
+    word), the byte averages and the stores of lanes 0-29 into the block's
+    shared-memory row buffers (two, in turn); the carried bytes, the bulk
+    copies (whole 32-byte sectors at addresses equal mod 32 in shared and
+    global memory, the output's base taken as 32-byte aligned) and the
+    bytes stored one by one, each output byte written once. Returns
+    (planes, {shared-memory store width: count}); in the band form no row
+    that feeds a stored position is clamped."""
     rows, w = ref.shape
     he, row_off = (rows - 8, 4) if band else (rows + 2 * ext, -ext)
     we = w + 2 * ext
-    out = np.zeros((16, he, we), np.uint8)
-    writes = np.zeros((he, we), np.int32)
-    r = np.arange(KTY + 5)[:, None]
-    c = np.arange(KTX + 5)[None, :]
-    for y0 in range(0, he, KTY):
-        for x0 in range(0, we, KTX):
-            ys = y0 - 2 + r + row_off
-            ny, nx = min(KTY, he - y0), min(KTX, we - x0)
-            if band:  # the rows the stored positions read lie inside ref_v
-                assert 0 <= ys[0, 0] and ys[ny + 4, 0] < rows
-            t = ref[np.clip(ys, 0, rows - 1), np.clip(x0 - 2 + c - ext, 0, w - 1)].astype(
-                np.int32)
-            hv = _tap6(*(t[k: k + KTY] for k in range(6)))            # (16, 69)
-            b = _tap6(*(t[2: KTY + 3, k: k + KTX] for k in range(6)))  # (17, 64)
-            g, gx1, gy1 = t[2: KTY + 2, 2: KTX + 2], t[2: KTY + 2, 3: KTX + 3], \
-                t[3: KTY + 3, 2: KTX + 2]
-            h, m = hv[:, 2: KTX + 2], hv[:, 3: KTX + 3]
-            j = _tap6(*(hv[:, k: k + KTX] for k in range(6)))
-            bb, s = b[:KTY], b[1:]
-            planes = np.stack([g, _avg(g, bb), bb, _avg(bb, gx1),
-                               _avg(g, h), _avg(bb, h), _avg(bb, j), _avg(bb, m),
-                               h, _avg(h, j), j, _avg(j, m),
-                               _avg(h, gy1), _avg(h, s), _avg(j, s), _avg(s, m)])
-            out[:, y0: y0 + ny, x0: x0 + nx] = planes[:, :ny, :nx]
-            writes[y0: y0 + ny, x0: x0 + nx] += 1
-    assert (writes == 1).all()
-    return out
+    strips = -(-we // KSTRIP)
+    assert strips <= KMAXWARPS and we >= 32
+    plane = he * we
+    stride = we + 63 + ((plane - (we + 63)) & 31)
+    boff = (16 * stride + 31) & ~31
+    grid = min(grid, he)
+    yb = np.arange(grid) * he // grid
+    ye = (np.arange(grid) + 1) * he // grid
+    X0 = (np.arange(strips) * KSTRIP)[:, None]
+    lane = np.arange(32)[None, :]
+    x = X0 - 4 - ext + 4 * lane
+    wide = (X0 - 4 - ext >= 0) & (X0 + 123 - ext <= w - 1) & (w % 4 == 0)
+    X = np.broadcast_to(X0 + 4 * lane, x.shape)
+    n = np.minimum(4, we - X)
+    store = (lane < 30) & (n > 0)
+    blk = np.arange(grid)[:, None, None]
+    f16 = np.arange(16)[None, :, None]
+    out = np.zeros(16 * plane, np.uint8)
+    written = []
+    stage = np.zeros((grid, 2 * boff), np.uint8)
+    kinds = {32: 0, 16: 0, 8: 0}
+    xa = x & ~3
+    assert ((xa >= 0) & (xa + np.where(x & 3, 7, 3) <= w - 1) | ~wide).all()
+
+    def row_word(Y):  # (grid,) rows → (grid, strips, 32) words
+        ys = Y + row_off
+        if band:  # rows past he + 2 feed no stored position
+            assert ((0 <= ys) & (ys < rows) | (Y > he + 2)).all()
+        y = np.clip(ys, 0, rows - 1)[:, None, None]
+        return _pack([ref[y, np.clip(x + k, 0, w - 1)].astype(U32) for k in range(4)])
+
+    def down(v, k):
+        return np.where(lane + k < 32, np.take(v, np.minimum(lane[0] + k, 31), axis=-1), v)
+
+    g = [row_word(yb - 2 + t) for t in range(6)]
+    lo = [v & U32(0x00FF00FF) for v in g]
+    hi = [(v >> U32(8)) & U32(0x00FF00FF) for v in g]
+    c1, c2 = down(g[2], 1), down(g[2], 2)
+    b = _tap6_h(g[2], c1, c2)
+    ph_prev = np.zeros(grid, np.int64)
+    for k in range(int((ye - yb).max())):
+        Y = yb + k
+        live = Y < ye
+        buf = (k & 1) * boff
+        ph = (Y * we) & 31
+        ahead = row_word(Y + 4)
+        vl, vh = _tap6_v(lo), _tap6_v(hi)
+        hv0 = ((vl & 0xFF) | (vh & 0xFF) << 8 | ((vl >> 16) & 0xFF) << 16
+               | ((vh >> 16) & 0xFF) << 24)
+        hv1, hv2 = down(hv0, 1), down(hv0, 2)
+        g1 = lo[3] | hi[3] << U32(8)
+        n1, n2 = down(g1, 1), down(g1, 2)
+        s = _tap6_h(g1, n1, n2)
+        j, hv, m = _tap6_h(hv0, hv1, hv2), hv1, _funnel8(hv1, hv2)
+        gg, gx1, gy1 = c1, _funnel8(c1, c2), n1
+        p = np.stack([gg, _avg4(gg, b), b, _avg4(b, gx1), _avg4(gg, hv), _avg4(b, hv),
+                      _avg4(b, j), _avg4(b, m), hv, _avg4(hv, j), j, _avg4(j, m),
+                      _avg4(hv, gy1), _avg4(hv, s), _avg4(j, s), _avg4(s, m)], 1)
+        # the stores of lanes 0-29 of the live blocks: (block, lane) pairs
+        sel = live[:, None, None] & store[None]
+        at = (buf + 32 + ph[:, None, None] + X)[sel]
+        bb = np.broadcast_to(blk, sel.shape)[sel]
+        nn = np.broadcast_to(n, sel.shape)[sel]
+        wide4 = (nn == 4) & (at % 4 == 0) & (stride % 4 == 0)
+        half = (nn == 4) & (at % 2 == 0) & (stride % 2 == 0) & ~wide4
+        kinds[32] += 16 * int(wide4.sum())
+        kinds[16] += 32 * int(half.sum())
+        kinds[8] += 16 * int(np.where(wide4 | half, 0, nn).sum())
+        idx = at[:, None, None] + (np.arange(16) * stride)[None, :, None] + np.arange(4)
+        ok = np.broadcast_to((np.arange(4) < nn[:, None])[:, None, :], idx.shape)
+        vals = (np.moveaxis(p, 1, -1)[sel][..., None] >> SHIFTS) & 0xFF
+        stage[np.broadcast_to(bb[:, None, None], idx.shape)[ok], idx[ok]] = vals[ok]
+        lo, hi = lo[1:] + [ahead & U32(0x00FF00FF)], hi[1:] + [(ahead >> U32(8)) & U32(0x00FF00FF)]
+        c1, c2, b = n1, n2, s
+        # each (block, plane) row: global [gs, gs + we), at `src` in shared memory
+        first, last = (Y == yb)[:, None, None], (Y + 1 == ye)[:, None, None]
+        gs = f16 * plane + Y[:, None, None] * we
+        src = buf + f16 * stride + 32 + ph[:, None, None]
+        assert ((src - gs) % 32 == 0).all()
+        c = gs & 31
+        q = np.arange(64)[None, None, :]
+        carry = live[:, None, None] & ~first & (q < c)  # the bytes of the row before
+        prev = (1 - (k & 1)) * boff + 32 + ph_prev[:, None, None] + we + f16 * stride
+        rows_b = np.broadcast_to(blk, carry.shape)[carry]
+        stage[rows_b, np.broadcast_to(src - c + q, carry.shape)[carry]] = \
+            stage[rows_b, np.broadcast_to(prev - c + q, carry.shape)[carry]]
+        lo_ = np.where(first, -(-gs // 32) * 32, gs // 32 * 32)
+        hi_ = (gs + we) // 32 * 32
+        qq = np.arange(we + 32)[None, None, :]
+        bulk = live[:, None, None] & (lo_ + qq < hi_)
+        head = np.where(first, np.minimum(we, -gs % 32), 0)
+        tail = np.where(last, we - np.maximum(head, hi_ - gs), 0)
+        one = live[:, None, None] & (qq < we) & ((qq < head) | (qq >= we - tail))
+        for mask, gaddr, saddr in ((bulk, lo_ + qq, src + lo_ - gs + qq), (one, gs + qq, src + qq)):
+            ga = np.broadcast_to(gaddr, mask.shape)[mask]
+            out[ga] = stage[np.broadcast_to(blk, mask.shape)[mask],
+                            np.broadcast_to(saddr, mask.shape)[mask]]
+            written.append(ga)
+        assert not (lo_ % 32).any() and not (hi_ % 32).any()
+        ph_prev = ph
+    assert (np.bincount(np.concatenate(written), minlength=out.size) == 1).all()
+    return out.reshape(16, he, we), kinds
 
 
 def _qcif_refs():
@@ -82,27 +201,36 @@ def _qcif_refs():
 
 @pytest.mark.parametrize("ext", [6, 10])
 def test_k13_model_matches_the_numpy_planes(ext):
-    """Frame form: the model == the JAX package's numpy planes == the plain
-    twin. Band form, bands of 3 MB rows of
-    QCIF with real rows above and below (edge rows repeated at the frame's
-    edges): the model == the JAX numpy band planes == the frame planes'
-    rows == the plain band twin."""
-    pad = ext + 4
-    for label, ref in _qcif_refs().items():
-        want = np_planes(ref.astype(np.int32), ext)
-        got = _k13_model(ref, ext, band=False)
-        np.testing.assert_array_equal(got, want, err_msg=label)
-        np.testing.assert_array_equal(
-            ops_interp.interpolated_planes_plain(torch.from_numpy(ref), ext).numpy(), got)
-        for t in range(3):
-            r0, r1 = 48 * t, 48 * (t + 1)
-            ref_v = ref[np.clip(np.arange(r0 - pad, r1 + pad), 0, 143)]
-            band = _k13_model(ref_v, ext, band=True)
-            np.testing.assert_array_equal(band, got[:, r0: r1 + 2 * ext], err_msg=f"{label} {t}")
-            np.testing.assert_array_equal(band, _planes_impl_vext(ref_v, ext, np))
+    """Frame form at ext and ext - 1 (rows of W + 2 ext = 0 and 2 mod 4
+    bytes: 32-bit stores into shared memory only, then also 16-bit ones on
+    every other row and bytes at the rows' ends): the model == the JAX
+    package's numpy planes == the plain twin. Band form, bands of 3 MB rows
+    of QCIF with real rows above and below (edge rows repeated at the
+    frame's edges): the model == the JAX numpy band planes == the frame
+    planes' rows == the plain band twin. Grids of 7, 3, 64 (a block a row)
+    and 5 blocks split the rows unevenly, a row's last strip is ragged, and
+    the random and checkerboard samples above 127 meet dp4a's unsigned
+    side."""
+    for e in (ext, ext - 1):
+        pad = e + 4
+        for label, ref in _qcif_refs().items():
+            want = np_planes(ref.astype(np.int32), e)
+            got, kinds = _k13_model(ref, e, band=False)
+            np.testing.assert_array_equal(got, want, err_msg=f"{label} ext {e}")
+            # rows of 2 mod 4 bytes: 16-bit stores, and bytes at each row's end
+            assert kinds[32] and (kinds[16] > 0) == (kinds[8] > 0) == (e % 2 == 1), kinds
             np.testing.assert_array_equal(
-                ops_interp.interpolated_planes_banded_plain(torch.from_numpy(ref_v), ext)
-                .numpy(), band)
+                ops_interp.interpolated_planes_plain(torch.from_numpy(ref), e).numpy(), got)
+            for t in range(3):
+                r0, r1 = 48 * t, 48 * (t + 1)
+                ref_v = ref[np.clip(np.arange(r0 - pad, r1 + pad), 0, 143)]
+                band = _k13_model(ref_v, e, band=True, grid=(3, 64, 5)[t])[0]
+                np.testing.assert_array_equal(band, got[:, r0: r1 + 2 * e],
+                                              err_msg=f"{label} ext {e} band {t}")
+                np.testing.assert_array_equal(band, _planes_impl_vext(ref_v, e, np))
+                np.testing.assert_array_equal(
+                    ops_interp.interpolated_planes_banded_plain(torch.from_numpy(ref_v), e)
+                    .numpy(), band)
 
 
 # ---- K12 -------------------------------------------------------------------
@@ -305,7 +433,7 @@ def test_wrappers_refuse_before_any_build_and_a_failed_build_raises(monkeypatch)
         with pytest.raises(ValueError):
             residual_p.residual_recon(*bad)
     for bad in [(ref, 4), (ref.to(torch.int16), 4), (ref.to(torch.int32), 4), (ref.t(), 4),
-                (ref[None], 4),
+                (ref[None], 4), (torch.zeros((16, interp.MAX_ROW - 7), dtype=torch.uint8), 4),
                 (ref, -1), (ref[:16], 4, True)]:
         with pytest.raises(ValueError):
             interp.interp_planes(*bad)
