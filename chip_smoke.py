@@ -32,7 +32,10 @@ Phases (any failure exits non-zero and prints no result line; each
      GopIntraEncoder's stream, recomputed by tests/test_torch_iframe.py).
      Prints e2e fps, device frame fps and the per-stage device times;
   4. hold K13 (the 16 interpolated planes, one launch a reference), K2
-     (integer search), K3 (qpel refine), K4 (P decision wavefront, one
+     (integer search: the map in MB-quadrant order and the argmin in one
+     launch, as the P frame takes them, and its block-order form on the
+     same inputs), K3 (qpel refine), K4 (P decision
+     wavefront, one
      launch per frame), K5 (MC, one thread per quadrant row reading aligned
      words) and K12 (the P residual / recon, one launch a frame) against
      their plain twins on the card, bit-exact: at 1920x1088 for QP 28, 40
@@ -46,8 +49,12 @@ Phases (any failure exits non-zero and prints no result line; each
      prefilter on and off at MAXDIFF 3 and 255, every MB skipped and none,
      and prediction 0 against source 255 and the reverse at QP 28, 40 and
      46; K13 also on a 0/255 checkerboard reference (its 6-taps clip) at
-     windows 8 and 7, frame and band 1 of 4 (check_k12_k13); time kernel
-     and plain at QP 28, holding every timed call to the plain output;
+     windows 8 and 7, frame and band 1 of 4 (check_k12_k13); K2 also in
+     both forms and every metric on QCIF at ext 10, 1080p at window 7 / ext 9,
+     at ext = window and flat, windows 0, 4, 12 and 17 and a 40x24 grid
+     (check_k2_shapes); time kernel and plain at QP 28, holding every
+     timed call to the plain output, and K2's one launch beside its block
+     map with the eager argmin and blocks_to_mbq it replaced;
   5. drive the IPPP main path: GopIpppEncoder(1920, 1088, 28, gop_len=8)
      encodes 16 frames with the launch counts set to 0 just before; the
      stream of the first GOP's first 4 frames (the IDR and 3 P frames) must
@@ -923,12 +930,13 @@ def p_frame_stages(torch, kern, frame, ref, qp, mc_mv=None, window=WINDOW, band=
         return outs[name]
 
     planes = run("interp", ref_y, ext)
-    im = run("me_int", y, planes[0], ext, window, metric_id)
-    c1, c2_blk, c2, q2ok = me_centres(im, prev_mv, wmb, hmb, window)
+    # K2 as pframe_maps runs it: the map in MB-quadrant order and the argmin
+    im, best = run("me_int", y, planes[0], ext, window, metric_id, True)
+    c1, c2_blk, c2, q2ok = me_centres(best, prev_mv, wmb, hmb, window)
     q1, q2 = run("me_qpel", y, planes, c1, c2_blk, ext, metric_id)
     maxdiff = adaptive_maxdiff(y, wmb, hmb, -1)
     k4 = ("wavefront_p_band",) if band else ("wavefront_p",)
-    dec = run(*k4, y, planes, mbq(im), mbq(c1), mbq(q1), c2, mbq(q2),
+    dec = run(*k4, y, planes, im.view(wmb * hmb, 4, -1), mbq(c1), mbq(q1), c2, mbq(q2),
               q2ok, maxdiff, wmb, hmb, window, ext, metric_id, lam, *((top,) if band else ()))
     pred = run("mc", planes, pad(ref_cb, ext_c), pad(ref_cr, ext_c),
                dec["mv"] if mc_mv is None else mc_mv, ext, ext_c, wmb, hmb)
@@ -1017,12 +1025,12 @@ def mc_reads(torch, planes, c_pad, mv, ext, ext_c, wmb, hmb) -> int:
 def p_work(torch, args, outs, k4: str = "wavefront_p") -> dict:
     """{kernel: (bytes, int32 operations)} that each of K13's, K2-K5's and
     K12's functions needs on these inputs: each input sample it reads counted once, each
-    output once. Operations per sample difference 3 (subtract, abs or
-    multiply, add); K3's in packed bytes, 2 per 4 samples (a per-byte
-    absolute difference, a 4-way dot product that sums it or its square).
-    k4: K4's stage name ("wavefront_p_band": K4-band, its halo read once
-    too)."""
-    y, plane0, _, window, _ = args["me_int"]
+    output once. K2's and K3's operations in packed bytes, 2 per 4 samples
+    (a per-byte absolute difference, a 4-way dot product that sums it or
+    its square), as K3 computes them; K2's bytes count its map and its
+    index out. k4: K4's stage name ("wavefront_p_band": K4-band, its halo
+    read once too)."""
+    y, plane0, _, window = args["me_int"][:4]
     h, w = y.shape
     nb, nmb = (h // 8) * (w // 8), (h // 16) * (w // 16)
     S2 = (2 * window + 1) ** 2
@@ -1037,7 +1045,7 @@ def p_work(torch, args, outs, k4: str = "wavefront_p") -> dict:
     trials = int(((~dec["skip"]) & (dec["mb_type"] != 0)).sum())
     res = args["residual_recon"]
     return {
-        "me_int": (nbytes(y, plane0, outs["me_int"]), nb * S2 * 64 * 3),
+        "me_int": (nbytes(y, plane0, *kernel_outputs(outs["me_int"])), nb * S2 * 16 * 2),
         "me_qpel": (nbytes(y, c1, c2_blk, *outs["me_qpel"])
                     + qpel_reads(torch, y, planes, (c1, c2_blk), ext),
                     2 * nb * 49 * 16 * 2),
@@ -1085,6 +1093,8 @@ def check_p_kernels(torch, label, ref, src, prev_mv, qp, mc_mv=None,
         got = kernel_outputs(kern[name](*a))
         torch.cuda.synchronize()
         err = max_err(torch, got, want)
+        if name == "me_int":  # its other forms on the same inputs
+            err = max(err, check_k2_forms(torch, a[:5]))
         if name == "wavefront_p":
             for b in blocks:
                 err_b = max_err(torch, kernel_outputs(pframe_decide(*a, blocks=b)), want)
@@ -1098,6 +1108,8 @@ def check_p_kernels(torch, label, ref, src, prev_mv, qp, mc_mv=None,
                     raise AssertionError(f"{name} != plain in a timed call at {label} qp{qp}")
             ms, queued_ms = kernel_ms(torch, lambda: kern[name](*a), 20, check)
             plain_ms = cuda_ms(torch, lambda: plain[name](*a), 1)
+            if name == "me_int":
+                k2_unfused(torch, a[:5], want, ms, queued_ms)
         bound_ms, bound_by = bound(*work[name])
         print(f"{name} {label} qp{qp}: max_abs_err {err} (tolerance 0)"
               + (f", kernel {ms:.4f} ms (queued {queued_ms:.4f}), plain {plain_ms:.2f} ms"
@@ -1108,6 +1120,77 @@ def check_p_kernels(torch, label, ref, src, prev_mv, qp, mc_mv=None,
             raise AssertionError(f"{name} kernel != plain at {label} qp{qp}")
         out[name] = (err, ms, plain_ms, bound_ms, bound_by, queued_ms)
     return out, outs["wavefront_p"]
+
+
+def check_k2_forms(torch, a) -> int:
+    """K2 in each form (the block-order map; on a grid of whole MBs the P
+    frame's, the map in MB-quadrant order and the argmin) against its plain
+    twin on a = (src_y, plane0, ext, window, metric_id): the largest
+    error."""
+    from h264_fer_tpu_torch.kernels.me_int import integer_score_map, integer_score_map_plain
+
+    h, w = a[0].shape
+    err = 0
+    for p_frame in (False, True) if h % 16 == 0 and w % 16 == 0 else (False,):
+        got = kernel_outputs(integer_score_map(*a, p_frame))
+        err = max(err, max_err(torch, got,
+                               kernel_outputs(integer_score_map_plain(*a, p_frame))))
+    torch.cuda.synchronize()
+    return err
+
+
+def k2_unfused(torch, a, want, ms, queued_ms) -> None:
+    """Print K2's one launch (the map in MB-quadrant order and the argmin,
+    `ms` and `queued_ms` as timed) beside what a P frame ran before it
+    wrote both: K2's block-order map, then the eager argmin and
+    blocks_to_mbq copy of the map, each call held to `want`."""
+    from h264_fer_tpu_torch.kernels.me_int import integer_score_map
+    from h264_fer_tpu_torch.ops.tiles import blocks_to_mbq
+
+    h, w = a[0].shape
+
+    def unfused():
+        m = integer_score_map(*a)
+        return blocks_to_mbq(m, w // 16, h // 16).view(m.shape), m.argmin(dim=1).to(torch.int32)
+
+    def check(o):
+        if max_err(torch, list(o), want):
+            raise AssertionError("K2 block map + eager argmin and order != plain")
+    glue_ms, glue_queued_ms = kernel_ms(torch, unfused, 20, check)
+    print(f"me_int: one launch (map in MB-quadrant order + argmin) {ms:.4f} ms (queued "
+          f"{queued_ms:.4f}); block-order map + eager argmin + blocks_to_mbq {glue_ms:.4f} ms "
+          f"(queued {glue_queued_ms:.4f})", flush=True)
+
+
+def check_k2_shapes(torch, dev) -> int:
+    """K2 in both forms and every metric against its plain twin on inputs
+    the P paths' frames do not give it: QCIF at ext 10 (22 blocks a row, a
+    tile and a tail), 1080p at window 7 / ext 9 (plane pitch 1,938, 2 mod 4),
+    at ext = window = 8 (full_search_topk's plane), flat (every shift
+    ties), windows 0 and 4, windows 12 and 17 (more shift rows or columns
+    than a thread keeps), and a 40x24 grid of odd block counts (block
+    order only). Returns the largest error."""
+    from h264_fer_tpu_torch.ops.interp import edge_pad
+
+    def luma(n, w, h):
+        return [torch.from_numpy(f[0]).to(dev) for f in content(n, w, h)]
+
+    qcif, full, odd = luma(2, 176, 144), luma(2, W, H), luma(2, 40, 24)
+    flat = torch.full((H, W), 128, dtype=torch.uint8, device=dev)
+    cases = (("176x144", qcif, 10, 8), (f"{W}x{H}", full, 9, 7), (f"{W}x{H}", full, 8, 8),
+             (f"{W}x{H} flat", [flat, flat], 10, 8), ("176x144", qcif, 2, 0),
+             ("176x144", qcif, 6, 4), ("176x144", qcif, 12, 12), ("176x144", qcif, 17, 17),
+             ("40x24", odd, 6, 4))
+    worst = 0
+    for label, (ref, src), ext, window in cases:
+        plane0 = edge_pad(ref, ext).contiguous()
+        err = max(check_k2_forms(torch, (src, plane0, ext, window, m)) for m in (0, 1, 2))
+        print(f"me_int {label} ext {ext} window {window}: max_abs_err {err} (tolerance 0; "
+              "every metric, both forms)", flush=True)
+        if err:
+            raise AssertionError(f"K2 != plain at {label} ext {ext} window {window}")
+        worst = max(worst, err)
+    return worst
 
 
 def check_p_small_grids(torch, dev):
@@ -2112,6 +2195,8 @@ def check_p_band(torch, label, ref, src, prev_mv, qp, n_tile, t, time_it=False,
                          r0, hl, wmb)
         errs[name] = max(max_err(torch, got, kernel_outputs(outs[name])),
                          max_err(torch, got, rows))
+        if name == "me_int":  # its other forms on the band's inputs
+            errs[name] = max(errs[name], check_k2_forms(torch, args[name][:5]))
     want = kernel_outputs(outs["wavefront_p_band"])
     a = args["wavefront_p_band"]
     for b in blocks:
@@ -2179,7 +2264,7 @@ def p_band_phase(torch, dev, name, to_decode):
     ms of each stage of one band's P frame and the profiled busy share of 4
     frames in 4 bands; checks the QCIF band streams
     against TILE_P_DIGESTS. Returns ({qp: K4-band's check tuple}, the
-    launches of K4-band, K12 and K13 over the configurations, and K12's
+    launches of K4-band, K2, K12 and K13 over the configurations, and K12's
     and K13's largest band error)."""
     from h264_fer_tpu_torch.kernels.interp import interp_planes
     from h264_fer_tpu_torch.kernels.mc import mc_bulk
@@ -2234,7 +2319,8 @@ def p_band_phase(torch, dev, name, to_decode):
     frames = content(N_IPPP, W, H)
     n_gops = N_IPPP // GOP_LEN
     n_p = N_IPPP - n_gops
-    launches = dict.fromkeys(("pframe_decide_band", "residual_recon", "interp_planes"), 0)
+    launches = dict.fromkeys(("pframe_decide_band", "integer_score_map", "residual_recon",
+                              "interp_planes"), 0)
     for label, n, n_tile, make in p_band_configs(dev):
         make().encode_sequence(frames[:2])  # warm-up: allocator, library loads
         torch.cuda.synchronize()
@@ -2430,7 +2516,8 @@ def check_me_topk(torch, label, src, ref, time_it=False, window=WINDOW, topk=TOP
                                  window, topk)
     err = max_err(torch, full_search_topk(src, ref, window, topk), want)
     smap = integer_score_map(src, plane0, window, window, 0)
-    err = max(err, max_err(torch, topk_candidates(smap, window, topk), want))
+    err = max(err, max_err(torch, topk_candidates(smap, window, topk), want),
+              check_k2_forms(torch, (src, plane0, window, window, 0)))
     torch.cuda.synchronize()
     ms = plain_ms = queued_ms = lib_ms = None
     if time_it:
@@ -3181,6 +3268,7 @@ def main() -> int:
     print(f"[phase 3 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- 4. K2-K5 kernels vs plain twins ------------------------------------
     check_p_small_grids(torch, dev)
+    k2_err = check_k2_shapes(torch, dev)
     pair = [tuple(torch.from_numpy(p).to(dev) for p in f) for f in content(3, W, H)]
     zero_mv = torch.zeros(((W // 16) * (H // 16), 4, 2), dtype=torch.int32, device=dev)
     pk = {}
@@ -3618,6 +3706,8 @@ def main() -> int:
         if timing is None:  # a P kernel: its QP 28 run, errors over all tiers
             err = max(pk[q][kname][0] for q in P_QPS)
             timing = pk[QP][kname][1:]
+            if kname == "me_int":  # and K2's shapes of check_k2_shapes
+                err = max(err, k2_err)
         ms, plain_ms, bound_ms, bound_by, queued_ms = timing
         kernels.append({
             "name": kname, "route": "cuda",
@@ -3628,8 +3718,9 @@ def main() -> int:
         if kname == "deblock":  # K8 also runs on the host path and the decode path
             kernels[-1]["host_launches"] = host_launches
             kernels[-1]["decode_launches"] = decoded["session"][2]
-        if kname == "me_int":  # K2 also searches the --tpu-me path's candidates
+        if kname == "me_int":  # K2 also searches the --tpu-me path's candidates and each band
             kernels[-1]["me_topk_path_launches"] = me_launches["integer_score_map"]
+            kernels[-1]["band_launches"] = band_p_launches["integer_score_map"]
         if kname in ("residual_p", "interp"):  # one a band a P frame on the band paths
             kernels[-1]["band_launches"] = band_p_launches[
                 "residual_recon" if kname == "residual_p" else "interp_planes"]

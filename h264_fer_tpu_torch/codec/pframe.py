@@ -26,7 +26,8 @@ from ..kernels.wavefront_p import pframe_decide
 from ..ops import transform
 from ..ops.device import on_card
 from ..ops.interp import interpolated_planes, pad_chroma
-from ..ops.tiles import blocks_mb, chroma_blocks, chroma_mb, from_mbs, mb_blocks, to_mbs
+from ..ops.tiles import (blocks_mb, blocks_to_mbq, chroma_blocks, chroma_mb, from_mbs,
+                         mb_blocks, to_mbs)
 from .entropy import p_slice_entropy
 
 I32 = torch.int32
@@ -54,14 +55,6 @@ def adaptive_maxdiff(src_y, wmb: int, hmb: int, cfg_maxdiff: int):
     return mad.clamp(min=3)
 
 
-def blocks_to_mbq(x, wmb: int, hmb: int):
-    """(nb, ...) raster 8x8-block order → (nmb, 4, ...) MB-quadrant order:
-    block (2r + qy, 2c + qx) is quadrant 2 qy + qx of MB (r, c)."""
-    tail = x.shape[1:]
-    x = x.reshape(hmb, 2, wmb, 2, *tail).transpose(1, 2)
-    return x.reshape(hmb * wmb, 4, *tail).contiguous()
-
-
 def _mbq_to_blocks(x, wmb: int, hmb: int):
     """Inverse of blocks_to_mbq."""
     tail = x.shape[2:]
@@ -69,17 +62,19 @@ def _mbq_to_blocks(x, wmb: int, hmb: int):
     return x.reshape(hmb * 2 * wmb * 2, *tail).contiguous()
 
 
-def me_centres(int_map, prev_mv, wmb: int, hmb: int, window: int):
+def me_centres(best, prev_mv, wmb: int, hmb: int, window: int):
     """The two qpel refinement centres of every 8x8 block.
 
-    int_map (nb, S^2) from K2; prev_mv (nmb, 4, 2) the previous frame's
-    final MVs. Returns (c1 (nb, 2), the pure-distortion integer argmin, the
-    first index on ties; c2_blk (nb, 2) and c2 (nmb, 4, 2), prev_mv clamped
-    to ±(lim - 3), lim = 4 ext - 4, so every window stays in the planes;
-    q2ok (nmb, 4), whether the unclamped prev_mv was inside that range)."""
+    best (nb,) each block's first least shift index in K2's map (raster
+    block order; K2 writes it beside the map); prev_mv (nmb, 4, 2) the
+    previous frame's final MVs. Returns (c1 (nb, 2), the pure-distortion
+    integer argmin as a qpel MV; c2_blk (nb, 2) and c2 (nmb, 4, 2), prev_mv
+    clamped to ±(lim - 3), lim = 4 ext - 4, so every window stays in the
+    planes; q2ok (nmb, 4), whether the unclamped prev_mv was inside that
+    range)."""
     S = 2 * window + 1
     lim = 4 * (window + 2) - 4
-    k = int_map.argmin(dim=1)
+    k = best.to(I32)
     c1 = (torch.stack([k % S - window, k // S - window], dim=-1) * 4).to(I32)
     prev = prev_mv.to(I32)
     q2ok = (prev.abs() <= lim - 3).all(dim=-1)
@@ -97,11 +92,12 @@ def pframe_maps(src_y, planes, prev_mv, wmb: int, hmb: int, window: int,
     metric_id, lam, ext."""
     ext = window + 2
     metric_id, lam = me_params(qp)
-    im = integer_score_map(src_y, planes[0], ext, window, metric_id)
-    c1, c2_blk, c2, q2ok = me_centres(im, prev_mv, wmb, hmb, window)
+    # K2: the map in MB-quadrant order and the argmin, one launch
+    im, best = integer_score_map(src_y, planes[0], ext, window, metric_id, p_frame=True)
+    c1, c2_blk, c2, q2ok = me_centres(best, prev_mv, wmb, hmb, window)
     q1, q2 = qpel_refine_maps(src_y, planes, c1, c2_blk, ext, metric_id)
     return {
-        "int_map": blocks_to_mbq(im, wmb, hmb),
+        "int_map": im.view(wmb * hmb, 4, -1),
         "c1mv": blocks_to_mbq(c1, wmb, hmb),
         "q1map": blocks_to_mbq(q1, wmb, hmb),
         "c2mv": c2,

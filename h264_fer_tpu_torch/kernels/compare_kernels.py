@@ -6,7 +6,10 @@ turns (other, this, this, other):
 run from the root of this checkout, OTHER_CHECKOUT being, for example, the
 parent commit unpacked with `git archive`. Each turn is a process of its
 own started in one checkout's root (the two share module names); it builds
-that checkout's kernels, times K2, K3, K4, K5, K6, K4x4, K1t, K1, K7
+that checkout's kernels, times K2 (its block-order map; and as "K2 P
+frame", the map in MB-quadrant order and its argmin, as a P frame takes
+them: one launch where the checkout's K2 writes both, else K2 and the
+eager argmin and blocks_to_mbq), K3, K4, K5, K6, K4x4, K1t, K1, K7
 (through chroma_frame: recon and levels), K8 (on the session encoder's
 P-frame state), K9 (the top-16 of K2's SAD map, metric 0 at window 8,
 of the content pair's second luma plane against the first, edge-padded)
@@ -42,7 +45,7 @@ import subprocess
 import sys
 
 TURN = r'''
-import importlib.util, json, sys, time
+import importlib.util, inspect, json, sys, time
 sys.path.insert(0, ".")
 import torch
 import chip_smoke as cs
@@ -75,6 +78,16 @@ for f in cs.content(2, cs.W, cs.H):
 state = cs.encoder_state(enc)  # the P frame's state before the filter
 sad_map = integer_score_map(pair[1][0], edge_pad(pair[0][0], cs.WINDOW).contiguous(),
                             cs.WINDOW, cs.WINDOW, 0)
+if "p_frame" in inspect.signature(integer_score_map).parameters:  # K2 writes both
+    def k2_p_frame():
+        return integer_score_map(*args["me_int"][:5], p_frame=True)
+else:  # K2's block-order map, then the eager argmin and order of codec/pframe.py
+    from h264_fer_tpu_torch.codec.pframe import blocks_to_mbq
+
+    def k2_p_frame():
+        m = integer_score_map(*args["me_int"][:5])
+        return (blocks_to_mbq(m, cs.W // 16, cs.H // 16).view(m.shape),
+                m.argmin(dim=1).to(torch.int32))
 
 
 def timed(fn, reps, queued):
@@ -99,7 +112,8 @@ def timed(fn, reps, queued):
 
 
 runs = {
-    "K2": (lambda: integer_score_map(*args["me_int"]), 20),
+    "K2": (lambda: integer_score_map(*args["me_int"][:5]), 20),
+    "K2 P frame": (k2_p_frame, 20),
     "K3": (lambda: qpel_refine_maps(*args["me_qpel"]), 20),
     "K4": (lambda: pframe_decide(*args["wavefront_p"]), 20),
     "K5": (lambda: mc_bulk(*args["mc"]), 20),

@@ -64,3 +64,11 @@ def neighbours(plane, n: int, top=None):
     tops = pp[0:h:n, 1 : w + 1].reshape(hm, wm, n)
     return torch.cat([corner[..., None], lefts, tops], dim=-1).reshape(
         hm * wm, 2 * n + 1)
+
+
+def blocks_to_mbq(x, wmb: int, hmb: int):
+    """(nb, ...) raster 8x8-block order → (nmb, 4, ...) MB-quadrant order:
+    block (2r + qy, 2c + qx) is quadrant 2 qy + qx of MB (r, c)."""
+    tail = x.shape[1:]
+    x = x.reshape(hmb, 2, wmb, 2, *tail).transpose(1, 2)
+    return x.reshape(hmb * wmb, 4, *tail).contiguous()

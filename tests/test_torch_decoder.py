@@ -88,21 +88,44 @@ def streams(clip):
     return port_streams(clip)
 
 
-def assert_same_decode(stream: bytes, ours, ref, label: str) -> int:
-    """Feed `stream` NAL by NAL to the port's decoder `ours` and the JAX
-    decoder `ref`; after every slice the frames and the per-MB state must
-    be equal. Returns the number of frames."""
+@pytest.fixture(scope="module")
+def jax_steps(streams):
+    """(path, deblock, spec) → the JAX decoder's output after each NAL of
+    the path's stream: None, or (its planes, its per-MB state), copied.
+    Each is decoded once and held against both forms of the port's."""
+    done = {}
+
+    def get(path, deblock, spec):
+        if (path, deblock, spec) not in done:
+            ref, steps = jax_decoder_for(deblock, spec), []
+            for u in nal.iter_nal_units(streams[path]):
+                want = ref.decode_nal(u)
+                steps.append(None if want is None else (
+                    [np.array(p) for p in want],
+                    {key: np.array(getattr(ref, key)) for key in STATE}))
+            done[path, deblock, spec] = steps
+        return done[path, deblock, spec]
+    return get
+
+
+def assert_same_decode(stream: bytes, ours, steps, label: str) -> int:
+    """Feed `stream` NAL by NAL to the port's decoder `ours`; after every
+    slice its frames and per-MB state must equal the JAX decoder's `steps`
+    (jax_steps). Returns the number of frames."""
     n = 0
-    for u in nal.iter_nal_units(stream):
-        got, want = ours.decode_nal(u), ref.decode_nal(u)
-        assert (got is None) == (want is None)
+    units = list(nal.iter_nal_units(stream))
+    assert len(units) == len(steps)
+    for u, step in zip(units, steps):
+        got = ours.decode_nal(u)
+        assert (got is None) == (step is None)
         if got is None:
             continue
+        want, state = step
         for k, name in enumerate(("y", "cb", "cr")):
             assert got[k].dtype == np.uint8
             np.testing.assert_array_equal(got[k], want[k], err_msg=f"{label} frame {n} {name}")
         for key in STATE:
-            np.testing.assert_array_equal(getattr(ours, key), getattr(ref, key),
+            np.testing.assert_array_equal(getattr(ours, key), state[key],
                                           err_msg=f"{label} frame {n} {key}")
         n += 1
     return n
@@ -139,9 +162,9 @@ def test_drugi_x264_stream_bit_exact(fixtures_dir):
 @pytest.mark.parametrize("spec", [False, True], ids=["default", "spec"])
 @pytest.mark.parametrize("deblock", [False, True], ids=["nofilter", "filter"])
 @pytest.mark.parametrize("path", ["all-intra", "IPPP", "mixed", "session"])
-def test_port_streams_decode_as_jax(streams, path, deblock, spec, form):
+def test_port_streams_decode_as_jax(streams, jax_steps, path, deblock, spec, form):
     ours = Decoder(deblock=deblock, device="cpu", native=FORMS[form], spec_mode=spec)
-    n = assert_same_decode(streams[path], ours, jax_decoder_for(deblock, spec), path)
+    n = assert_same_decode(streams[path], ours, jax_steps(path, deblock, spec), path)
     assert n == {"all-intra": 3, "IPPP": 4, "mixed": 2, "session": 5}[path]
 
 

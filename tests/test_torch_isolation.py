@@ -3,6 +3,7 @@ its default (CUDA) entry points raise where there is no card."""
 
 import ast
 import importlib
+import os
 import pathlib
 import subprocess
 import sys
@@ -20,6 +21,9 @@ torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = sorted((ROOT / "h264_fer_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the subprocesses' torch on one thread, as this process's: tensors of a few
+# MBs run no faster on more, and the test workers share the cores
+ENV = dict(os.environ, OMP_NUM_THREADS="1")
 
 
 def _forbidden(module: str) -> bool:
@@ -38,7 +42,7 @@ def test_entry_on_cpu_leaves_jax_out_of_sys_modules():
         "('jax', 'jaxlib', 'h264_fer_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=ENV,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
@@ -65,7 +69,7 @@ def test_session_encoder_and_cli_leave_jax_out_of_sys_modules(tmp_path, fixtures
         "('jax', 'jaxlib', 'h264_fer_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=ENV,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "clean"
@@ -94,7 +98,7 @@ def test_decoder_and_cli_decode_leave_jax_out_of_sys_modules(tmp_path, fixtures_
         "('jax', 'jaxlib', 'h264_fer_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=ENV,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "clean"
@@ -124,7 +128,7 @@ def test_multi_device_encoders_leave_jax_out_of_sys_modules():
         "('jax', 'jaxlib', 'h264_fer_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=ENV,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "clean"

@@ -145,7 +145,7 @@ def test_k3_tiles_score_as_the_plain_twin(metric_id):
     im = torch.from_numpy(rng.integers(0, 1000, (nb, (2 * WINDOW + 1) ** 2)))
     prev = torch.from_numpy(rng.integers(-LIM - 9, LIM + 10, (wmb * hmb, 4, 2))
                             .astype(np.int32))
-    c1, c2, _, _ = me_centres(im, prev, wmb, hmb, WINDOW)
+    c1, c2, _, _ = me_centres(im.argmin(dim=1), prev, wmb, hmb, WINDOW)
     assert (c2.abs() == LIM - 3).any() and (c2 % 4 != 0).any() and (c2 < 0).any()
     c3 = torch.from_numpy(rng.integers(-(LIM - 3), LIM - 2, (nb, 2)).astype(np.int32))
     src_t = torch.from_numpy(src)

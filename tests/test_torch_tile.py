@@ -208,15 +208,28 @@ def test_band_entropy_spliced_equals_full_frame(clip, n):
         assert splice(parts) == want, fn.__name__
 
 
+@pytest.fixture(scope="module")
+def one_device(clip):
+    """(mode, n) → the one-device stream of the clip's first n frames and its
+    decoded pictures, each encoded and decoded once for the file's tests."""
+    done = {}
+
+    def get(mode, n):
+        if (mode, n) not in done:
+            want = GopIntraEncoder(W, H, QP, mode=mode, device="cpu").encode_sequence(clip[:n])
+            done[mode, n] = want, list(Decoder(device="cpu").decode_annexb(want))
+        return done[mode, n]
+    return get
+
+
 @pytest.mark.parametrize("mode, n", [("i16", 3), ("i16", 9), ("i16", 2), ("i16", 4),
                                      ("mixed", 3), ("mixed", 2)])
-def test_tile_stream_equals_one_device_stream(clip, mode, n):
+def test_tile_stream_equals_one_device_stream(clip, one_device, mode, n):
     frames = clip[:2]
-    want = GopIntraEncoder(W, H, QP, mode=mode, device="cpu").encode_sequence(frames)
+    want, decoded = one_device(mode, 2)
     enc = TileIntraEncoder(W, H, QP, devices=["cpu"] * n, mode=mode)
     assert (enc.n_tile, enc.hloc, enc.hmb_pad) == (n, -(-HMB // n), n * -(-HMB // n))
     assert enc.encode_sequence(frames, keep_recon=True) == want
-    decoded = list(Decoder(device="cpu").decode_annexb(want))
     assert len(enc.recon) == len(decoded) == len(frames)
     for got, ref in zip(enc.recon, decoded):
         for a, b in zip(got, ref):
@@ -239,14 +252,13 @@ def test_tile_idr_pic_id_counts_frames(clip):
 
 @pytest.mark.parametrize("mode, n_gop, n_tile", [("i16", 2, 3), ("i16", 2, 9), ("i16", 4, 1),
                                                  ("mixed", 2, 3)])
-def test_gop_tile_stream_equals_one_device_stream(clip, mode, n_gop, n_tile):
+def test_gop_tile_stream_equals_one_device_stream(clip, one_device, mode, n_gop, n_tile):
     frames = clip[:3]  # an odd count: the gop rows' shares differ
-    want = GopIntraEncoder(W, H, QP, mode=mode, device="cpu").encode_sequence(frames)
+    want, decoded = one_device(mode, 3)
     enc = GopTileIntraEncoder(W, H, QP, n_gop, n_tile, devices=["cpu"] * (n_gop * n_tile + 1),
                               mode=mode)
     assert len(enc.devices) == n_gop * n_tile
     assert enc.encode_sequence(frames, keep_recon=True) == want
-    decoded = list(Decoder(device="cpu").decode_annexb(want))
     for got, ref in zip(enc.recon, decoded):
         for a, b in zip(got, ref):
             np.testing.assert_array_equal(a, b)

@@ -13,11 +13,11 @@ import torch
 
 import jax.numpy as jnp
 
-from h264_fer_tpu.codec.tpu_intra import intra_mode_decision
 from h264_fer_tpu.kernels.wavefront import wavefront_i16_frame
 from h264_fer_tpu.kernels.wavefront_pallas import pallas_i16_frame, pallas_i16_frame_fast
 from h264_fer_tpu.ops.intra import INTRA16_TO_CHROMA_MODE
 from h264_fer_tpu.ops.transform import chroma_qp
+from h264_fer_tpu_torch.codec.intra_decision import intra16_mode_decision_plain
 from h264_fer_tpu_torch.kernels.wavefront_i16 import (i16_frame, i16_frame_plain, i16_recon,
                                                       i16_recon_plain)
 
@@ -38,6 +38,16 @@ def _port(planes, m16, cm, qp):
                      qp, chroma_qp(qp))
 
 
+def _decided_modes(y, qp):
+    """(mode16, chroma mode) int32 of the I16 mode decision of luma y: the
+    port's plain decision, which tests/test_torch_mode_decision.py (the I16
+    form) and tests/test_torch_i4x4.py (the full form) hold equal to the
+    JAX intra_mode_decision, so no JAX decision is compiled here for each
+    QP and grid."""
+    m16 = intra16_mode_decision_plain(torch.from_numpy(y), qp)[0].numpy()
+    return m16, np.asarray(INTRA16_TO_CHROMA_MODE, np.int32)[m16]
+
+
 def _compare(ref, got, what):
     for name, r, g in zip(NAMES, ref, got):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r),
@@ -50,13 +60,11 @@ def test_plain_k1_and_levels_match_pallas_fast(wh, qp):
     w, h = wh
     planes = _planes(np.random.default_rng(13), w, h)
     y32 = jnp.asarray(planes[0], jnp.int32)
-    m16 = intra_mode_decision(y32, wmb=w // 16, hmb=h // 16, qp=qp,
-                              i16_only=True)["mode16"]
-    cm = jnp.asarray(INTRA16_TO_CHROMA_MODE)[m16]
+    m16, cm = _decided_modes(planes[0], qp)
     ref = pallas_i16_frame_fast(
-        y32, *(jnp.asarray(p, jnp.int32) for p in planes[1:]), m16, cm,
-        wmb=w // 16, hmb=h // 16, qp=qp, qpc=chroma_qp(qp))
-    got = _port(planes, np.array(m16, np.int32), np.array(cm, np.int32), qp)
+        y32, *(jnp.asarray(p, jnp.int32) for p in planes[1:]), jnp.asarray(m16),
+        jnp.asarray(cm), wmb=w // 16, hmb=h // 16, qp=qp, qpc=chroma_qp(qp))
+    got = _port(planes, m16, cm, qp)
     _compare(ref, got, f"{w}x{h} qp{qp}")
 
 
@@ -69,13 +77,11 @@ def test_plain_k1t_matches_pallas_i16_frame(wh, qp):
     w, h = wh
     planes = _planes(np.random.default_rng(7), w, h)
     y32, cb32, cr32 = (jnp.asarray(p, jnp.int32) for p in planes)
-    m16 = intra_mode_decision(y32, wmb=w // 16, hmb=h // 16, qp=qp)["mode16"]
-    cm = jnp.asarray(INTRA16_TO_CHROMA_MODE)[m16]
-    ref = pallas_i16_frame(y32, cb32, cr32, m16, cm, wmb=w // 16, hmb=h // 16,
-                           qp=qp, qpc=chroma_qp(qp))
+    m16, cm = _decided_modes(planes[0], qp)
+    ref = pallas_i16_frame(y32, cb32, cr32, jnp.asarray(m16), jnp.asarray(cm),
+                           wmb=w // 16, hmb=h // 16, qp=qp, qpc=chroma_qp(qp))
     t = [torch.from_numpy(p) for p in planes]
-    got = i16_frame_plain(*t, torch.from_numpy(np.array(m16, np.int32)),
-                          torch.from_numpy(np.array(cm, np.int32)), qp, chroma_qp(qp))
+    got = i16_frame_plain(*t, torch.from_numpy(m16), torch.from_numpy(cm), qp, chroma_qp(qp))
     _compare(ref, got, f"K1t {w}x{h} qp{qp}")
 
 
