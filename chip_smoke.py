@@ -30,7 +30,13 @@ Phases (any failure exits non-zero and prints no result line; each
      tests/fixtures/clip_qcif_10f.y4m at QP 28 from the card must equal the
      CPU path's and have the SHA-256 DEVICE_DIGESTS gives it (the JAX
      GopIntraEncoder's stream, recomputed by tests/test_torch_iframe.py).
-     Prints e2e fps, device frame fps and the per-stage device times;
+     The encoder replays its frame program, a CUDA graph captured in the
+     warm-up (codec/program.py), once a frame. Prints e2e fps, device
+     frame fps, the per-stage device times, the busy share of its replays
+     (CUDA events around each; no profiler over graph replays) and
+     the program's capture time, beside one run of the same encoder
+     issuing its launches eagerly (eager_programs()): its e2e fps and busy
+     share;
   4. hold K13 (the 16 interpolated planes, one launch a reference), K2
      (integer search: the map in MB-quadrant order and the argmin in one
      launch, as the P frame takes them, and its block-order form on the
@@ -67,7 +73,8 @@ Phases (any failure exits non-zero and prints no result line; each
      DEVICE_DIGESTS digest (tests/test_torch_ippp.py). Prints e2e fps,
      device ms per P frame for each stage and the counted launches (one
      K1t and one K11 I16 form per IDR, one K13, K2, K3, K4, K5 and K12
-     per P frame, one K10 per frame);
+     per P frame, one K10 per frame); each GOP is one replay of its GOP
+     program; the eager run beside it, as in phase 3;
   6. hold K4x4 (Intra_4x4 recon and levels), K7 (chroma wavefront writing
      its levels) and K6 (mixed arbitration wavefront), each one dataflow
      launch per frame, against their plain twins on the card, bit-exact on
@@ -95,7 +102,8 @@ Phases (any failure exits non-zero and prints no result line; each
      stream of the clip's first 2 frames at QP 28 from the card must equal
      the CPU path's and have its DEVICE_DIGESTS digest
      (tests/test_torch_mixed.py). Prints e2e fps, device ms of each stage
-     of one frame and the profiled busy share;
+     of one frame and the replays' busy share, through the frame program,
+     and the eager run beside it, as in phase 3;
   8. hold K8 (the in-loop filter, one dataflow launch per frame) against
      its plain twin on the card, bit-exact: at 1920x1088 on an I frame's
      state at QP 16, 28 and 46 and on a P frame's state at QP 28, 36 and 46
@@ -118,8 +126,9 @@ Phases (any failure exits non-zero and prints no result line; each
      IDRs and with mixed IDRs, must equal the CPU path's, and the i16 one
      (the clip's 10 frames, QP 30, intra_every 4, deblock) have its
      DEVICE_DIGESTS digest (tests/test_torch_encoder.py). Prints e2e fps,
-     K8's ms and launches per frame, the session's stage times and the
-     profiled busy share;
+     K8's ms and launches per frame, the session's stage times (one
+     replay of the IDR and of the P frame program) and the replays' busy
+     share, and the eager run beside it, as in phase 3;
   10. drive the host path, the reference encoder's exact per-MB loop on the
      host with the in-loop filter K8 on the card: Encoder(1920, 1088,
      EncoderConfig(qp=28, intra_every=8, deblock=True), iframe="host",
@@ -254,7 +263,20 @@ Phases (any failure exits non-zero and prints no result line; each
      stream's frames, median decode fps of 5 runs after a warm-up and K8
      launches per frame; the QCIF session streams decode equal on the
      card and on the CPU (plain K8);
-  16. print the kernels line (K8's row also with its launches on the host
+  16. the device programs (codec/program.py) against the eager launches
+     of the same kernels on the card, in every output: the whole-GOP IPPP
+     program of 8 frames and of a short last GOP of 3 (payload words and
+     nbits, every frame's reference planes, the final planes and MVs),
+     the I16 and the mixed frame programs (every output of the frame
+     function), each replayed twice on different 1080p frames, the first
+     replay's copied payloads held again after the second; the session's
+     IDR and P frame programs (intra_every 3, the filter on: the NAL
+     bytes and the state after each of 5 frames, IDR, P, P, IDR, P); each
+     program's captured launches equal to the eager run's; and two lanes
+     of the card replaying at once (GopIpppEncoder and GopIntraEncoder on
+     ["cuda:0"] * 2) against one eager lane: streams and every frame's
+     reference planes. Prints each program's capture time;
+  17. print the kernels line (K8's row also with its launches on the host
      path and on the session stream's decode, K2's with its launches on
      the --tpu-me path, K9's with torch.topk's time as library_ms, K12's
      and K13's with their launches on the P-band paths and K13's on the
@@ -270,6 +292,8 @@ Imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import hashlib
 import json
 import pathlib
@@ -277,7 +301,6 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import contextmanager
 from unittest import mock
 
 import numpy as np
@@ -364,6 +387,7 @@ P_QPS = (28, 40, 46)  # SAD, SSD and 2*SSD tiers
 # bit-exact, so a kernel redesign must leave them so)
 STREAM_BYTES = {"all-intra": 3_227_147, "IPPP": 7_478_701, "mixed": 3_202_684,
                 "session": 7_081_712, "host_me_topk": 844_436}
+SMALL = [("176x144", 176, 144), ("80x176", 80, 176)]  # phases 2 and 6's small frames
 # H100 SXM at 700 W: HBM3 rate (data sheet), and the int32 rate of the CUDA
 # cores: 132 SMs x 128 lanes a clock x 1.98 GHz boost, the SM's issue rate
 # (4 schedulers x 32 lanes), which int32 work reaches with IMAD and dp4a on
@@ -619,32 +643,46 @@ def check_k1t(torch, dev, name, frame, qp, modes=None, blocks=None):
     return err, ms, plain_ms, bound_ms, bound_by, queued_ms
 
 
+def k1_phase(torch, dev, rng):
+    """Phase 2: K1 and K1t against their plain twins at small sizes, with
+    the grid forced small, in random modes (drawn from rng) at QP 0 and 51,
+    and at 1080p at each CHECK_QPS; then one K1 call, counted. Returns
+    ({qp: K1's check_k1}, {qp: K1t's check_k1t}, K1's launches in that
+    call)."""
+    from h264_fer_tpu_torch.kernels.wavefront_i16 import i16_recon
+    from h264_fer_tpu_torch.ops.transform import chroma_qp
+
+    for label, w, h in SMALL + [("16x144", 16, 144), ("176x16", 176, 16)]:
+        for check in (check_k1, check_k1t):
+            check(torch, dev, label, content(1, w, h)[0], QP)
+    for label, w, h in (("176x144", 176, 144), ("64x208", 64, 208)):
+        for blocks in (1, 3):  # the persistent grid forced small
+            for check in (check_k1, check_k1t):
+                check(torch, dev, label, content(1, w, h)[0], QP, blocks=blocks)
+    # every mode at every MB, the frame edges included, where the -1
+    # neighbours of V, H and Plane enter the prediction
+    for qp in (0, 51):
+        modes = tuple(rng.integers(0, 4, 99).astype(np.int32) for _ in range(2))
+        for check in (check_k1, check_k1t):
+            check(torch, dev, "176x144 random modes", content(1, 176, 144)[0], qp, modes)
+    k1, k1t = {}, {}
+    frame = content(1, W, H)[0]
+    for qp in CHECK_QPS:
+        k1[qp] = check_k1(torch, dev, f"{W}x{H}", frame, qp)
+        k1t[qp] = check_k1t(torch, dev, f"{W}x{H}", frame, qp)
+    # K1's own path, now that K1t runs on every encode path: one call
+    y, cb, cr = (torch.from_numpy(p).to(dev) for p in frame)
+    modes = torch.zeros(y.numel() // 256, dtype=torch.int32, device=dev)
+    i16_recon.launches = 0
+    i16_recon(y, cb, cr, modes, modes, QP, chroma_qp(QP))
+    return k1, k1t, i16_recon.launches
+
+
 def check_bytes(path: str, stream: bytes) -> None:
     """Raise unless the 1080p stream of `path` has its STREAM_BYTES length."""
     if len(stream) != STREAM_BYTES[path]:
         raise AssertionError(f"{path} stream: {len(stream)} bytes, expected "
                              f"{STREAM_BYTES[path]}")
-
-
-@contextmanager
-def recording(owner, attr: str, store: list, pick):
-    """Within the block, owner.attr is a wrapper of itself that appends
-    pick(result) of every call to store."""
-    fn = getattr(owner, attr)
-
-    def wrapped(*args, **kwargs):
-        out = fn(*args, **kwargs)
-        store.append(pick(out))
-        return out
-
-    with mock.patch.object(owner, attr, wrapped):
-        yield
-
-
-def recon_of(out):
-    """The recon planes of a frame dict (device_i16_frame's and
-    device_mixed_frame's)."""
-    return out["recon_y"], out["recon_cb"], out["recon_cr"]
 
 
 def decode_gate(torch, dev, label: str, stream: bytes, recon, kw: dict, name: str,
@@ -780,6 +818,7 @@ def device_busy(torch, fn):
 
     fn()
     torch.cuda.synchronize()
+    gc.collect()  # nothing left for the collector to free inside the window
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
@@ -790,6 +829,31 @@ def device_busy(torch, fn):
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     return wall * 1e3, busy, [(e.key, e.self_device_time_total / 1e3, e.count)
                               for e in top]
+
+
+def replay_busy(torch, fn):
+    """One call of fn(), whose device work is device program replays,
+    after a warm-up call: (wall ms, device ms of the replays, the number
+    of replays). Each replay is bracketed by CUDA events on its stream
+    (DeviceProgram.spans), so the device time counts each graph from its
+    first launch to its last, the gaps inside it included, and no copy
+    between replays. torch.profiler is not run over graph replays: its
+    CUPTI tracing crashed the process (SIGSEGV in CUDAGraph.replay) in 2
+    of 8 full runs of this script on an H100, both over the session's
+    replays."""
+    from h264_fer_tpu_torch.codec.program import DeviceProgram
+
+    fn()
+    torch.cuda.synchronize()
+    DeviceProgram.spans = spans = []
+    try:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        DeviceProgram.spans = None
+    return wall * 1e3, sum(a.elapsed_time(b) for a, b in spans), len(spans)
 
 
 def timed_once(torch, fn):
@@ -1728,8 +1792,9 @@ def plain_patches():
 
 def plain_session_stream(torch, dev, cfg, frames, counted) -> bytes:
     """The session stream of `frames` through the oracle chain on the card:
-    the same Encoder with every kernel swapped for its plain twin. Fails if
-    a counted kernel launched meanwhile."""
+    the same Encoder with every kernel swapped for its plain twin, its
+    device programs run eagerly. Fails if a counted kernel launched
+    meanwhile."""
     from contextlib import ExitStack
 
     from h264_fer_tpu_torch.codec.encoder import Encoder
@@ -1739,6 +1804,7 @@ def plain_session_stream(torch, dev, cfg, frames, counted) -> bytes:
         for patch in plain_patches():
             stack.enter_context(patch)
         h, w = frames[0][0].shape
+        stack.enter_context(eager_programs())
         stream = Encoder(w, h, cfg, device=dev).encode_sequence(frames)
     if [fn.launches for fn in counted] != before:
         raise AssertionError("a kernel launched in the plain session chain")
@@ -1951,6 +2017,187 @@ def e2e_fps(torch, enc, frames, runs: int = 3):
     return sorted(fps)
 
 
+def capture_line(label: str, programs, name: str) -> str:
+    """The capture time (warm-up and capture, host ms) of each program in
+    `programs` (a dict of key → DeviceProgram), as one line."""
+    caps = ", ".join(f"{key[0]}{f' n={key[7]}' if key[0] == 'ippp' else ''} "
+                     f"{prog.capture_ms:.1f} ms" for key, prog in programs.items()
+                     if prog.capture_ms is not None)
+    return f"{label} programs captured: {caps or 'none'} on {name}"
+
+
+@contextlib.contextmanager
+def eager_programs():
+    """Context in which the device programs made run their launches
+    eagerly on the card, not as CUDA graphs: the baseline that the
+    programs' replays are compared with."""
+    from h264_fer_tpu_torch.codec.program import DeviceProgram
+
+    DeviceProgram.graphs = False
+    try:
+        yield
+    finally:
+        DeviceProgram.graphs = True
+
+
+def eager_beside(torch, label: str, make, frames, name: str, busy_frames: int) -> str:
+    """One run of the path issuing its launches eagerly (make() returns
+    the path's encoder, whose programs run eagerly under eager_programs())
+    after a warm-up: its e2e fps (host clock around one encode_sequence of
+    `frames`, on a fresh encoder as the session's e2e runs take it) and its
+    busy share profiled over the first busy_frames frames, as one line."""
+    with eager_programs():
+        make().encode_sequence(frames[:2])  # warm-up
+        torch.cuda.synchronize()
+        enc = make()
+        t0 = time.perf_counter()
+        enc.encode_sequence(frames)
+        fps = len(frames) / (time.perf_counter() - t0)
+        wall, busy, _ = device_busy(torch, lambda: make().encode_sequence(frames[:busy_frames]))
+    share = f"{100 * busy / wall:.1f} %" if busy > 0 else "not measured"
+    return (f"{label} eager (eager_programs()): e2e fps {fps:.2f} (one run), device busy "
+            f"{share} over {busy_frames} frames on {name}")
+
+
+def same_outputs(torch, got, want, label: str) -> None:
+    """Raise unless every output in `want` (a dict of tensors or lists of
+    tensors) equals got's, dtype and all."""
+    for key, w in want.items():
+        g = got[key]
+        pairs = list(zip(g, w)) if isinstance(w, (list, tuple)) else [(g, w)]
+        if len(pairs) != (len(w) if isinstance(w, (list, tuple)) else 1) or any(
+                a.dtype != b.dtype or not torch.equal(a, b) for a, b in pairs):
+            raise AssertionError(f"{label}: program output {key} != the eager launches'")
+
+
+def counted_run(fn):
+    """(fn(), {wrapper: launches fn made}) over every counting wrapper."""
+    from h264_fer_tpu_torch.codec.program import counters
+
+    fns = counters()
+    before = [f.launches for f in fns]
+    out = fn()
+    return out, {f: f.launches - b for f, b in zip(fns, before) if f.launches != b}
+
+
+def check_captured(prog, eager_launches: dict, label: str) -> None:
+    """Raise unless the program's replay adds the eager run's launches."""
+    if prog.captured != eager_launches:
+        got = {f.__name__: n for f, n in prog.captured.items()}
+        want = {f.__name__: n for f, n in eager_launches.items()}
+        raise AssertionError(f"{label}: a replay launches {got}, the eager run {want}")
+
+
+def program_phase(torch, dev, name) -> None:
+    """Phase 16: each device program's replays against the eager launches
+    of the same kernels on the card, in every output (module docstring)."""
+    from h264_fer_tpu_torch.codec.encoder import Encoder, EncoderConfig
+    from h264_fer_tpu_torch.codec.gop import device_gop_ippp
+    from h264_fer_tpu_torch.codec.iframe import device_i16_frame, device_mixed_frame
+    from h264_fer_tpu_torch.ops.device import upload_into
+    from h264_fer_tpu_torch.ops.transform import chroma_qp
+    from h264_fer_tpu_torch.parallel.gop_device import GopIntraEncoder, GopIpppEncoder
+
+    qpc = chroma_qp(QP)
+    frames = content(2 * GOP_LEN + 3, W, H)
+
+    def fresh(fs):
+        return [tuple(torch.from_numpy(p).to(dev) for p in f) for f in fs]
+
+    # the whole-GOP program: GOP_LEN frames, then a short last GOP of 3
+    enc = GopIpppEncoder(W, H, QP, gop_len=GOP_LEN, device=dev)
+    lane = enc.lanes[0]
+    keep = ("words", "nbits", "recon")
+    for n, starts in ((GOP_LEN, (0, GOP_LEN)), (3, (2 * GOP_LEN, 1))):
+        prog = enc._program(lane, n)
+        first = None
+        for s in starts:
+            with lane.queue():
+                for k, slot in enumerate(("ys", "cbs", "crs")):
+                    upload_into(prog.slots[slot], [f[k] for f in frames[s: s + n]])
+                got = prog(keep=keep)
+            if lane.stream is not None:  # the CPU in a rehearsal
+                lane.stream.synchronize()
+            ys, cbs, crs = zip(*fresh(frames[s: s + n]))
+            out, launched = counted_run(lambda: device_gop_ippp(
+                ys, cbs, crs, enc.hdr_bits[: n - 1], enc.window, QP, qpc, enc.maxdiff,
+                enc.prefilter))
+            want = {"words": [f["words"] for f in out["frames"]],
+                    "nbits": torch.stack([f["nbits"] for f in out["frames"]]),
+                    "recon": [p for f in out["frames"] for p in f["recon"]],
+                    **{k: out[k] for k in ("recon_y", "recon_cb", "recon_cr", "mv")}}
+            same_outputs(torch, got, want, f"GOP of {n} from frame {s}")
+            check_captured(prog, launched, f"GOP of {n}")
+            first = first or (got, {k: want[k] for k in keep})
+        same_outputs(torch, *first, f"GOP of {n}: the first replay's payloads")
+    print(f"GOP programs (n = {GOP_LEN}, 3): two replays each == the eager launches "
+          "(words, nbits, every frame's reference planes, final planes and MVs; "
+          "launches); the first replay's payloads kept", flush=True)
+    print(capture_line("IPPP", lane.programs, name), flush=True)
+
+    # the I16 and mixed frame programs
+    for mode, frame_fn in (("i16", device_i16_frame), ("mixed", device_mixed_frame)):
+        ienc = GopIntraEncoder(W, H, QP, mode=mode, device=dev)
+        ilane = ienc.lanes[0]
+        prog = ienc._program(ilane)
+        first = None
+        for f in frames[:2]:
+            with ilane.queue():
+                for slot, plane in zip(("y", "cb", "cr"), f):
+                    upload_into(prog.slots[slot], plane)
+                got = prog(keep=("words", "nbits", "recon_y"))
+            if ilane.stream is not None:
+                ilane.stream.synchronize()
+            want, launched = counted_run(lambda: frame_fn(*fresh([f])[0], QP, qpc))
+            same_outputs(torch, got, want, f"{mode} frame")
+            check_captured(prog, launched, f"{mode} frame")
+            first = first or (got, {k: want[k] for k in ("words", "nbits", "recon_y")})
+        same_outputs(torch, *first, f"{mode} frame: the first replay's payload")
+        print(capture_line(mode, ilane.programs, name), flush=True)
+    print("I16 and mixed frame programs: two replays each == the eager launches (every "
+          "output, launches); the first replay's payload kept", flush=True)
+
+    # the session's IDR and P frame programs against the same encoder, eager
+    cfg = EncoderConfig(qp=QP, intra_every=3, deblock=True)
+    graph, eager = (Encoder(W, H, cfg, device=dev) for _ in range(2))
+    for i, f in enumerate(frames[:5]):
+        nal_g = graph.encode_frame(*f)
+        with eager_programs():
+            nal_e, launched = counted_run(lambda: eager.encode_frame(*f))
+        if nal_g != nal_e:
+            raise AssertionError(f"session frame {i}: the program's NAL != the eager one's")
+        for a, b in zip((*graph._ref, graph._mv, graph._mb_class, graph._nz),
+                        (*eager._ref, eager._mv, eager._mb_class, eager._nz)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"session frame {i}: program state != eager state")
+        kind = "idr" if graph.stats[-1]["idr"] else "p"
+        prog = [p for key, p in graph._programs.items() if key[0] == kind][0]
+        check_captured(prog, launched, f"session {kind} frame {i}")
+    if [s["idr"] for s in graph.stats] != [True, False, False, True, False]:
+        raise AssertionError(f"session frame types {[s['idr'] for s in graph.stats]}")
+    print("session programs (IDR, P, P, IDR, P; intra_every 3, deblock): NAL bytes and "
+          "state == the eager encoder's after every frame; launches", flush=True)
+    print(capture_line("session", graph._programs, name), flush=True)
+
+    # two lanes of the card replaying at once, against one eager lane
+    for label, make, fs in (
+            ("GopIpppEncoder", lambda **kw: GopIpppEncoder(W, H, QP, gop_len=4, **kw),
+             frames[:16]),
+            ("GopIntraEncoder", lambda **kw: GopIntraEncoder(W, H, QP, **kw), frames[:4])):
+        two, one = make(devices=[dev] * 2), make(device=dev)
+        s2 = two.encode_sequence(fs, keep_recon=True)
+        with eager_programs():
+            s1 = one.encode_sequence(fs, keep_recon=True)
+        if s2 != s1 or any(not torch.equal(a, b) for r2, r1 in zip(two.recon, one.recon)
+                           for a, b in zip(r2, r1)) or len(two.recon) != len(fs):
+            raise AssertionError(f"{label} on two lanes != one eager lane")
+        if any(len(lane.programs) != 1 for lane in two.lanes):
+            raise AssertionError(f"{label}: a lane holds {[len(l.programs) for l in two.lanes]}")
+    print("two lanes of one card (GopIpppEncoder: 4 GOPs of 4, GopIntraEncoder: 4 frames), "
+          f"replaying at once == one eager lane (streams, every frame's planes) on {name}",
+          flush=True)
+
+
 def multi_device_configs(dev, distinct: bool):
     """The multi-device phase's 1080p configurations: (label, path whose
     one-device stream it must equal, encoder maker, entries per config).
@@ -2050,7 +2297,7 @@ def multi_device_phase(torch, dev, name, to_decode):
     wall, busy, top = device_busy(torch, lambda: make().encode_sequence(frames["all-intra"][:2]))
     if busy > 0:
         print(f"profiled 2-frame encode in 4 bands: wall {wall:.1f} ms, kernels {busy:.1f} ms, "
-              f"device busy {100 * busy / wall:.1f} % on {name}")
+              f"device busy {100 * busy / wall:.1f} % on {name}", flush=True)
         for key, ms_k, count in top:
             print(f"  {ms_k:8.3f} ms  {count:6d} x  {key[:90]}")
     else:
@@ -2353,7 +2600,7 @@ def p_band_phase(torch, dev, name, to_decode):
     wall, busy, top = device_busy(torch, lambda: make().encode_sequence(frames[:4]))
     if busy > 0:
         print(f"profiled 4-frame IPPP encode (IDR + 3 P) in 4 bands: wall {wall:.1f} ms, "
-              f"kernels {busy:.1f} ms, device busy {100 * busy / wall:.1f} % on {name}")
+              f"kernels {busy:.1f} ms, device busy {100 * busy / wall:.1f} % on {name}", flush=True)
         for key, ms_k, count in top:
             print(f"  {ms_k:8.3f} ms  {count:6d} x  {key[:90]}")
     else:
@@ -3135,13 +3382,16 @@ def k11_phase(torch, dev, name) -> dict:
 
 
 def main() -> int:
+    import faulthandler
+
     import torch
+
+    faulthandler.enable()  # a crash in native code prints each thread's Python stack
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
               "needs an NVIDIA card", file=sys.stderr)
         return 1
-    from h264_fer_tpu_torch.codec import gop
     from h264_fer_tpu_torch.kernels.interp import interp_planes
     from h264_fer_tpu_torch.kernels.mc import mc_bulk
     from h264_fer_tpu_torch.kernels.me_int import integer_score_map
@@ -3166,39 +3416,15 @@ def main() -> int:
 
     print(f"[phase 1 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- 2. K1 and K1t kernels vs plain ------------------------------------
-    small = [("176x144", 176, 144), ("80x176", 80, 176)]
-    for label, w, h in small + [("16x144", 16, 144), ("176x16", 176, 16)]:
-        for check in (check_k1, check_k1t):
-            check(torch, dev, label, content(1, w, h)[0], QP)
-    for label, w, h in (("176x144", 176, 144), ("64x208", 64, 208)):
-        for blocks in (1, 3):  # the persistent grid forced small
-            for check in (check_k1, check_k1t):
-                check(torch, dev, label, content(1, w, h)[0], QP, blocks=blocks)
-    # every mode at every MB, the frame edges included, where the -1
-    # neighbours of V, H and Plane enter the prediction
-    rng = np.random.default_rng(SEED)
-    for qp in (0, 51):
-        modes = tuple(rng.integers(0, 4, 99).astype(np.int32) for _ in range(2))
-        for check in (check_k1, check_k1t):
-            check(torch, dev, "176x144 random modes", content(1, 176, 144)[0], qp, modes)
-    k1, k1t = {}, {}
-    frame = content(1, W, H)[0]
-    for qp in CHECK_QPS:
-        k1[qp] = check_k1(torch, dev, f"{W}x{H}", frame, qp)
-        k1t[qp] = check_k1t(torch, dev, f"{W}x{H}", frame, qp)
-    # K1's own path, now that K1t runs on every encode path: one call
-    y, cb, cr = (torch.from_numpy(p).to(dev) for p in frame)
-    modes = torch.zeros(y.numel() // 256, dtype=torch.int32, device=dev)
-    i16_recon.launches = 0
-    i16_recon(y, cb, cr, modes, modes, QP, chroma_qp(QP))
-    k1_launches = i16_recon.launches
+    rng = np.random.default_rng(SEED)  # phase 6 draws on after phase 2
+    k1, k1t, k1_launches = k1_phase(torch, dev, rng)
     print(f"K1 and K1t checks done on {name}", flush=True)
 
     print(f"[phase 2 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- 3. main path ----------------------------------------------------------
     frames = content(N_FRAMES, W, H)
     enc = GopIntraEncoder(W, H, QP, device=dev)
-    enc.encode_sequence(frames[:2])  # warm-up: allocator, library load
+    enc.encode_sequence(frames[:2])  # warm-up: allocator, library load, program capture
     torch.cuda.synchronize()
     k10, k11 = k10_counted(), k11_counted()
     for fn in (i16_recon, i16_frame, *k10, *k11):
@@ -3256,14 +3482,13 @@ def main() -> int:
     print("stages (device ms, one frame): "
           + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
           + f" on {name}", flush=True)
-    wall, busy, top = device_busy(torch, lambda: enc.encode_sequence(frames[:2]))
-    if busy > 0:
-        print(f"profiled 2-frame encode: wall {wall:.1f} ms, kernels "
-              f"{busy:.1f} ms, device busy {100 * busy / wall:.1f} % on {name}")
-        for key, ms_k, count in top:
-            print(f"  {ms_k:8.3f} ms  {count:6d} x  {key[:90]}")
-    else:
-        print("device busy share: not measured (the profiler saw no device time)")
+    wall, busy, replays = replay_busy(torch, lambda: enc.encode_sequence(frames[:2]))
+    print(f"timed 2-frame encode: wall {wall:.1f} ms, {replays} program replays "
+          f"{busy:.1f} ms on the device (CUDA events), device busy "
+          f"{100 * busy / wall:.1f} % on {name}", flush=True)
+    print(capture_line("all-intra", enc.lanes[0].programs, name), flush=True)
+    print(eager_beside(torch, "all-intra", lambda: GopIntraEncoder(W, H, QP, device=dev),
+                       frames, name, 2), flush=True)
 
     print(f"[phase 3 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- 4. K2-K5 kernels vs plain twins ------------------------------------
@@ -3285,18 +3510,17 @@ def main() -> int:
     # ---- 5. IPPP main path -----------------------------------------------------
     frames = content(N_IPPP, W, H)
     enc = GopIpppEncoder(W, H, QP, gop_len=GOP_LEN, device=dev)
-    enc.encode_sequence(frames[:2])  # warm-up: allocator, library loads
+    # warm-up: allocator, library loads, the GOP program's capture
+    enc.encode_sequence(frames[:GOP_LEN])
     torch.cuda.synchronize()
     counted = (i16_frame, interp_planes, integer_score_map, qpel_refine_maps, pframe_decide,
                mc_bulk, residual_recon, *k10, *k11)
     for fn in counted:
         fn.launches = 0
-    recon = []
-    with recording(gop, "device_i16_frame", recon, recon_of), \
-            recording(gop, "next_reference", recon, lambda ref: ref[:3]):
-        t0 = time.perf_counter()
-        stream = enc.encode_sequence(frames)
-        e2e_s = [time.perf_counter() - t0]
+    t0 = time.perf_counter()
+    stream = enc.encode_sequence(frames, keep_recon=True)  # each frame's reference planes
+    e2e_s = [time.perf_counter() - t0]
+    recon = enc.recon
     p_launches = {fn.__name__: fn.launches for fn in counted}
     # its P frames' chroma decodes right in the spec-correct mode only
     to_decode["IPPP"] = (stream, recon, {"spec_mode": True})
@@ -3331,20 +3555,20 @@ def main() -> int:
     print("P stages (device ms, one frame): "
           + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
           + f", sum {sum(stages.values()):.3f} on {name}", flush=True)
-    wall, busy, top = device_busy(torch, lambda: enc.encode_sequence(frames[:GOP_LEN]))
-    if busy > 0:
-        print(f"profiled {GOP_LEN}-frame IPPP GOP: wall {wall:.1f} ms, kernels "
-              f"{busy:.1f} ms, device busy {100 * busy / wall:.1f} % on {name}")
-        for key, ms_k, count in top:
-            print(f"  {ms_k:8.3f} ms  {count:6d} x  {key[:90]}")
-    else:
-        print("device busy share: not measured (the profiler saw no device time)")
+    wall, busy, replays = replay_busy(torch, lambda: enc.encode_sequence(frames[:GOP_LEN]))
+    print(f"timed {GOP_LEN}-frame IPPP GOP: wall {wall:.1f} ms, {replays} program replays "
+          f"{busy:.1f} ms on the device (CUDA events), device busy "
+          f"{100 * busy / wall:.1f} % on {name}", flush=True)
+    print(capture_line("IPPP", enc.lanes[0].programs, name), flush=True)
+    print(eager_beside(torch, "IPPP", lambda: GopIpppEncoder(W, H, QP, gop_len=GOP_LEN,
+                                                            device=dev),
+                       frames, name, GOP_LEN), flush=True)
 
     print(f"[phase 5 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- 6. K4x4, K7 and K6 kernels vs plain twins ----------------------------
     # random Intra4x4 modes in every block; the three grids forced to 1 and
     # 3 blocks on QCIF, 16x176 and 176x16 (and on 64x208 below)
-    for label, w, h in small + [("16x176", 16, 176), ("176x16", 176, 16)]:
+    for label, w, h in SMALL + [("16x176", 16, 176), ("176x16", 176, 16)]:
         f = tuple(torch.from_numpy(p).to(dev) for p in content(1, w, h)[0])
         m4 = torch.from_numpy(rng.integers(0, 9, ((w // 16) * (h // 16), 16))
                               .astype(np.int32)).to(dev)
@@ -3372,22 +3596,22 @@ def main() -> int:
     print(f"[phase 6 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- 7. mixed all-intra path ------------------------------------------------
     enc = GopIntraEncoder(W, H, QP, mode="mixed", device=dev)
-    enc.encode_sequence(frames[:2])  # warm-up: allocator, library loads
+    # warm-up: allocator, library loads, the frame program's capture (the
+    # only calls of the frame function's Python: a replay runs none)
+    with mock.patch.object(wavefront_i16, "chroma_levels_from_recon",
+                           wraps=wavefront_i16.chroma_levels_from_recon) as rebuilt:
+        enc.encode_sequence(frames[:2])
     torch.cuda.synchronize()
+    if rebuilt.call_count:
+        raise AssertionError("the mixed path rebuilt the chroma levels from the recon")
     counted = (mixed_luma, chroma_frame, i16_recon, i16_frame, *k10, *k11)
     for fn in counted:
         fn.launches = 0
-    recon = []
-    with mock.patch.object(wavefront_i16, "chroma_levels_from_recon",
-                           wraps=wavefront_i16.chroma_levels_from_recon) as rebuilt, \
-            recording(enc, "_frame", recon, recon_of):
-        t0 = time.perf_counter()
-        stream = enc.encode_sequence(frames)
-        e2e_s = [time.perf_counter() - t0]
-    to_decode["mixed"] = (stream, recon, {"spec_mode": True})
+    t0 = time.perf_counter()
+    stream = enc.encode_sequence(frames, keep_recon=True)
+    e2e_s = [time.perf_counter() - t0]
+    to_decode["mixed"] = (stream, enc.recon, {"spec_mode": True})
     m_launches = {fn.__name__: fn.launches for fn in counted}
-    if rebuilt.call_count:
-        raise AssertionError("the mixed path rebuilt the chroma levels from the recon")
     want = {"mixed_luma": N_FRAMES, "chroma_frame": N_FRAMES,
             "i16_recon": 0, "i16_frame": 0,
             **k10_launches({"chroma": N_FRAMES, "mixed": N_FRAMES}),
@@ -3417,14 +3641,14 @@ def main() -> int:
     print("mixed stages (device ms, one frame): "
           + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
           + f", sum {sum(stages.values()):.3f} on {name}", flush=True)
-    wall, busy, top = device_busy(torch, lambda: enc.encode_sequence(frames[:2]))
-    if busy > 0:
-        print(f"profiled 2-frame mixed encode: wall {wall:.1f} ms, kernels "
-              f"{busy:.1f} ms, device busy {100 * busy / wall:.1f} % on {name}")
-        for key, ms_k, count in top:
-            print(f"  {ms_k:8.3f} ms  {count:6d} x  {key[:90]}")
-    else:
-        print("device busy share: not measured (the profiler saw no device time)")
+    wall, busy, replays = replay_busy(torch, lambda: enc.encode_sequence(frames[:2]))
+    print(f"timed 2-frame mixed encode: wall {wall:.1f} ms, {replays} program replays "
+          f"{busy:.1f} ms on the device (CUDA events), device busy "
+          f"{100 * busy / wall:.1f} % on {name}", flush=True)
+    print(capture_line("mixed", enc.lanes[0].programs, name), flush=True)
+    print(eager_beside(torch, "mixed", lambda: GopIntraEncoder(W, H, QP, mode="mixed",
+                                                              device=dev),
+                       frames, name, 2), flush=True)
 
     print(f"[phase 7 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- 8. K8 kernel vs plain twin ----------------------------------------
@@ -3460,23 +3684,27 @@ def main() -> int:
     # ---- 9. session path ---------------------------------------------------
     cfg = EncoderConfig(qp=QP, intra_every=SESSION_INTRA_EVERY, deblock=True)
     frames = content(N_SESSION, W, H)
-    Encoder(W, H, cfg, device=dev).encode_sequence(frames[:2])  # warm-up
+    # warm-up: one IDR period, which captures the IDR and the P frame
+    # programs; the session goes on with an IDR, so the stream below is a
+    # fresh encoder's, frame for frame
+    enc = Encoder(W, H, cfg, device=dev)
+    enc.encode_sequence(frames[:SESSION_INTRA_EVERY])
     torch.cuda.synchronize()
     counted = (i16_frame, i16_recon, deblock_frame, interp_planes, integer_score_map,
                qpel_refine_maps, pframe_decide, mc_bulk, residual_recon, *k10, *k11)
     for fn in counted:
         fn.launches = 0
-    enc = Encoder(W, H, cfg, device=dev)
     recon = []
     t0 = time.perf_counter()
     stream = enc.headers()  # encode_sequence, keeping each frame's reference planes
     for f in frames:
         stream += enc.encode_frame(*f)
-        recon.append(enc._ref)
+        recon.append(tuple(p.clone() for p in enc._ref))  # the programs' state: copied
     e2e_s = [time.perf_counter() - t0]
     s_launches = {fn.__name__: fn.launches for fn in counted}
     to_decode["session"] = (stream, recon, {"deblock": True})
-    n_idr = sum(st["idr"] for st in enc.stats)
+    stats = enc.stats[-N_SESSION:]
+    n_idr = sum(st["idr"] for st in stats)
     n_p = N_SESSION - n_idr
     want = {"i16_frame": n_idr, "i16_recon": 0, "deblock_frame": N_SESSION,
             "interp_planes": n_p, "integer_score_map": n_p, "qpel_refine_maps": n_p,
@@ -3490,7 +3718,9 @@ def main() -> int:
     rest = stream[len(plain):]  # frame N_PLAIN_SESSION is a P slice
     if not stream.startswith(plain) or not rest.startswith(b"\x00\x00\x00\x01\x21"):
         raise AssertionError("session first frames != plain-chain stream")
-    parse_session_stream(stream, enc.stats, W, H, QP)
+    parse_session_stream(stream, stats, W, H, QP)
+    if stream != Encoder(W, H, cfg, device=dev).encode_sequence(frames):
+        raise AssertionError("session stream of a fresh encoder != the warmed encoder's")
     check_bytes("session", stream)
     qcif_sessions = []
     for iframe, qcif, qcfg in (
@@ -3503,10 +3733,9 @@ def main() -> int:
         elif on_card != on_cpu:
             raise AssertionError(f"QCIF {iframe} session stream on the card != CPU path stream")
         qcif_sessions.append(on_card)
-    for _ in range(E2E_REPS - 1):
-        e = Encoder(W, H, cfg, device=dev)
+    for _ in range(E2E_REPS - 1):  # the session goes on: an IDR every 8 frames
         t0 = time.perf_counter()
-        e.encode_sequence(frames)
+        enc.encode_sequence(frames)
         e2e_s.append(time.perf_counter() - t0)
     fps = sorted(N_SESSION / t for t in e2e_s)
     print(f"session path: {N_SESSION} frames {W}x{H} QP{QP} intra_every "
@@ -3515,9 +3744,9 @@ def main() -> int:
           f"({s_launches['deblock_frame'] / N_SESSION:g} K8 per frame); e2e fps median "
           f"{fps[len(fps) // 2]:.2f} (runs {', '.join(f'{v:.2f}' for v in fps)}) on {name}",
           flush=True)
-    e = Encoder(W, H, cfg, device=dev)
-    _, idr_ms = timed_once(torch, lambda: e.encode_frame(*frames[0]))
-    _, p_ms = timed_once(torch, lambda: e.encode_frame(*frames[1]))
+    # one replay of each program: the session stands at an IDR
+    _, idr_ms = timed_once(torch, lambda: enc.encode_frame(*frames[0]))
+    _, p_ms = timed_once(torch, lambda: enc.encode_frame(*frames[1]))
     i_state = Encoder(W, H, EncoderConfig(qp=QP), device=dev)
     i_state.encode_frame(*frames[0])
     i_state = encoder_state(i_state)
@@ -3525,15 +3754,18 @@ def main() -> int:
     print(f"session stages (device ms, one frame): idr_frame {idr_ms:.3f}, p_frame "
           f"{p_ms:.3f}, k8_i_state {k8_i_ms:.4f}, k8_p_state {k8['P', QP][1]:.4f} "
           f"on {name}", flush=True)
-    wall, busy, top = device_busy(
-        torch, lambda: Encoder(W, H, cfg, device=dev).encode_sequence(frames[:4]))
-    if busy > 0:
-        print(f"profiled 4-frame session encode (IDR + 3 P): wall {wall:.1f} ms, kernels "
-              f"{busy:.1f} ms, device busy {100 * busy / wall:.1f} % on {name}")
-        for key, ms_k, count in top:
-            print(f"  {ms_k:8.3f} ms  {count:6d} x  {key[:90]}")
-    else:
-        print("device busy share: not measured (the profiler saw no device time)")
+    # replay_busy runs its call twice and times the second: 4 P frames,
+    # then an IDR and 3 P frames (the content in order: no scene cut)
+    enc.encode_sequence(frames[2:4])
+    wall, busy, replays = replay_busy(torch, lambda: enc.encode_sequence(frames[4:8]))
+    print(f"timed 4-frame session encode (IDR + 3 P): wall {wall:.1f} ms, {replays} "
+          f"program replays {busy:.1f} ms on the device (CUDA events), device busy "
+          f"{100 * busy / wall:.1f} % on {name}", flush=True)
+    if enc.stats[-4]["idr"] is not True or any(st["idr"] for st in enc.stats[-3:]):
+        raise AssertionError("the timed session frames are not an IDR and 3 P frames")
+    print(capture_line("session", enc._programs, name), flush=True)
+    print(eager_beside(torch, "session", lambda: Encoder(W, H, cfg, device=dev),
+                       frames, name, 4), flush=True)
 
     print(f"[phase 9 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- 10. host path ----------------------------------------------------
@@ -3634,7 +3866,13 @@ def main() -> int:
           f"decodes card == CPU on {name}", flush=True)
 
     print(f"[phase 15 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
-    # ---- 16. result -------------------------------------------------------
+    # ---- 16. device programs against the eager launches ---------------------
+    t0 = time.perf_counter()
+    program_phase(torch, dev, name)
+    print(f"program phase: {time.perf_counter() - t0:.1f} s on {name}", flush=True)
+
+    print(f"[phase 16 done at {time.perf_counter() - t_start:.1f} s]", flush=True)
+    # ---- 17. result -------------------------------------------------------
     csrc = "h264_fer_tpu_torch/kernels/csrc/"
     rows = [("wavefront_i16", "h264_fer_tpu/kernels/wavefront_pallas.py:890",
              k1_launches, max(k1[q][0] for q in CHECK_QPS), k1[QP][1:]),

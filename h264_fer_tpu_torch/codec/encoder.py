@@ -28,10 +28,14 @@ frame_num / POC state machine of the slice headers, and per-frame stats.
 The reference frame and the per-MB state later frames read live where the
 P frames run. With device P frames they stay on the device (the planes,
 and per MB its class for the stats and the filter's intra test, its
-coded-block flags and quadrant MVs): the host reads one payload per frame
-(its size and stats, then its used words) and, with the scene cut on, one
-SAD. A host I frame uploads its reconstruction and state for the device P
-frame after it. With host P frames they stay in the HostEncoder's numpy
+coded-block flags and quadrant MVs), in static tensors that two device
+programs (codec/program.py) update in place: the IDR with its filter, and
+the P frame with the trailing-skip drop, the state updates and the filter;
+on a card each is one CUDA graph, replayed once a frame. Between replays
+the host reads one payload per frame (its size and stats, then its used
+words) and, with the scene cut on, one SAD. A host I frame uploads its
+reconstruction and state into those tensors for the device P frame after
+it. With host P frames they stay in the HostEncoder's numpy
 arrays, and a device I frame hands its reconstruction and syntax state to
 the host (the JAX encoder's _materialize).
 """
@@ -50,14 +54,23 @@ from ..bitstream.params import I_SLICE, P_SLICE, PPS, SPS, SliceHeader, paramete
 from ..kernels.deblock import deblock_frame
 from ..ops import transform
 from ..ops.cavlc_bulk import words_to_bytes
-from ..ops.device import DEFAULT_DEVICE, resolve_device, upload
+from ..ops.device import DEFAULT_DEVICE, resolve_device, upload, upload_into
 from .encoder_host import INTRA_CLASS, SKIP_CLASS, HostEncoder
 from .gop import restore_dropped, trailing_skip_drop
 from .iframe import device_i16_frame, device_mixed_frame
 from .intra_decision import intra_mode_decision
 from .pframe import device_p_frame
+from .program import DeviceProgram, fill, planes, program
 
 _DEVICE_IFRAMES = {"i16": device_i16_frame, "mixed": device_mixed_frame}
+
+
+def _head(nbits, mb_class):
+    """(8,) int64: the payload's bit count, then the MB-class histogram
+    (classes 0..6), as one tensor for one read-back."""
+    classes = torch.arange(7, dtype=torch.int32, device=mb_class.device)
+    hist = (mb_class[:, None] == classes).sum(dim=0)
+    return torch.cat([nbits.reshape(1).to(torch.int64), hist.to(torch.int64)])
 
 
 @dataclass
@@ -88,8 +101,9 @@ class Encoder:
     read back once per IDR, and only the bit-cost arbitration runs per MB.
     me: "full" (the host P frames' own integer search) or "topk" (the
     device's candidates; JAX's TpuMePipeline(window=window_size // 2)).
-    encode_frame takes uint8 numpy planes y (H, W), cb and cr (H/2, W/2)
-    and returns the frame's slice NAL."""
+    encode_frame takes uint8 numpy
+    planes y (H, W), cb and cr (H/2, W/2) and returns the frame's slice
+    NAL."""
 
     def __init__(self, width: int, height: int, cfg: EncoderConfig,
                  iframe: str = "i16", pframe: str = "device",
@@ -131,10 +145,13 @@ class Encoder:
         # the host frames' per-MB encoder and state
         self.host = (HostEncoder(width, height, cfg, self.qpc, self.device, me)
                      if iframe == "host" or self._pframe_host else None)
-        # with device P frames, on the device: the reference planes (the
-        # last frame as decoders hold it, filtered), the previous source
-        # luma, and per MB its class (0..6), coded-block flags (Z-scan) and
-        # quadrant MVs
+        # with device frames, on the device: the programs' input slots (the
+        # frame's planes) and state, updated in place: the reference planes
+        # (the last frame as decoders hold it, filtered), and per MB its
+        # class (0..6), coded-block flags (Z-scan) and quadrant MVs; and the
+        # previous source luma
+        self._programs = {}  # static key → DeviceProgram
+        self._slots = None
         self._ref = None
         self._prev_src = None
         self._mb_class = self._nz = self._mv = None
@@ -154,7 +171,8 @@ class Encoder:
         if self._pframe_host:
             return tuple(p.astype(np.uint8) for p in
                          (self.host.ref_y, self.host.ref_cb, self.host.ref_cr))
-        return tuple(p.cpu().numpy() for p in self._ref)
+        # a copy: the device programs update the state in place
+        return tuple(p.to("cpu", copy=True).numpy() for p in self._ref)
 
     def _is_idr(self, y) -> bool:
         """selectNALUnitType (encoder._select_nal_unit_type): the first frame
@@ -200,36 +218,79 @@ class Encoder:
         shd.write(w, self.sps, self.pps, nal_mod.NAL_IDR if is_idr else nal_mod.NAL_NOT_IDR, 1)
         return w
 
-    def _idr(self, y, cb, cr):
-        """Code an IDR; returns its payload dict."""
-        out = self._iframe(y, cb, cr, self.qpy, self.qpc, deblock=self.cfg.deblock)
-        self._ref = (out["recon_y"], out["recon_cb"], out["recon_cr"])
-        self._mb_class = torch.full((self.nmb,), INTRA_CLASS, dtype=torch.int32,
-                                    device=self.device)
-        self._nz = out["nz_luma"]
-        self._mv = torch.zeros((self.nmb, 4, 2), dtype=torch.int32, device=self.device)
-        return out
+    def _state(self) -> dict:
+        """The device programs' slots, made on first use: the frame's
+        planes y, cb, cr and the state ref_y, ref_cb, ref_cr, mv, mb_class,
+        nz, which self._ref, _mv, _mb_class and _nz name."""
+        if self._slots is None:
+            dev, nmb = self.device, self.nmb
+            self._slots = {
+                "y": planes((self.h, self.w), dev),
+                "cb": planes((self.h // 2, self.w // 2), dev),
+                "cr": planes((self.h // 2, self.w // 2), dev),
+                "ref_y": planes((self.h, self.w), dev),
+                "ref_cb": planes((self.h // 2, self.w // 2), dev),
+                "ref_cr": planes((self.h // 2, self.w // 2), dev),
+                "mv": torch.zeros((nmb, 4, 2), dtype=torch.int32, device=dev),
+                "mb_class": torch.zeros(nmb, dtype=torch.int32, device=dev),
+                "nz": torch.zeros((nmb, 16), dtype=torch.bool, device=dev)}
+            st = self._slots
+            self._ref = (st["ref_y"], st["ref_cb"], st["ref_cr"])
+            self._mv, self._mb_class, self._nz = st["mv"], st["mb_class"], st["nz"]
+        return self._slots
 
-    def _p_frame(self, y, cb, cr, hdr_bits: int):
-        """Code a P frame (encoder._device_pframe_encode_full): the device P
-        frame, then the trailing-skip drop, which restores the previous
-        frame's (filtered) samples and its MB state at the MBs decoders never
-        read, then the filter on the whole frame, which reads that restored
-        state. Returns its payload dict."""
+    def _idr_program(self) -> DeviceProgram:
+        """The IDR program: the device I frame (filtered under cfg.deblock)
+        into the state, every MB intra, zero MVs. Outputs: the frame
+        function's, and head (nbits, then the MB-class histogram), all
+        static (read before the next frame)."""
+        frame, qp, qpc, deblock = self._iframe, self.qpy, self.qpc, self.cfg.deblock
+
+        def body(y, cb, cr, ref_y, ref_cb, ref_cr, mv, mb_class, nz):
+            out = frame(y, cb, cr, qp, qpc, deblock=deblock)
+            fill((ref_y, ref_cb, ref_cr, nz),
+                 (out["recon_y"], out["recon_cb"], out["recon_cr"], out["nz_luma"]))
+            mb_class.fill_(INTRA_CLASS)
+            mv.zero_()
+            return {**out, "head": _head(out["nbits"], mb_class)}
+
+        key = ("idr", frame.__name__, self.w, self.h, qp, deblock, self.device)
+        return program(self._programs, key,
+                       lambda: DeviceProgram(body, self._state()))
+
+    def _p_program(self, hdr_bits: int) -> DeviceProgram:
+        """The P frame program (encoder._device_pframe_encode_full): the
+        device P frame, then the trailing-skip drop, which restores the
+        previous frame's (filtered) samples and its MB state at the MBs
+        decoders never read, then the filter on the whole frame, which reads
+        that restored state; the state updated in place. hdr_bits: the
+        slice header's bit count, baked in. Outputs: words, nbits, head, all
+        static."""
         cfg = self.cfg
-        out = device_p_frame(y, cb, cr, *self._ref, self._mv, cfg.window_size // 2,
-                             self.qpy, self.qpc, cfg.maxdiff,
-                             bool(cfg.lossy_prefilter and self.qpy < 36))
-        keep = trailing_skip_drop(out["skip"], out["nbits"], out["trail_bits"], hdr_bits)
-        ry, rcb, rcr, self._mv = restore_dropped(keep, (*self._ref, self._mv), out)
-        mb_class = torch.where(out["skip"], SKIP_CLASS, out["raw_type"].clamp(max=4))
-        self._mb_class = torch.where(keep, self._mb_class, mb_class).to(torch.int32)
-        self._nz = torch.where(keep[:, None], self._nz, out["nz_luma"])
-        if cfg.deblock:
-            ry, rcb, rcr = deblock_frame(ry, rcb, rcr, self._mb_class == INTRA_CLASS,
-                                         self._nz, self._mv, self.qpy, self.qpc)
-        self._ref = (ry, rcb, rcr)
-        return out
+        window, qp, qpc = cfg.window_size // 2, self.qpy, self.qpc
+        maxdiff, prefilter = cfg.maxdiff, bool(cfg.lossy_prefilter and qp < 36)
+        deblock = cfg.deblock
+
+        def body(y, cb, cr, ref_y, ref_cb, ref_cr, mv, mb_class, nz):
+            out = device_p_frame(y, cb, cr, ref_y, ref_cb, ref_cr, mv, window, qp, qpc,
+                                 maxdiff, prefilter)
+            keep = trailing_skip_drop(out["skip"], out["nbits"], out["trail_bits"], hdr_bits)
+            ry, rcb, rcr, new_mv = restore_dropped(keep, (ref_y, ref_cb, ref_cr, mv), out)
+            cls = torch.where(out["skip"], SKIP_CLASS, out["raw_type"].clamp(max=4))
+            new_cls = torch.where(keep, mb_class, cls).to(torch.int32)
+            new_nz = torch.where(keep[:, None], nz, out["nz_luma"])
+            if deblock:
+                ry, rcb, rcr = deblock_frame(ry, rcb, rcr, new_cls == INTRA_CLASS, new_nz,
+                                             new_mv, qp, qpc)
+            fill((ref_y, ref_cb, ref_cr, mv, mb_class, nz),
+                 (ry, rcb, rcr, new_mv, new_cls, new_nz))
+            return {"words": out["words"], "nbits": out["nbits"],
+                    "head": _head(out["nbits"], mb_class)}
+
+        key = ("p", self.w, self.h, qp, window, maxdiff, prefilter, deblock, hdr_bits,
+               self.device)
+        return program(self._programs, key,
+                       lambda: DeviceProgram(body, self._state()))
 
     def _host_frame(self, w: BitWriter, is_idr: bool, src, y_dev):
         """Code a frame on the host (encoder_host); returns (RBSP, the MB-class
@@ -245,11 +306,13 @@ class Encoder:
         rbsp = h.encode_slice(w, is_idr, *src, modes)
         mb_class = h.mb_class()
         if not self._pframe_host:
-            dev = self.device
-            self._ref = tuple(upload(p, dev) for p in (h.ref_y, h.ref_cb, h.ref_cr))
-            self._mb_class = torch.from_numpy(mb_class).to(dev)
-            self._nz = torch.from_numpy(h.nz_luma).to(dev)
-            self._mv = torch.from_numpy(np.ascontiguousarray(h.mv[:, :, 0])).to(dev)
+            # into the state tensors, in place: the programs hold their addresses
+            st = self._state()
+            for name, p in zip(("ref_y", "ref_cb", "ref_cr"), (h.ref_y, h.ref_cb, h.ref_cr)):
+                upload_into(st[name], p)
+            fill((st["mb_class"], st["nz"], st["mv"]),
+                 (torch.from_numpy(mb_class), torch.from_numpy(h.nz_luma),
+                  torch.from_numpy(np.ascontiguousarray(h.mv[:, :, 0]))))
         return rbsp, np.bincount(mb_class, minlength=7).tolist()
 
     def _device_frame(self, w: BitWriter, is_idr: bool, y, cb, cr):
@@ -257,13 +320,9 @@ class Encoder:
         histogram). One transfer for the payload size and the histogram, one
         for the payload's used words. With host P frames after an IDR, its
         reconstruction and syntax state go to the host."""
-        if is_idr:
-            out = self._idr(y, cb, cr)
-        else:
-            out = self._p_frame(y, cb, cr, w.bit_position)
-        head = torch.cat([out["nbits"].reshape(1).to(torch.int64),
-                          torch.bincount(self._mb_class, minlength=7).to(torch.int64)])
-        nbits, *mb_types = (int(v) for v in head.cpu())
+        prog = self._idr_program() if is_idr else self._p_program(w.bit_position)
+        out = prog(y=y, cb=cb, cr=cr)
+        nbits, *mb_types = (int(v) for v in out["head"].cpu())
         words = out["words"][: (nbits + 63) // 64].cpu().numpy()
         w.append_bits(words_to_bytes(words, nbits), nbits)
         w.rbsp_trailing_bits()

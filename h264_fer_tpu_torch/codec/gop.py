@@ -6,7 +6,9 @@ frame through the device P frame, chained by the codec's cross-frame state,
 the reconstructed reference planes (a DPB of depth 1) and the previous
 frame's final MVs (the temporal refinement centres). The reference's
 lax.scan is a Python loop here; the state stays on the device and nothing
-is read back, so a whole GOP is queued without a host sync.
+is read back, so a whole GOP is queued without a host sync, and
+parallel/gop_device.GopIpppEncoder captures it as one CUDA graph per GOP
+length and lane (codec/program.py).
 """
 
 from __future__ import annotations
@@ -47,7 +49,8 @@ def restore_dropped(keep, ref, out):
     frame's (y, cb, cr, mv): what decoders hold after the frame."""
     ref_y, ref_cb, ref_cr, prev_mv = ref
     wmb = ref_y.shape[1] // 16
-    keep_px = keep.reshape(-1, wmb).repeat_interleave(16, 0).repeat_interleave(16, 1)
+    hmb = keep.shape[0] // wmb
+    keep_px = keep.reshape(hmb, 1, wmb, 1).expand(hmb, 16, wmb, 16).reshape(16 * hmb, 16 * wmb)
     keep_c = keep_px[::2, ::2]
     return (torch.where(keep_px, ref_y, out["recon_y"]),
             torch.where(keep_c, ref_cb, out["recon_cb"]),
@@ -70,18 +73,19 @@ def device_gop_ippp(ys, cbs, crs, p_hdr_bits, window: int, qp: int, qpc: int,
 
     ys / cbs / crs: sequences of uint8 planes, frame 0 the IDR; p_hdr_bits:
     the slice-header bit count of each P frame (host ints, GopIpppEncoder's
-    precomputed headers). Returns dict: frames, one payload dict (words,
-    nbits) per frame, and recon_y / recon_cb / recon_cr, the final
-    reference planes."""
+    precomputed headers). Returns dict: frames, one dict per frame (words,
+    nbits, and recon: the frame's reference planes as decoders hold them,
+    after the trailing-skip drop), and recon_y / recon_cb / recon_cr and
+    mv, the final reference planes and MVs."""
     i_out = device_i16_frame(ys[0], cbs[0], crs[0], qp, qpc)
     nmb = i_out["mb_type"].shape[0]
     ref = (i_out["recon_y"], i_out["recon_cb"], i_out["recon_cr"],
            torch.zeros((nmb, 4, 2), dtype=torch.int32, device=ys[0].device))
-    frames = [{"words": i_out["words"], "nbits": i_out["nbits"]}]
+    frames = [{"words": i_out["words"], "nbits": i_out["nbits"], "recon": ref[:3]}]
     for y, cb, cr, hdr_bits in zip(ys[1:], cbs[1:], crs[1:], p_hdr_bits):
         out = device_p_frame(y, cb, cr, *ref, window, qp, qpc, cfg_maxdiff,
                              prefilter)
         ref = next_reference(ref, out, int(hdr_bits))
-        frames.append({"words": out["words"], "nbits": out["nbits"]})
+        frames.append({"words": out["words"], "nbits": out["nbits"], "recon": ref[:3]})
     return {"frames": frames, "recon_y": ref[0], "recon_cb": ref[1],
-            "recon_cr": ref[2]}
+            "recon_cr": ref[2], "mv": ref[3]}

@@ -64,7 +64,9 @@ def on_card(x) -> bool:
     return True
 
 
-@functools.lru_cache(maxsize=256)
+# unbounded: a captured device program (codec/program.py) keeps the
+# address of every table it read, so no table may be freed
+@functools.lru_cache(maxsize=None)
 def _const(data: bytes, dtype: str, shape: tuple, device: torch.device):
     arr = np.frombuffer(data, dtype=np.dtype(dtype)).reshape(shape)
     return torch.from_numpy(arr.copy()).to(device)
@@ -84,7 +86,25 @@ def upload(plane, device) -> torch.Tensor:
     non-blocking copy when the device is a card, so that the host goes on
     queueing work."""
     plane = np.asarray(plane, dtype=np.uint8)
-    host = torch.empty(plane.shape, dtype=torch.uint8,
-                       pin_memory=device.type == "cuda")
-    host.numpy()[...] = plane
-    return host.to(device, non_blocking=True)
+    out = torch.empty(plane.shape, dtype=torch.uint8, device=device)
+    upload_into(out, plane)
+    return out
+
+
+def upload_into(slot, planes) -> None:
+    """Copy uint8 host planes into the uint8 tensor `slot` (a device
+    program's input slot) on the current stream: `planes` one plane of
+    slot's shape, or a sequence of planes that fill its first dimension.
+    On a card, through a fresh pinned host buffer and a non-blocking copy,
+    so that the host goes on queueing work."""
+    host = torch.empty(slot.shape, dtype=torch.uint8,
+                       pin_memory=slot.device.type == "cuda")
+    arr = host.numpy()
+    if isinstance(planes, (list, tuple)):
+        if len(planes) != arr.shape[0]:
+            raise ValueError(f"{len(planes)} planes for a slot of {arr.shape[0]}")
+        for dst, plane in zip(arr, planes):
+            dst[...] = plane
+    else:
+        arr[...] = planes
+    slot.copy_(host, non_blocking=True)

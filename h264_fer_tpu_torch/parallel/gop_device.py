@@ -8,8 +8,11 @@ each entry is a lane (`Lane`), on a card a CUDA stream of its own, so
 ["cuda:0"] * 2 runs two shares on one card and ["cpu"] * n is what the CPU
 tests pass. IDR frames (all-intra) and GOPs (IPPP) are independent, so
 they split into contiguous shares, one per lane. Every lane uploads its
-frames (pinned host buffer, non-blocking copy) and queues their device
-programs on its stream before any payload is read back; the host then
+frames (pinned host buffer, non-blocking copy) straight into the input
+slots of its device program (codec/program.py: on a card one CUDA graph
+per frame kind or GOP length and lane, captured on first use) and replays
+it on its stream, for every frame or GOP before any payload is read back;
+the program copies each payload out of its static outputs. The host then
 reads each lane's payloads (every size in one transfer, the used words of
 all payloads in a second one) and writes SPS/PPS once and one NAL per frame
 in the serial order, with the serial encoder's slice-header sequence, so
@@ -33,18 +36,21 @@ from ..bitstream.bitio import BitWriter
 from ..bitstream.params import I_SLICE, P_SLICE, PPS, SPS, SliceHeader, parameter_sets
 from ..codec.gop import device_gop_ippp
 from ..codec.iframe import device_i16_frame, device_mixed_frame
+from ..codec.program import DeviceProgram, planes, program
 from ..ops import transform
 from ..ops.cavlc_bulk import words_to_bytes
-from ..ops.device import DEFAULT_DEVICE, resolve_devices, upload
+from ..ops.device import DEFAULT_DEVICE, resolve_devices, upload_into
 
 
 class Lane:
-    """One entry of a device list: its device and, on a card, a CUDA stream
-    of its own, on which the work queued under `queue()` runs."""
+    """One entry of a device list: its device, on a card a CUDA stream of
+    its own, on which the work queued under `queue()` runs, and its device
+    programs (one instance per key and lane)."""
 
     def __init__(self, device: torch.device) -> None:
         self.device = device
         self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self.programs = {}  # static key → DeviceProgram
 
     def queue(self):
         """Context in which work goes to the lane's stream (and its card is
@@ -173,7 +179,9 @@ class GopIntraEncoder(_Stream):
         self.device = self.devices[0]
         self.lanes = [Lane(d) for d in self.devices]
         self.deblock = bool(deblock)
+        self.mode = mode
         self._frame = device_mixed_frame if mode == "mixed" else device_i16_frame
+        self.recon = []
         self.w, self.h, self.qp = width, height, qp
         self.wmb, self.hmb = width // 16, height // 16
         self.qpc = transform.chroma_qp(qp, 0)
@@ -182,18 +190,40 @@ class GopIntraEncoder(_Stream):
         self.pps = PPS(pic_init_qp=14 + qp,
                        deblocking_filter_control_present_flag=int(self.deblock))
 
-    def _queue(self, frames):
+    def _program(self, lane: Lane) -> DeviceProgram:
+        """The lane's frame program (device_i16_frame or
+        device_mixed_frame): input slots y, cb, cr; every output of the
+        frame function, the payload copied out per call."""
+        def make():
+            frame, qp, qpc = self._frame, self.qp, self.qpc
+            slots = {"y": planes((self.h, self.w), lane.device),
+                     "cb": planes((self.h // 2, self.w // 2), lane.device),
+                     "cr": planes((self.h // 2, self.w // 2), lane.device)}
+            return DeviceProgram(lambda y, cb, cr: frame(y, cb, cr, qp, qpc), slots,
+                                 ("words", "nbits"))
+
+        key = (self.mode, self.w, self.h, self.qp, lane.device)
+        return program(lane.programs, key, make)
+
+    def _queue(self, frames, keep_recon: bool = False):
         """Queue every frame's device program, each lane its share, on its
-        own stream; returns each lane's payloads (on its device, nothing
-        read back)."""
+        own stream: the planes uploaded into its input slots, then one
+        replay. Returns each lane's payloads (on its device, nothing read
+        back); with keep_recon, each frame's recon planes go to
+        self.recon in frame order."""
         split = shares(len(frames), len(self.lanes))
         out = [[] for _ in self.lanes]
+        recon = [None] * len(frames)
         for i, f in interleave(split):
             lane = self.lanes[i]
             with lane.queue():
-                y, cb, cr = (upload(p, lane.device) for p in frames[f])
-                res = self._frame(y, cb, cr, self.qp, self.qpc)
+                prog = self._program(lane)
+                for name, plane in zip(("y", "cb", "cr"), frames[f]):
+                    upload_into(prog.slots[name], plane)
+                res = prog(keep=prog.keep + (_RECON if keep_recon else ()))
             out[i].append({"words": res["words"], "nbits": res["nbits"]})
+            recon[f] = tuple(res[k] for k in _RECON)
+        self.recon = recon if keep_recon else []
         return out
 
     def _write(self, read, idr_base: int) -> bytes:
@@ -209,11 +239,12 @@ class GopIntraEncoder(_Stream):
         the first frame."""
         return self._write(read_payloads(payloads), idr_base)
 
-    def encode_sequence(self, frames, idr_base: int = 0) -> bytes:
+    def encode_sequence(self, frames, idr_base: int = 0, keep_recon: bool = False) -> bytes:
         """frames: list of (y, cb, cr) uint8 numpy planes. Returns the full
         Annex-B stream. idr_base: idr_pic_id of frames[0] (a span of a
-        longer sequence, parallel/dist.py)."""
-        read = read_lanes(self.lanes, self._queue(frames))
+        longer sequence, parallel/dist.py). keep_recon: keep each frame's
+        recon planes (device tensors) in self.recon."""
+        read = read_lanes(self.lanes, self._queue(frames, keep_recon))
         return self._write([p for lane in read for p in lane], idr_base)
 
 
@@ -230,7 +261,8 @@ class GopIpppEncoder(_Stream):
     deblock=False. window_size: the full search width (a search of
     +-window_size // 2 full pel); maxdiff: the tolerated error, -1 for the
     adaptive per-MB MAXDIFF; lossy_prefilter: the MAXDIFF source prefilter,
-    which runs below QP 36 only.
+    which runs below QP 36 only. Each lane keeps the programs of its
+    GOP_PROGRAMS most recently used GOP lengths.
     """
 
     def __init__(self, width: int, height: int, qp: int, gop_len: int,
@@ -244,6 +276,7 @@ class GopIpppEncoder(_Stream):
         self.device = self.devices[0]
         self.lanes = [Lane(d) for d in self.devices]
         self.scene_cut_source = bool(scene_cut_source)
+        self.recon = []
         self.w, self.h, self.qp, self.T = width, height, qp, gop_len
         self.wmb, self.hmb = width // 16, height // 16
         self.nmb = self.wmb * self.hmb
@@ -301,20 +334,60 @@ class GopIpppEncoder(_Stream):
         lens.append(b - cur)
         return lens
 
-    def _queue(self, frames, lens):
+    def _program(self, lane: Lane, n: int) -> DeviceProgram:
+        """The lane's program of a GOP of n frames (device_gop_ippp, the P
+        slice headers' bit counts baked in per place): input slots ys, cbs,
+        crs, (n, H, W) and (n, H/2, W/2) uint8, frame 0 the IDR. Outputs:
+        words (a list of n payloads) and nbits ((n,)), copied out per call;
+        recon, the n frames' reference planes as decoders hold them (3n
+        planes); recon_y / recon_cb / recon_cr and mv, the final reference
+        state."""
+        hdr_bits = tuple(self.hdr_bits[: n - 1])
+        window, qp, qpc, maxdiff, prefilter = (self.window, self.qp, self.qpc, self.maxdiff,
+                                               self.prefilter)
+
+        def body(ys, cbs, crs):
+            out = device_gop_ippp(ys.unbind(0), cbs.unbind(0), crs.unbind(0), hdr_bits,
+                                  window, qp, qpc, maxdiff, prefilter)
+            frames = out["frames"]
+            return {"words": [f["words"] for f in frames],
+                    "nbits": torch.stack([f["nbits"] for f in frames]),
+                    "recon": [p for f in frames for p in f["recon"]],
+                    **{k: out[k] for k in ("recon_y", "recon_cb", "recon_cr", "mv")}}
+
+        def make():
+            dev = lane.device
+            slots = {"ys": planes((self.h, self.w), dev, n),
+                     "cbs": planes((self.h // 2, self.w // 2), dev, n),
+                     "crs": planes((self.h // 2, self.w // 2), dev, n)}
+            return DeviceProgram(body, slots, ("words", "nbits"))
+
+        key = ("ippp", self.w, self.h, self.qp, self.window, self.maxdiff, self.prefilter,
+               n, hdr_bits, lane.device)
+        return program(lane.programs, key, make, GOP_PROGRAMS)
+
+    def _queue(self, frames, lens, keep_recon: bool = False):
         """Queue every GOP's device program, each lane a contiguous share of
-        the GOPs on its own stream; returns each lane's payloads of all its
-        frames in order (on its device, nothing read back)."""
+        the GOPs on its own stream: the GOP's planes uploaded into its input
+        slots, then one replay. Returns each lane's payloads of all its
+        frames in order (on its device, nothing read back); with
+        keep_recon, each frame's reference planes go to self.recon in frame
+        order."""
         starts = np.cumsum([0] + lens[:-1])
         out = [[] for _ in self.lanes]
+        recon = [None] * len(lens)
         for i, g in interleave(shares(len(lens), len(self.lanes))):
             lane, s, n = self.lanes[i], int(starts[g]), lens[g]
             with lane.queue():
-                ys, cbs, crs = ([upload(f[k], lane.device) for f in frames[s: s + n]]
-                                for k in range(3))
-                out[i] += device_gop_ippp(ys, cbs, crs, self.hdr_bits[: n - 1],
-                                          self.window, self.qp, self.qpc,
-                                          self.maxdiff, self.prefilter)["frames"]
+                prog = self._program(lane, n)
+                for k, name in enumerate(("ys", "cbs", "crs")):
+                    upload_into(prog.slots[name], [f[k] for f in frames[s: s + n]])
+                res = prog(keep=prog.keep + (("recon",) if keep_recon else ()))
+            out[i] += [{"words": w, "nbits": res["nbits"][j]}
+                       for j, w in enumerate(res["words"])]
+            if keep_recon:
+                recon[g] = [tuple(res["recon"][3 * j: 3 * j + 3]) for j in range(n)]
+        self.recon = [r for gop in recon for r in gop] if keep_recon else []
         return out
 
     def _write(self, read, lens) -> bytes:
@@ -339,12 +412,21 @@ class GopIpppEncoder(_Stream):
         on one device, queued on the current stream)."""
         return self._write([[p] for p in read_payloads(payloads)], lens)
 
-    def encode_sequence(self, frames) -> bytes:
+    def encode_sequence(self, frames, keep_recon: bool = False) -> bytes:
         """frames: list of (y, cb, cr) uint8 numpy planes. Returns the full
-        Annex-B stream."""
+        Annex-B stream. keep_recon: keep each frame's reference planes as
+        decoders hold them (device tensors) in self.recon."""
         lens = self._gop_lengths(frames)
-        read = read_lanes(self.lanes, self._queue(frames, lens))
+        read = read_lanes(self.lanes, self._queue(frames, lens, keep_recon))
         return self._write([[p] for lane in read for p in lane], lens)
+
+
+_RECON = ("recon_y", "recon_cb", "recon_cr")
+# the GOP programs a lane of GopIpppEncoder keeps, one per GOP length (a
+# short last GOP and scene cuts make lengths 1..gop_len): every length of
+# GOPs of up to 8 frames; past them a new length drops the least recently
+# used program, its graph and the memory pool of its outputs
+GOP_PROGRAMS = 8
 
 
 def scaling_frames(width: int, height: int, n_frames: int):

@@ -1,8 +1,7 @@
 """The port's Intra_4x4 pieces against the JAX package, exactly (tolerance
-0): Intra4x4 prediction, the full intra mode decision, the plain K4x4
-(recon and levels) against the Pallas kernel pallas_i4x4_luma run in
-interpret mode on the CPU (as tests/test_pallas_wavefront.py runs it), and
-the plain K7 (the chroma wavefront) against wavefront_chroma_impl.
+0): Intra4x4 prediction, the full intra mode decision and the plain K7 (the
+chroma wavefront) against wavefront_chroma_impl; the plain K4x4 against the
+Pallas kernel is in tests/test_torch_i4x4_k4x4.py.
 
 The CUDA kernels themselves are held against the plain versions on the
 card by chip_smoke.py; here the wrappers must route CPU tensors to the
@@ -16,7 +15,6 @@ import jax.numpy as jnp
 
 from h264_fer_tpu.codec.tpu_intra import intra_mode_decision as jax_decision
 from h264_fer_tpu.kernels.wavefront import wavefront_chroma
-from h264_fer_tpu.kernels.wavefront_pallas import pallas_i4x4_luma
 from h264_fer_tpu.ops import intra as jax_intra
 from h264_fer_tpu.ops.transform import chroma_qp
 from h264_fer_tpu_torch.codec.intra_decision import intra_mode_decision
@@ -66,27 +64,6 @@ def test_mode_decision_matches_jax(wh, qp):
     for key in ("mode16", "satd16", "mode4", "satd4"):
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]),
                                       err_msg=f"{key} {w}x{h} qp{qp}")
-
-
-@pytest.mark.parametrize("wh", GRIDS)
-def test_plain_k4x4_matches_pallas(wh):
-    """In the decided modes at QP 28, and in random modes everywhere, the
-    frame edges included, at QP 10."""
-    w, h = wh
-    rng = np.random.default_rng(11)
-    y = _luma(rng, w, h)
-    nmb = (w // 16) * (h // 16)
-    decided = np.array(jax_decision(jnp.asarray(y), wmb=w // 16, hmb=h // 16,
-                                    qp=28, modes_only=True)["mode4"], np.int32)
-    for qp, m4 in ((28, decided),
-                   (10, rng.integers(0, 9, (nmb, 16)).astype(np.int32))):
-        want = pallas_i4x4_luma(jnp.asarray(y), jnp.asarray(m4), wmb=w // 16,
-                                hmb=h // 16, qp=qp)
-        got = i4x4_luma(torch.from_numpy(y.astype(np.uint8)),
-                        torch.from_numpy(m4), qp)
-        for name, g, r in zip(("recon", "levels"), got, want):
-            np.testing.assert_array_equal(g.numpy(), np.asarray(r),
-                                          err_msg=f"{name} {w}x{h} qp{qp}")
 
 
 @pytest.mark.parametrize("wh", GRIDS)

@@ -1,7 +1,7 @@
-"""The plain PyTorch K1 wavefront plus levels (K1t's plain twin) equals the
-JAX package's I16 wavefronts, pallas_i16_frame_fast and pallas_i16_frame,
-run in interpret mode on the CPU (as tests/test_pallas_wavefront.py runs
-them), exactly.
+"""The plain PyTorch K1 wavefront plus levels equals the JAX package's I16
+wavefront pallas_i16_frame_fast, run in interpret mode on the CPU (as
+tests/test_pallas_wavefront.py runs it), exactly; K1t's plain twin against
+pallas_i16_frame is in tests/test_torch_wavefront_k1t.py.
 
 The CUDA kernels themselves are held against the plain versions on the card
 by chip_smoke.py; here the wrappers must route CPU tensors to the plain
@@ -14,7 +14,7 @@ import torch
 import jax.numpy as jnp
 
 from h264_fer_tpu.kernels.wavefront import wavefront_i16_frame
-from h264_fer_tpu.kernels.wavefront_pallas import pallas_i16_frame, pallas_i16_frame_fast
+from h264_fer_tpu.kernels.wavefront_pallas import pallas_i16_frame_fast
 from h264_fer_tpu.ops.intra import INTRA16_TO_CHROMA_MODE
 from h264_fer_tpu.ops.transform import chroma_qp
 from h264_fer_tpu_torch.codec.intra_decision import intra16_mode_decision_plain
@@ -66,23 +66,6 @@ def test_plain_k1_and_levels_match_pallas_fast(wh, qp):
         jnp.asarray(cm), wmb=w // 16, hmb=h // 16, qp=qp, qpc=chroma_qp(qp))
     got = _port(planes, m16, cm, qp)
     _compare(ref, got, f"{w}x{h} qp{qp}")
-
-
-@pytest.mark.parametrize("wh", [(176, 144), (80, 176)])
-@pytest.mark.parametrize("qp", [10, 40])
-def test_plain_k1t_matches_pallas_i16_frame(wh, qp):
-    """K1t's plain twin gives the tuple of pallas_i16_frame, the Pallas
-    kernel that writes the levels itself, run in interpret mode as
-    tests/test_pallas_wavefront.py runs it."""
-    w, h = wh
-    planes = _planes(np.random.default_rng(7), w, h)
-    y32, cb32, cr32 = (jnp.asarray(p, jnp.int32) for p in planes)
-    m16, cm = _decided_modes(planes[0], qp)
-    ref = pallas_i16_frame(y32, cb32, cr32, jnp.asarray(m16), jnp.asarray(cm),
-                           wmb=w // 16, hmb=h // 16, qp=qp, qpc=chroma_qp(qp))
-    t = [torch.from_numpy(p) for p in planes]
-    got = i16_frame_plain(*t, torch.from_numpy(m16), torch.from_numpy(cm), qp, chroma_qp(qp))
-    _compare(ref, got, f"K1t {w}x{h} qp{qp}")
 
 
 @pytest.mark.parametrize("qp", [0, 27, 51])
